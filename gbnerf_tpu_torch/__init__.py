@@ -1,0 +1,19 @@
+"""gbnerf_tpu_torch — the PyTorch/CUDA port of gbnerf_tpu, for NVIDIA Hopper.
+
+The JAX package ``gbnerf_tpu`` is the reference: this package keeps its
+layout and its module and function names so that each counterpart is easy
+to find, and its tests hold every module against the JAX function it
+replaces on the same inputs.
+
+Layer map (mirrors gbnerf_tpu):
+  core/   rays, encodings, fields, sampling, volume rendering
+  ops/    hand-written CUDA kernels (csrc/) with their plain PyTorch versions
+  train/  field construction, render functions, eval renders
+  utils/  metrics
+
+This package imports ``torch`` and never ``jax``: the machine with the card
+has no JAX. Only ``config.py`` reaches into ``gbnerf_tpu``, for its
+dependency-free config schema.
+"""
+
+__version__ = "0.1.0"

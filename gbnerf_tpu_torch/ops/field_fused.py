@@ -1,0 +1,195 @@
+"""Fused CP-field forward: plain PyTorch version and the Hopper kernel.
+
+Port of gbnerf_tpu/ops/field_fused.py. ``cp_field_fused`` maps points in
+[0, 1]³ and their SH direction features to raw [N, 4] (rgb logits ⊕ σ):
+the unified-line CP encode, the σ-net F → 64 → 16 and the colour net
+SH ⊕ geo(15) = 31 → 64 → 64 → 3, with every matmul operand rounded to
+bf16 and accumulated in f32.
+
+- On a CPU tensor it runs the plain version (``encode_oracle`` +
+  ``heads_apply``), which the CPU tests hold against the JAX package.
+- On a CUDA tensor it launches csrc/field_fused.cu (K1, or K2 when
+  ``sigma_only``) or raises. There is no fallback.
+
+The kernel is forward-only: the backward kernel (K4, ``_kernel_bwd``)
+comes with training, so a CUDA call that would need a gradient raises.
+On the layout: the TPU kernel works in [features, points], a Mosaic layout
+choice; the port keeps the public [points, features] layout throughout.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from ._build import kernel_function
+
+# Ws dict keys, Dense-style [in, out] orientation (as in the JAX package).
+W_KEYS = ("ws0", "ws1", "wc0", "wc1", "wc2")
+SIGMA_WIDTH, GEO, SH_DIM, COLOR_WIDTH = 64, 16, 16, 64
+
+# Launches of each kernel since the last reset: chip_smoke.py zeroes them
+# before the main path and reads them after, to show that it ran here.
+LAUNCHES = {"field_fused": 0, "field_fused_sigma": 0}
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and return f32. A bf16 @ bf16 torch.matmul returns
+    bf16, one rounding more than JAX's preferred_element_type=f32, so the
+    plain version multiplies bf16-rounded operands in f32 instead."""
+    return t.to(torch.bfloat16).float()
+
+
+def heads_apply(enc: torch.Tensor, sh: Optional[torch.Tensor],
+                Ws: Dict[str, torch.Tensor], *, sigma_only: bool = False
+                ) -> torch.Tensor:
+    """σ/colour MLP heads on an encoding — plain version, [points, feats].
+
+    bf16 operands, f32 accumulation, relu in f32. Returns raw [..., 4]
+    (rgb logits ⊕ σ); rgb is zero when sigma_only (sh is then unused).
+    """
+
+    def dot(h, w):
+        return _bf16(h) @ _bf16(w)
+
+    h = torch.relu(dot(enc, Ws["ws0"]))
+    h = dot(h, Ws["ws1"])                          # [..., 16]
+    sigma = h[..., :1]
+    if sigma_only:
+        return torch.cat([torch.zeros(sigma.shape[:-1] + (3,),
+                                      dtype=sigma.dtype, device=sigma.device),
+                          sigma], dim=-1)
+    hc = torch.cat([sh.float(), h[..., 1:]], dim=-1)
+    h = torch.relu(dot(hc, Ws["wc0"]))
+    h = torch.relu(dot(h, Ws["wc1"]))
+    rgb = dot(h, Ws["wc2"])
+    return torch.cat([rgb, sigma], dim=-1)
+
+
+def encode_oracle(x01: torch.Tensor, ulines: torch.Tensor) -> torch.Tensor:
+    """Unified triangle-kernel CP encode — plain version, [points, feats].
+
+    Materialises one [N, R_max] f32 weight matrix per axis: at N = 4 M
+    points and R_max = 257 that is ≈ 4.3 GB, so compare against it on a
+    subset of points.
+    """
+    r_max = ulines.shape[1]
+    pos = torch.arange(r_max, dtype=torch.float32, device=x01.device)
+    prod = None
+    for axis in range(3):
+        u = torch.clamp(x01[..., axis].float(), 0.0, 1.0) * (r_max - 1)
+        w = torch.clamp(1.0 - torch.abs(pos - u[..., None]), min=0.0)
+        fa = _bf16(w) @ _bf16(ulines[axis])
+        prod = fa if prod is None else prod * fa
+    return prod
+
+
+def field_plain(x01, sh, ulines, Ws, *, sigma_only: bool = False):
+    """The plain version of K1/K2 (the JAX package's ``_oracle``)."""
+    return heads_apply(encode_oracle(x01, ulines), sh, Ws,
+                       sigma_only=sigma_only)
+
+
+def cp_field_fused(x01: torch.Tensor, sh: Optional[torch.Tensor],
+                   ulines: torch.Tensor, Ws: Dict[str, torch.Tensor], *,
+                   sigma_only: bool = False) -> torch.Tensor:
+    """Fused CP-field forward: points + SH → raw [N, 4] (rgb logits ⊕ σ).
+
+    Args:
+      x01: [N, 3] points in [0, 1]³, f32.
+      sh: [N, 16] per-point SH direction encoding, f32; unused (may be
+        None) when sigma_only.
+      ulines: [3, R_max, F] unified (upsampled) CP lines.
+      Ws: head weights, Dense orientation [in, out]: ws0 [F, 64],
+        ws1 [64, 16], wc0 [31, 64], wc1 [64, 64], wc2 [64, 3].
+    """
+    if x01.device.type == "cpu":
+        return field_plain(x01, sh, ulines, Ws, sigma_only=sigma_only)
+    if x01.device.type != "cuda":
+        raise ValueError(f"cp_field_fused: no kernel for device "
+                         f"{x01.device}; tensors must lie on the CPU or a "
+                         "CUDA device")
+    return _launch(x01, sh, ulines, Ws, sigma_only=sigma_only)
+
+
+def check_field_args(x01, sh, ulines, Ws, *, sigma_only: bool) -> None:
+    """Raise on anything csrc/field_fused.cu does not take."""
+    tensors = [x01, ulines] + [Ws[k] for k in W_KEYS[:2 if sigma_only else 5]]
+    if not sigma_only:
+        tensors.append(sh)
+    if any(t is None for t in tensors):
+        raise ValueError("cp_field_fused: missing operand (sh is required "
+                         "unless sigma_only)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "cp_field_fused: the CUDA kernel is forward-only; the backward "
+            "kernel (ops/field_fused.py::_kernel_bwd) is not ported yet. "
+            "Call it under torch.no_grad().")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("cp_field_fused: operands lie on different devices")
+    if x01.dtype != torch.float32 or x01.dim() != 2 or x01.shape[1] != 3:
+        raise ValueError(f"cp_field_fused: x01 must be [N, 3] float32, got "
+                         f"{tuple(x01.shape)} {x01.dtype}")
+    if not x01.is_contiguous():
+        raise ValueError("cp_field_fused: x01 must be contiguous")
+    n = x01.shape[0]
+    if n >= 1 << 29:
+        raise ValueError(f"cp_field_fused: {n} points exceed the kernel's "
+                         "32-bit indexing; split the call")
+    if ulines.dim() != 3 or ulines.shape[0] != 3 or ulines.shape[1] < 2:
+        raise ValueError(f"cp_field_fused: ulines must be [3, R_max, F], "
+                         f"got {tuple(ulines.shape)}")
+    feat = ulines.shape[2]
+    if feat % 4 or feat == 0:
+        raise ValueError(f"cp_field_fused: the kernel reads features in "
+                         f"fours; F = {feat} is not a multiple of 4")
+    shapes = {"ws0": (feat, SIGMA_WIDTH), "ws1": (SIGMA_WIDTH, GEO),
+              "wc0": (SH_DIM + GEO - 1, COLOR_WIDTH),
+              "wc1": (COLOR_WIDTH, COLOR_WIDTH), "wc2": (COLOR_WIDTH, 3)}
+    for k in W_KEYS[:2 if sigma_only else 5]:
+        if tuple(Ws[k].shape) != shapes[k]:
+            raise ValueError(f"cp_field_fused: {k} must be {shapes[k]}, got "
+                             f"{tuple(Ws[k].shape)}")
+    if not sigma_only:
+        if sh.dtype != torch.float32 or tuple(sh.shape) != (n, SH_DIM):
+            raise ValueError(f"cp_field_fused: sh must be [{n}, {SH_DIM}] "
+                             f"float32, got {tuple(sh.shape)} {sh.dtype}")
+        if not sh.is_contiguous() or sh.data_ptr() % 16:
+            raise ValueError("cp_field_fused: sh must be contiguous and "
+                             "16-byte aligned (the kernel reads float4s)")
+
+
+def pack_weights(Ws: Dict[str, torch.Tensor], *, sigma_only: bool
+                 ) -> torch.Tensor:
+    """The kernel's weight buffer: bf16-rounded f32, rows of 4-float units.
+
+    ws0 [F][64] | ws1 [64][16] | wc0 [31][64] | wc1ᵀ [64 out][64 in] |
+    wc2 [64][4] (column 3 zero); sigma_only stops after ws1.
+    """
+    parts = [_bf16(Ws["ws0"]), _bf16(Ws["ws1"])]
+    if not sigma_only:
+        parts += [_bf16(Ws["wc0"]), _bf16(Ws["wc1"]).t(),
+                  torch.nn.functional.pad(_bf16(Ws["wc2"]), (0, 1))]
+    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+
+
+def _launch(x01, sh, ulines, Ws, *, sigma_only: bool) -> torch.Tensor:
+    check_field_args(x01, sh, ulines, Ws, sigma_only=sigma_only)
+    n, r_max, feat = x01.shape[0], ulines.shape[1], ulines.shape[2]
+    lines = ulines.detach().to(torch.bfloat16).contiguous()
+    wpack = pack_weights({k: w.detach() for k, w in Ws.items()
+                          if w is not None}, sigma_only=sigma_only)
+    out = torch.empty((n, 4), dtype=torch.float32, device=x01.device)
+    fn = kernel_function("gbnerf_field_fused", [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(x01.device):
+        err = fn(x01.data_ptr(), None if sigma_only else sh.data_ptr(),
+                 lines.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+                 n, r_max, feat, int(sigma_only),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"field_fused kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["field_fused_sigma" if sigma_only else "field_fused"] += 1
+    return out

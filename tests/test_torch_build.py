@@ -1,0 +1,104 @@
+"""The kernel build (ops/_build.py) and the launch counters, without nvcc.
+
+A fake ``nvcc`` stands in for the compiler, so the CPU tier checks the
+build's own logic: the library is keyed by a hash of the sources, built
+once, and a failed build raises with the compiler's stderr. The counters
+count kernel launches only, so a CPU call (the plain version) leaves them
+alone.
+"""
+import os
+import stat
+
+import numpy as np
+import pytest
+import torch
+
+from gbnerf_tpu_torch.ops import _build
+from gbnerf_tpu_torch.ops import field_fused as ff
+from gbnerf_tpu_torch.ops import resample as rs
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def fake_toolkit(tmp_path, monkeypatch):
+    """A CUDA_HOME whose bin/nvcc logs its calls, then writes the -o file
+    (or fails with a message when the source says so)."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel v1\n")
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    log = tmp_path / "calls.log"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo call >> {log}\n"
+        'for a; do src="$a"; done\n'
+        'if grep -q FAIL "$src"; then\n'
+        "  echo 'k.cu(3): error: expected a ;' >&2; exit 2\nfi\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    return csrc, log
+
+
+def _calls(log):
+    return len(log.read_text().splitlines()) if log.exists() else 0
+
+
+def test_build_is_keyed_by_source_hash_and_runs_once(fake_toolkit):
+    csrc, log = fake_toolkit
+    first = _build.build_library()
+    assert first.is_file() and first.name == _build.LIB_NAME
+    assert first.parent.name == _build.source_hash()
+    assert _build.build_library() == first and _calls(log) == 1
+    (csrc / "k.cu").write_text("// kernel v2\n")      # an edit rebuilds
+    second = _build.build_library()
+    assert second != first and second.is_file() and _calls(log) == 2
+    # no half-written temporaries are left beside the libraries
+    assert sorted(p.name for p in second.parent.iterdir()) == [
+        _build.LIB_NAME]
+
+
+def test_failed_build_raises_with_nvcc_stderr(fake_toolkit):
+    csrc, _ = fake_toolkit
+    (csrc / "k.cu").write_text("FAIL\n")
+    with pytest.raises(RuntimeError, match="expected a ;"):
+        _build.build_library()
+    out_dir = _build.BUILD_ROOT / _build.source_hash()
+    assert not (out_dir / _build.LIB_NAME).exists()
+    assert list(out_dir.iterdir()) == []
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has a CUDA toolkit at /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_nvcc_targets_hopper():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+
+
+def test_cpu_calls_count_no_launches(rng):
+    """The counters count kernel launches; the plain version (CPU) is not
+    one, so a run on the CPU cannot pass for a run through the kernels."""
+    before = {**ff.LAUNCHES, **rs.LAUNCHES}
+    x = torch.from_numpy(rng.random((64, 3)).astype(np.float32))
+    ul = torch.from_numpy(rng.standard_normal((3, 9, 8)).astype(np.float32))
+    Ws = {"ws0": torch.randn(8, 64), "ws1": torch.randn(64, 16),
+          "wc0": torch.randn(31, 64), "wc1": torch.randn(64, 64),
+          "wc2": torch.randn(64, 3)}
+    ff.cp_field_fused(x, torch.randn(64, 16), ul, Ws)
+    ff.cp_field_fused(x, None, ul, Ws, sigma_only=True)
+    rs.merge128(torch.sort(torch.rand(5, 128), -1).values, 64)
+    assert {**ff.LAUNCHES, **rs.LAUNCHES} == before

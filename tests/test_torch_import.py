@@ -1,0 +1,47 @@
+"""The port imports no JAX: every module of gbnerf_tpu_torch, and
+chip_smoke.py, imported in a fresh interpreter leave ``jax`` out of
+``sys.modules``. The machine with the card has no JAX installed."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "gbnerf_tpu_torch").rglob("*.py"))
+
+_PROBE = """
+import importlib, json, sys
+out = {}
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+    out[name] = sorted(m for m in sys.modules
+                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                              "optax", "orbax"))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def loaded():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, *MODULES, "chip_smoke"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_is_listed():
+    assert len(MODULES) >= 20
+    assert "gbnerf_tpu_torch.ops.field_fused" in MODULES
+
+
+@pytest.mark.parametrize("name", MODULES + ["chip_smoke"])
+def test_module_imports_no_jax(loaded, name):
+    assert loaded[name] == [], f"{name} pulled in {loaded[name]}"
