@@ -2,30 +2,44 @@
 """Smoke run of the PyTorch/CUDA port (gbnerf_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # from the root of a checkout
-    python3 chip_smoke.py --profile DIR    # also trace one render (torch.profiler)
+    python3 chip_smoke.py --profile DIR    # also trace one render and one
+                                           # train step (torch.profiler)
 
 1. Requires CUDA (exits nonzero without it) and prints the card's name and
    power limit.
 2. Builds the CUDA kernels from gbnerf_tpu_torch/csrc (ops/_build.py).
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the render path gives it (and once at a ragged size), and times
-   both with CUDA events.
+   shapes the main paths give it (and once at a ragged size), and times
+   both with CUDA events: K1/K2 (field forward), K3 (z-merge), K4/K5
+   (field backward, every cotangent).
 4. Drives the eval render path at the full width of configs/spinnerf_scene.txt
    (CP fields 17…257 at rank 16, 64 + 64 samples, lindisp, white background)
-   with seeded random weights: (a) bench.py's workload, 16384 rays, for
-   rays/s; (b) three full 189 × 252 views through render_pose_path. It
-   checks that every map is finite with acc in [0, 1], that every kernel was
-   launched by that run, and that the path agrees with the plain path
-   (the same fields on the CPU) on a subset of rays.
+   with seeded random weights: bench.py's workload, 16384 rays, for rays/s,
+   and three full 189 × 252 views through render_pose_path. It checks that
+   every map is finite with acc in [0, 1], that every kernel of the path was
+   launched by that run, and that the path agrees with the plain path (the
+   same fields on the CPU) on a subset of rays.
+5. Drives stage-1 training through train() at the same full width
+   (first_stage, N_rand 1024 for each of the three ray streams, Adam at
+   lrate 3e-3, raw_noise_std 1, perturb on) on an in-memory scene of
+   SPIn-NeRF size: 60 views at 189 × 252 with masks, inpainted depths and
+   COLMAP-style depth rays, rendered by tools/make_synthetic_scene.py. About
+   300 steps, one checkpoint save and restore, one eval render. It checks
+   finite metrics, a falling img_loss, and that the steps launched K1, K3,
+   K4 and K5 and the eval K2; it prints ms per step.
+6. Holds one stage-1 step on the card against the same step on the CPU
+   plain path: same weights, injected batch indices, 64 rays per stream.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it holds one JSON object
-with each kernel's launches, error and times.
+with each kernel's launches on the main paths, error and times.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
@@ -54,6 +68,18 @@ ACC_SLACK = 1e-5        # Σ weights may pass 1 by f32 rounding
 BENCH_RAYS, NEAR, FAR = 16384, 1.2, 5.3      # bench.py's workload
 VIEW_H, VIEW_W, N_VIEWS = 189, 252, 3         # factor-4 SPIn-NeRF views
 SUBSET_RAYS = 256
+N_RAND = 1024                # rays per stream per stage-1 step
+# stage 1 through train(): the scene, the steps, the cadences
+TRAIN_VIEWS, TRAIN_STEPS, TRAIN_PRINT = 60, 300, 50
+# the σ-likelihood term (DS-NeRF's; sigma_loss_weight is 0 in the shipped
+# config) is on, so the σ-only field and its gradient (K2 forward, K5
+# backward) are on the training path too
+SIGMA_LOSS_WEIGHT = 0.1
+# one step, card vs the CPU plain path: perturb and σ noise off (the two
+# devices draw different numbers), bf16 rounding flips between the kernels
+# and the plain ops move single samples: loss to 1e-3 relative, every
+# parameter's gradient to cosine 0.999
+STEP_RAYS, STEP_LOSS_RTOL, STEP_GRAD_COS = 64, 1e-3, 0.999
 DEVICE = "cuda:0"
 
 
@@ -78,30 +104,96 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare_field(got, ref) -> dict:
+def compare_field(got, ref, rtol=FIELD_RTOL, atol_frac=FIELD_ATOL_FRAC) -> dict:
     diff = (got - ref).abs()
-    atol = FIELD_ATOL_FRAC * float(ref.abs().max())
-    bad = diff > atol + FIELD_RTOL * ref.abs()
+    atol = atol_frac * max(float(ref.abs().max()), 1e-3)
+    bad = diff > atol + rtol * ref.abs()
     return {"max_abs_err": float(diff.max()),
             "max_rel_err": float((diff / ref.abs().clamp_min(atol)).max()),
             "n_out_of_tol": int(bad.sum()), "atol": atol}
 
 
-def check_fields(dev, fine, coarse, proposal, np_rng):
-    """K1 at fine shapes, K2 at coarse and at proposal-coarse shapes."""
+def field_operands(dev, field, n, np_rng, *, tie_free=False):
+    """x01 [n, 3], sh [n, 16], the field's unified lines and head weights."""
     from gbnerf_tpu_torch.core.encoding import sh_encode
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops.cp_pallas import upsample_lines
 
-    def operands(field, n):
-        ul = upsample_lines([l.detach() for l in field.lines()],
-                            max(field.resolutions))
-        Ws = {k: getattr(field, k).detach() for k in ff.W_KEYS}
-        x = torch.from_numpy(np_rng.random((n, 3), dtype=np.float32)).to(dev)
-        d = np_rng.standard_normal((n, 3)).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        sh = sh_encode(torch.from_numpy(d).to(dev)).contiguous()
-        return x, sh, ul, Ws
+    r_max = max(field.resolutions)
+    ul = upsample_lines([l.detach() for l in field.lines()], r_max)
+    Ws = {k: getattr(field, k).detach() for k in ff.W_KEYS}
+    x = np_rng.random((n, 3), dtype=np.float32)
+    if tie_free:
+        # off the grid nodes and the clip boundary, where the kernel's and
+        # autograd's subgradient conventions differ (tests/test_field_bwd.py)
+        x = (0.03 + 0.94 * x).astype(np.float32)
+        u = x * (r_max - 1)
+        x += ((np.abs(u - np.round(u)) < 1e-3) * 2e-3).astype(np.float32)
+    d = np_rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sh = sh_encode(torch.from_numpy(d).to(dev)).contiguous()
+    return torch.from_numpy(x).to(dev), sh, ul, Ws
+
+
+def check_field_bwd(dev, fine, coarse, np_rng):
+    """K4 at the stage-1 fine and coarse pass shapes (131,072 and 65,536
+    points, F 80, R_max 257), K5 at 65,536; each also at a ragged size and
+    once with clipped points. All cotangents against the plain backward."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+
+    results = {}
+    cases = [("field_fused_bwd", "fine", fine, N_RAND * 128, False),
+             ("field_fused_bwd", "coarse", coarse, N_RAND * 64, False),
+             ("field_fused_bwd_sigma", "coarse", coarse, N_RAND * 64, True)]
+    for name, label, field, n, sigma_only in cases:
+        for variant in ("", "ragged", "clipped"):
+            m = n - 29 if variant == "ragged" else n
+            x, sh, ul, Ws = field_operands(dev, field, m, np_rng,
+                                           tie_free=True)
+            if variant == "clipped":
+                x[:64, 0] = -0.5
+                x[64:128, 1] = 1.5
+            sh = None if sigma_only else sh
+            if sigma_only:
+                Ws = {k: Ws[k] for k in ("ws0", "ws1")}
+            g = torch.from_numpy(np_rng.standard_normal(
+                (m, 4)).astype(np.float32)).to(dev)
+            got = ff.field_fused_bwd(x, sh, ul, Ws, g, sigma_only=sigma_only)
+            ref = ff.field_bwd_plain(x, sh, ul, Ws, g, sigma_only=sigma_only)
+            torch.cuda.synchronize()
+            r = {"points": m, "F": ul.shape[2], "R_max": ul.shape[1]}
+            for cot, a, b in zip(("dx", "dsh", "dulines"), got[:3], ref[:3]):
+                if b is None:
+                    continue
+                r[cot] = (compare_field(a, b, rtol=5e-2, atol_frac=8e-3)
+                          if cot == "dx" else compare_field(a, b))
+            for k in ref[3]:
+                r["d" + k] = compare_field(got[3][k], ref[3][k])
+            if variant == "clipped":
+                r["clipped_dx_zero"] = bool(
+                    (got[0][:64, 0] == 0).all() and (got[0][64:128, 1] == 0).all())
+            if not variant:
+                r["ms"] = cuda_ms(lambda: ff.field_fused_bwd(
+                    x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
+                r["plain_ms"] = cuda_ms(lambda: ff.field_bwd_plain(
+                    x, sh, ul, Ws, g, sigma_only=sigma_only), reps=3)
+            print(f"check {name} [{label}{' ' + variant if variant else ''}] "
+                  f"{json.dumps(r)}")
+            bad = {k: v["n_out_of_tol"] for k, v in r.items()
+                   if isinstance(v, dict) and v["n_out_of_tol"]}
+            if bad or r.get("clipped_dx_zero") is False:
+                raise AssertionError(f"{name} [{label} {variant}]: values "
+                                     f"outside tolerance {bad}, or non-zero "
+                                     "dx at clipped coordinates")
+            r["max_abs_err"] = max(v["max_abs_err"] for v in r.values()
+                                   if isinstance(v, dict))
+            results.setdefault(name, []).append(r)
+    return results
+
+
+def check_fields(dev, fine, coarse, proposal, np_rng):
+    """K1 at fine shapes, K2 at coarse and at proposal-coarse shapes."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
 
     results = {}
     cases = [("field_fused", "fine", fine, BENCH_RAYS * 128, False),
@@ -111,7 +203,7 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
     for name, label, field, n, sigma_only in cases:
         for ragged in (False, True):
             m = n - 29 if ragged else n
-            x, sh, ul, Ws = operands(field, m)
+            x, sh, ul, Ws = field_operands(dev, field, m, np_rng)
             sh = None if sigma_only else sh
             got = ff.cp_field_fused(x, sh, ul, Ws, sigma_only=sigma_only)
             ref = ff.field_plain(x, sh, ul, Ws, sigma_only=sigma_only)
@@ -177,40 +269,255 @@ def camera_arc(n: int, radius: float = 4.0) -> np.ndarray:
     return np.stack(poses).astype(np.float32)
 
 
-def profile_render(render, ro, rd, outdir: Path, untraced_ms: float) -> None:
-    """Trace one bench render; print device time by kernel, and the device's
-    idle share of the untraced render time (ms per render from "bench")."""
+def profile_once(fn, label: str, outdir: Path, untraced_ms: float) -> None:
+    """Trace one call of fn (after one untraced warm call); print device
+    time by kernel and the device's idle share of the untraced time."""
     from torch.profiler import ProfilerActivity, profile
 
     outdir.mkdir(parents=True, exist_ok=True)
-    with torch.no_grad():
-        render(ro, rd, train=False)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render(ro, rd, train=False)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(outdir / "render_trace.json"))
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(outdir / f"{label}_trace.json"))
     # device-side events only (kernels, copies): the aten ops above them
     # carry the same time again
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile: device busy {busy_ms:.3f} ms in {len(rows)} kernel "
-          f"kinds, {sum(e.count for e in rows)} launches; render "
+    print(f"profile {label}: device busy {busy_ms:.3f} ms in {len(rows)} "
+          f"kernel kinds, {sum(e.count for e in rows)} launches; "
           f"{untraced_ms:.3f} ms untraced ({traced_ms:.3f} traced): idle "
           f"share {1 - busy_ms / untraced_ms:.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+        print(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:100]}")
+
+
+def synthetic_tool():
+    """tools/make_synthetic_scene.py as a module (it imports only numpy)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_scene", ROOT / "tools" / "make_synthetic_scene.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def spinnerf_scene(n_train: int, H: int, W: int, n_test: int = 2,
+                   seed: int = 0):
+    """An in-memory scene of SPIn-NeRF size: n_train views (plus n_test
+    held out, with ground truth) of the synthetic sphere on a forward arc,
+    label masks (the dilated silhouette of an intruder sphere), inpainted
+    disparities, and COLMAP-style depth rays (200 surface pixels a view,
+    z-depth, weights 2·exp(−(err/ē)²)) → (LLFFScene, depth_gts)."""
+    from gbnerf_tpu_torch.data.llff import LLFFScene
+
+    syn = synthetic_tool()
+    rng = np.random.default_rng(seed)
+    focal = 1.2 * W
+    n = n_train + n_test
+    test_idx = [(k + 1) * n // (n_test + 1) for k in range(n_test)]
+    imgs, masks, disps, poses, depth_gts = [], [], [], [], []
+    for k in range(n):
+        th = (k / (n - 1) - 0.5) * 0.9
+        c2w = syn.look_at(np.array([2.5 * np.sin(th), 0.3 * np.sin(2 * th),
+                                    2.5 * np.cos(th)]))
+        img, depth, _ = syn.render_scene(H, W, focal, c2w)
+        _, _, hit = syn.render_scene(H, W, focal, c2w,
+                                     (syn.MAIN_SPHERE, syn.INTRUDER))
+        imgs.append(img)
+        masks.append(syn.dilate(hit == 1, it=2).astype(np.float32))
+        disps.append(1.0 / np.maximum(depth, 1e-3))
+        poses.append(np.concatenate(
+            [c2w, np.array([[H], [W], [focal]], np.float32)], 1))
+        ys, xs = np.nonzero(depth < 3.99)          # the sky carries 4.0
+        sel = rng.choice(len(ys), min(200, len(ys)), replace=False)
+        x, y = xs[sel], ys[sel]
+        ray_len = np.sqrt(((x - W / 2) / focal) ** 2
+                          + ((y - H / 2) / focal) ** 2 + 1.0)
+        err = rng.uniform(0.3, 1.5, len(sel))
+        depth_gts.append({
+            "coord": np.stack([x, y], -1).astype(np.float32),
+            "depth": (depth[y, x] / ray_len).astype(np.float32),
+            "weight": (2.0 * np.exp(-(err / err.mean()) ** 2)).astype(
+                np.float32)})
+    imgs, masks, poses = np.stack(imgs), np.stack(masks), np.stack(poses)
+    disps = np.stack(disps)
+    train = [k for k in range(n) if k not in test_idx]
+    scene = LLFFScene(
+        images=imgs[train], masks=masks[train],
+        inpainted_depths=(disps / disps.max())[train].astype(np.float32),
+        poses=poses[train], poses_test=poses[test_idx],
+        bds=np.array([[1.0, 4.5]], np.float32), render_poses=poses[test_idx],
+        hwf=(H, W, focal), near=1.0, far=4.5, images_test=imgs[test_idx],
+        masks_test=masks[test_idx])
+    return scene, [depth_gts[k] for k in train]
+
+
+def all_launches() -> dict:
+    from gbnerf_tpu_torch.ops import field_fused as ff
+    from gbnerf_tpu_torch.ops import resample as rs
+
+    return {**ff.LAUNCHES, **rs.LAUNCHES}
+
+
+def zero_launches() -> None:
+    from gbnerf_tpu_torch.ops import field_fused as ff
+    from gbnerf_tpu_torch.ops import resample as rs
+
+    for counts in (ff.LAUNCHES, rs.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
+    """Stage 1 through train(): TRAIN_STEPS steps, a checkpoint half way and
+    at the end (the last restored into a fresh state and compared), one
+    eval render of the held-out views. → (out, ms per step, launches of
+    the steps, launches of the eval)."""
+    from gbnerf_tpu_torch.train.checkpoint import CheckpointManager
+    from gbnerf_tpu_torch.train.loop import train
+    from gbnerf_tpu_torch.train.state import create_train_state
+
+    never = 10 ** 9
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, first_stage=True, N_iters=TRAIN_STEPS,
+        i_print=TRAIN_PRINT, i_weights=TRAIN_STEPS // 2,
+        i_evaluate=TRAIN_STEPS, i_testset=never, i_video=never,
+        basedir=str(workdir), expname="stage1", no_reload=True,
+        sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    group_ms, at_last_step = [], {}
+
+    def log_fn(i, m):
+        print(f"train: [{i}/{TRAIN_STEPS}] " + " ".join(
+            f"{k}={v:.5g}" for k, v in m.items()))
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite train metrics at {i}: {bad}")
+        group_ms.append(1e3 / m["iters_per_sec"])
+        if i == TRAIN_STEPS:      # before the eval render of this iteration
+            at_last_step.update(all_launches())
+
+    # ---- the stage-1 main path: launches counted from here ...
+    zero_launches()
+    out = train(cfg, scene=scene, depth_gts=depth_gts, device=dev,
+                log_fn=log_fn)
+    torch.cuda.synchronize()
+    total = all_launches()
+    # ... to here
+    if not at_last_step:
+        raise AssertionError(f"no finite metrics at step {TRAIN_STEPS}: "
+                             "the run diverged or stopped early")
+    step_launches = at_last_step
+    eval_launches = {k: total[k] - step_launches[k] for k in total}
+    print(f"train: launches by the {TRAIN_STEPS} steps "
+          f"{json.dumps(step_launches)}, by the eval "
+          f"{json.dumps(eval_launches)}")
+    for k in ("field_fused", "merge128", "field_fused_bwd",
+              "field_fused_sigma", "field_fused_bwd_sigma"):
+        if step_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the steps")
+    for k in ("field_fused", "field_fused_sigma", "merge128"):
+        if eval_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the eval")
+
+    hist = [m["img_loss"] for _, m in out["history"]]
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"img_loss did not fall: {hist}")
+    exp = workdir / "stage1"
+    ckpt = CheckpointManager(str(exp / "ckpt"))
+    if ckpt.steps() != [TRAIN_STEPS // 2, TRAIN_STEPS]:
+        raise AssertionError(f"checkpoints {ckpt.steps()}")
+    fresh, _, _ = create_train_state(cfg, torch.Generator().manual_seed(9),
+                                     dev)
+    ckpt.restore(fresh)
+    state = out["state"]
+    same = fresh.step == state.step == TRAIN_STEPS and all(
+        torch.equal(a, b) for f, g in zip(fresh.fields(), state.fields())
+        for a, b in zip(f.state_dict().values(), g.state_dict().values()))
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the state")
+    last = json.loads((exp / "metrics.jsonl").read_text().splitlines()[-1])
+    maps = {k: np.load(exp / f"eval_images_{TRAIN_STEPS}" / f"{k}.npy")
+            for k in ("rgb", "disp", "depth", "acc")}
+    if not (np.isfinite(last.get("eval_psnr", np.nan))
+            and all(np.isfinite(v).all() for v in maps.values())):
+        raise AssertionError(f"eval render not finite: {last}")
+    ms = float(np.median(group_ms))
+    print(f"train: {TRAIN_STEPS} steps, 3 × {cfg.train.N_rand} rays a step, "
+          f"{cfg.render.N_samples}+{cfg.render.N_importance} samples: "
+          f"{ms:.3f} ms per step (median of {len(group_ms)} groups of "
+          f"{TRAIN_PRINT}: {', '.join(f'{g:.3f}' for g in group_ms)}), "
+          f"{1e3 / ms:.2f} steps/s; img_loss {hist[0]:.5f} → {hist[-1]:.5f}; "
+          f"checkpoint restored equal; eval PSNR {last['eval_psnr']:.3f} dB "
+          f"on {len(scene.poses_test)} held-out views")
+    return out, ms, step_launches, eval_launches
+
+
+def step_vs_plain(cfg, dev, state, scene, depth_gts):
+    """One stage-1 loss and gradient on the card vs the CPU plain path, on
+    the same weights and injected batch indices, STEP_RAYS rays a stream."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks, sample_batch
+    from gbnerf_tpu_torch.train.loop import banks_to_device
+    from gbnerf_tpu_torch.train.step import make_train_step_stage1
+
+    cfg = cfg.replace(
+        render=dataclasses.replace(cfg.render, perturb=0.0,
+                                   raw_noise_std=0.0),
+        train=dataclasses.replace(cfg.train, N_rand=STEP_RAYS,
+                                  sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    banks = build_ray_banks(scene.images, scene.masks,
+                            scene.inpainted_depths, scene.poses,
+                            scene.hwf[2], depth_gts)
+    rng = np.random.default_rng(2)
+    idx = {name: torch.from_numpy(rng.integers(0, len(s), STEP_RAYS))
+           for name, s in (("rgb_clf", banks.rgb_clf), ("inp", banks.inp),
+                           ("depth", banks.depth))}
+    res, before = {}, all_launches()
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        fields = [copy.deepcopy(f).to(device) for f in state.fields()]
+        for f in fields:
+            for p in f.parameters():
+                p.grad = None
+        step = make_train_step_stage1(cfg, fields[0], fields[1], scene.near,
+                                      scene.far, hwf=scene.hwf)
+        bank = banks_to_device(banks, device)
+        batches = {key: sample_batch(bank[name], STEP_RAYS, idx=idx[name])
+                   for key, name in (("clf", "rgb_clf"), ("inp", "inp"),
+                                     ("depth", "depth"))}
+        loss, _ = step.loss_fn(batches)
+        loss.backward()
+        res[where] = (loss.item(), {
+            f"{name}.{k}": p.grad.detach().cpu().double()
+            for name, f in zip(("coarse", "fine"), fields)
+            for k, p in f.named_parameters()})
+    card_launches = {k: v - before[k] for k, v in all_launches().items()}
+    (l_card, g_card), (l_cpu, g_cpu) = res["card"], res["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    cos = {k: float(torch.dot(g_card[k].ravel(), g_cpu[k].ravel())
+                    / (g_card[k].norm() * g_cpu[k].norm()).clamp_min(1e-300))
+           for k in g_cpu}
+    worst = min(cos, key=cos.get)
+    print(f"step vs plain ({STEP_RAYS} rays a stream): loss card {l_card!r}"
+          f" cpu {l_cpu!r} (rel err {rel:.3e}, limit {STEP_LOSS_RTOL}); "
+          f"gradient cosine min {cos[worst]:.6f} ({worst}, limit "
+          f"{STEP_GRAD_COS}) over {len(cos)} parameters; kernel launches "
+          f"of the card's step {json.dumps(card_launches)}")
+    if rel > STEP_LOSS_RTOL or cos[worst] < STEP_GRAD_COS:
+        raise AssertionError(f"the card's step differs from the plain path: "
+                             f"{json.dumps(cos)}")
+    return {"loss_rel_err": rel, "min_grad_cos": cos[worst]}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="trace one bench render into this directory")
+                    help="trace one bench render and one train step into "
+                         "this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -225,8 +532,6 @@ def main() -> None:
     from gbnerf_tpu_torch.config import load_reference_config
     from gbnerf_tpu_torch.core.cp_field import CPGridField
     from gbnerf_tpu_torch.ops import _build
-    from gbnerf_tpu_torch.ops import field_fused as ff
-    from gbnerf_tpu_torch.ops import resample as rs
     from gbnerf_tpu_torch.train.eval import render_pose_path, save_maps
     from gbnerf_tpu_torch.train.state import create_params
     from gbnerf_tpu_torch.train.step import make_render_fn
@@ -240,8 +545,8 @@ def main() -> None:
     lib = _build.build_library()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s) "
-          f"-> {lib.relative_to(ROOT)}")
+          f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s, "
+          f"one process per source) -> {lib.relative_to(ROOT)}")
     for line in _build.ptxas_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
@@ -258,17 +563,16 @@ def main() -> None:
     with torch.no_grad():
         field_res = check_fields(dev, fine, coarse, proposal, np_rng)
         merge_res = check_merge(dev, np_rng)
+    field_res.update(check_field_bwd(dev, fine, coarse, np_rng))
 
-    # ---- 4. the main path: launches counted from here ...
+    # ---- 4. the eval render path: launches counted from here ...
     render = make_render_fn(cfg, coarse, fine, near=NEAR, far=FAR)
     rng = np.random.default_rng(1)
     ro_np = (rng.standard_normal((BENCH_RAYS, 3)) * 0.1).astype(np.float32)
     rd_np = rng.standard_normal((BENCH_RAYS, 3)).astype(np.float32)
     rd_np /= np.linalg.norm(rd_np, axis=-1, keepdims=True)
     ro, rd = torch.from_numpy(ro_np).to(dev), torch.from_numpy(rd_np).to(dev)
-    for counts in (ff.LAUNCHES, rs.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_launches()
     with torch.no_grad():
         # (a) bench.py's workload
         out = render(ro, rd, train=False)                  # warm
@@ -300,12 +604,12 @@ def main() -> None:
     maps = render_pose_path(render, poses, (VIEW_H, VIEW_W, focal),
                             block=cfg.render.render_block, device=dev)
     view_ms = (time.perf_counter() - t0) * 1e3 / N_VIEWS
-    launches = {**ff.LAUNCHES, **rs.LAUNCHES}
+    render_launches = all_launches()
     # ... to here
     print(f"views: {N_VIEWS} x {VIEW_H}x{VIEW_W} at render_block "
           f"{cfg.render.render_block}: {view_ms:.3f} ms per image "
           f"(maps to host included)")
-    print(f"launches on the main path: {json.dumps(launches)}")
+    print(f"launches on the render path: {json.dumps(render_launches)}")
     for k, v in maps.items():
         assert np.isfinite(v).all(), f"view {k} not finite"
     assert maps["rgb"].shape == (N_VIEWS, VIEW_H, VIEW_W, 3)
@@ -317,8 +621,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for k, p in save_maps(maps, tmp).items():
             assert np.array_equal(np.load(p), maps[k]), f"{k}.npy round trip"
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("field_fused", "field_fused_sigma", "merge128"):
+        if render_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the path")
 
     # (c) the path vs the plain path (same fields on the CPU), ray subset
@@ -339,10 +643,44 @@ def main() -> None:
         if e["max_abs_err"] > e["atol"]:
             raise AssertionError(f"slice {k} differs from the plain path by "
                                  f"{e['max_abs_err']} > {e['atol']}")
+    if args.profile is not None:
+        with torch.no_grad():
+            profile_once(lambda: render(ro, rd, train=False), "render",
+                         args.profile, ms)
+
+    # ---- 5. stage-1 training through train() (its own launch counts)
+    t0 = time.perf_counter()
+    scene, depth_gts = spinnerf_scene(TRAIN_VIEWS, VIEW_H, VIEW_W)
+    print(f"scene: {len(scene.images)} views of {VIEW_H}x{VIEW_W} + "
+          f"{len(scene.poses_test)} held out, "
+          f"{sum(len(d['depth']) for d in depth_gts)} depth keypoints, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        out, step_ms, step_launches, eval_launches = stage1_train(
+            cfg, dev, scene, depth_gts, Path(workdir))
+    state = out["state"]
+
+    # ---- 6. one step on the card vs the same step on the CPU plain path
+    step_vs_plain(cfg, dev, state, scene, depth_gts)
 
     if args.profile is not None:
-        profile_render(render, ro, rd, args.profile, ms)
+        from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+        from gbnerf_tpu_torch.train.loop import banks_to_device
+        from gbnerf_tpu_torch.train.step import make_train_step_stage1
 
+        tcfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+        step = make_train_step_stage1(tcfg, state.coarse, state.fine,
+                                      scene.near, scene.far, hwf=scene.hwf)
+        banks = banks_to_device(build_ray_banks(
+            scene.images, scene.masks, scene.inpainted_depths, scene.poses,
+            scene.hwf[2], depth_gts), dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        profile_once(lambda: step(state, banks, gen), "train_step",
+                     args.profile, step_ms)
+
+    path_launches = {k: render_launches[k] + step_launches[k]
+                     + eval_launches[k] for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/field_fused.cu",
@@ -353,13 +691,19 @@ def main() -> None:
         {"name": "merge128", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/resample.cu",
          "replaces": "gbnerf_tpu/ops/resample.py:154"},
+        {"name": "field_fused_bwd", "route": "cuda",
+         "source": "gbnerf_tpu_torch/csrc/field_fused_bwd.cu",
+         "replaces": "gbnerf_tpu/ops/field_fused.py:379"},
+        {"name": "field_fused_bwd_sigma", "route": "cuda",
+         "source": "gbnerf_tpu_torch/csrc/field_fused_bwd.cu",
+         "replaces": "gbnerf_tpu/ops/field_fused.py:439"},
     ]
     for k in kernels:
         checks = merge_res if k["name"] == "merge128" else field_res[k["name"]]
-        main = checks[0]                          # the main-path shape
-        k.update(launches=launches[k["name"]],
+        main_shape = checks[0]                    # the main-path shape
+        k.update(launches=path_launches[k["name"]],
                  max_abs_err=max(c["max_abs_err"] for c in checks),
-                 ms=main["ms"], plain_ms=main["plain_ms"])
+                 ms=main_shape["ms"], plain_ms=main_shape["plain_ms"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

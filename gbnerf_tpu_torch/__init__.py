@@ -8,8 +8,11 @@ replaces on the same inputs.
 Layer map (mirrors gbnerf_tpu):
   core/   rays, encodings, fields, sampling, volume rendering
   ops/    hand-written CUDA kernels (csrc/) with their plain PyTorch versions
-  train/  field construction, render functions, eval renders
+  data/   LLFF/COLMAP loaders (numpy), ray banks
+  train/  train state, losses, the stage-1 step and loop, checkpoints,
+          render functions, eval renders
   utils/  metrics
+  run.py  the CLI (``python -m gbnerf_tpu_torch.run --config …``)
 
 This package imports ``torch`` and never ``jax``: the machine with the card
 has no JAX. Only ``config.py`` reaches into ``gbnerf_tpu``, for its

@@ -6,4 +6,5 @@ and a config file loads identically in both packages. Import nothing else
 from ``gbnerf_tpu``: its ``core``, ``ops``, ``utils`` and ``data`` packages
 import JAX at the top.
 """
-from gbnerf_tpu.config import Config, load_reference_config  # noqa: F401
+from gbnerf_tpu.config import (Config, load_reference_config,  # noqa: F401
+                               save_config)

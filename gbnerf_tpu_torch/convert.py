@@ -9,6 +9,12 @@ here). Per field:
 - ``NeRFMLP``: each flax Dense ``{"kernel" [in, out], "bias"}`` under
   ``<name>`` becomes ``<name>.weight`` [out, in] and ``<name>.bias``
   (tools/convert_ref_ckpt.py::torch_nerf_to_flax has the inverse map).
+
+A whole train state carries across too (``train_state_from_jax`` and
+``train_state_to_jax``): optax's Adam moments ``mu``/``nu`` have the
+params' tree structure and map to torch Adam's ``exp_avg``/``exp_avg_sq``
+by the same key rules; optax's ``count`` (updates done) is torch's
+per-parameter ``step``.
 """
 from __future__ import annotations
 
@@ -62,3 +68,64 @@ def params_to_jax(state_dicts: Mapping) -> Dict[str, Dict]:
                 field[key] = a
         out[name] = field
     return out
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) of optax.adam's state — a tuple holding a
+    ScaleByAdamState (a NamedTuple, or a dict with the same keys after
+    ``train_state_to_jax``) and a ScaleByScheduleState."""
+    for part in opt_state:
+        get = part.get if isinstance(part, Mapping) else (
+            lambda k, p=part: getattr(p, k, None))
+        if get("mu") is not None and get("nu") is not None:
+            return int(np.asarray(get("count"))), get("mu"), get("nu")
+    raise ValueError("no Adam moments (mu, nu) in the optimizer state")
+
+
+def train_state_from_jax(params: Mapping, opt_state, step, *, cfg,
+                         device=None):
+    """A JAX train state (numpy trees, as ``jax.device_get(state)`` gives
+    them: ``state.params``, ``state.opt_state``, ``state.step``) → the
+    port's TrainState on ``device``, which then continues the run."""
+    from .train.state import create_train_state
+
+    state, coarse, fine = create_train_state(
+        cfg, torch.Generator().manual_seed(0), device)
+    count, mu, nu = _adam_moments(opt_state)
+    for name, module in (("coarse", coarse), ("fine", fine)):
+        if module is None:
+            continue
+        load_jax_params(module, params[name])
+        m_sd, v_sd = field_state_dict(mu[name]), field_state_dict(nu[name])
+        for key, p in module.named_parameters():
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": m_sd[key].to(p.device, p.dtype),
+                "exp_avg_sq": v_sd[key].to(p.device, p.dtype)}
+    state.step = int(np.asarray(step))
+    return state
+
+
+def train_state_to_jax(state):
+    """The inverse: TrainState → (params, opt_state, step) as numpy trees.
+
+    opt_state mirrors optax.adam's tuple with dicts in place of its
+    NamedTuples: ({"count", "mu", "nu"}, {"count"}); ``ScaleByAdamState(
+    **opt_state[0])`` rebuilds the optax state on the JAX side.
+    """
+    names = [("coarse", state.coarse)]
+    if state.fine is not None:
+        names.append(("fine", state.fine))
+    params = params_to_jax({n: m.state_dict() for n, m in names})
+    mu, nu = {}, {}
+    for n, m in names:
+        m_sd, v_sd = {}, {}
+        for key, p in m.named_parameters():
+            st = state.optimizer.state.get(p, {})
+            m_sd[key] = st.get("exp_avg", torch.zeros_like(p))
+            v_sd[key] = st.get("exp_avg_sq", torch.zeros_like(p))
+        mu.update(params_to_jax({n: m_sd}))
+        nu.update(params_to_jax({n: v_sd}))
+    # one update advances every parameter: optax's count is the step
+    count = np.asarray(state.step, np.int32)
+    return params, ({"count": count, "mu": mu, "nu": nu}, {"count": count}), count

@@ -59,13 +59,16 @@ class NeRFMLP(nn.Module):
             n_in = in_ch if i == 0 else width + (in_ch if i - 1 in self.skips
                                                  else 0)
             dense(f"trunk_{i}", n_in, width)
+        # a skip after the last trunk layer widens the heads' input, as
+        # flax's shape inference does
+        n_head = width + (in_ch if depth - 1 in self.skips else 0)
         if use_viewdirs:
-            dense("sigma", width, 1)
-            dense("feature", width, width)
+            dense("sigma", n_head, 1)
+            dense("feature", n_head, width)
             dense("views_0", width + in_views, width // 2)
             dense("rgb", width // 2, 3)
         else:
-            dense("output", width, 4)
+            dense("output", n_head, 4)
 
     def _dense(self, name: str, h: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, name)

@@ -39,50 +39,11 @@
 // once per tile. The unified lines (3 × 257 × 80 bf16 = 123 KB) are read
 // through L1/L2: they do not fit beside the weights of several blocks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "field_common.cuh"
 
 namespace {
 
-constexpr int kSigmaWidth = 64;                  // ws0 out
-constexpr int kGeo = 16;                         // ws1 out: σ ⊕ 15 geo
-constexpr int kSh = 16;                          // SH degree 4
-constexpr int kColorIn = kSh + kGeo - 1;         // 31
-constexpr int kColorWidth = 64;
 constexpr int kThreads = 128;
-// floats after ws0 in the packed weights: ws1 [64][16], wc0 [31][64],
-// wc1ᵀ [64 out][64 in], wc2 [64][4] (column 3 zero)
-constexpr int kOffWc0 = kSigmaWidth * kGeo;
-constexpr int kOffWc1 = kOffWc0 + kColorIn * kColorWidth;
-constexpr int kOffWc2 = kOffWc1 + kColorWidth * kColorWidth;
-constexpr int kTail = kOffWc2 + kColorWidth * 4;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));   // round to nearest even
-}
-
-__device__ __forceinline__ void unpack4(uint2 raw, float* out) {
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  out[0] = __low2float(lo);
-  out[1] = __high2float(lo);
-  out[2] = __low2float(hi);
-  out[3] = __high2float(hi);
-}
-
-// acc[0..63] += a · w[0..63], w a float4-aligned row in shared memory
-__device__ __forceinline__ void axpy64(float* acc, float a, const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const float4 v = w4[j];
-    acc[4 * j + 0] = fmaf(a, v.x, acc[4 * j + 0]);
-    acc[4 * j + 1] = fmaf(a, v.y, acc[4 * j + 1]);
-    acc[4 * j + 2] = fmaf(a, v.z, acc[4 * j + 2]);
-    acc[4 * j + 3] = fmaf(a, v.w, acc[4 * j + 3]);
-  }
-}
 
 template <bool kSigmaOnly>
 __global__ void __launch_bounds__(kThreads)
@@ -200,16 +161,6 @@ field_fused_kernel(const float* __restrict__ x, const float* __restrict__ sh,
     }
     reinterpret_cast<float4*>(out)[p] = make_float4(r0, r1, r2, sigma);
   }
-}
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
 }
 
 template <bool kSigmaOnly>

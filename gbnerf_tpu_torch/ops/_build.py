@@ -58,7 +58,11 @@ def source_hash() -> str:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu (if the keyed library is missing) → its path."""
+    """Compile csrc/*.cu (if the keyed library is missing) → its path.
+
+    One nvcc per source, all started together, into objects in a private
+    temporary directory; then one link into the library.
+    """
     global build_seconds, ptxas_log
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / source_hash()
@@ -66,21 +70,37 @@ def build_library() -> Path:
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    # build under a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    cu = sorted(CSRC_DIR.glob("*.cu"))
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
+    # build under private names, then rename: a concurrent build never
+    # loads a half-written library
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in cu]
+        procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for p, o in zip(cu, objs)]
+        logs = []
+        for p, proc in zip(cu, procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {p.name} (exit "
+                                   f"{proc.returncode}):\n{err}")
+        lib_tmp = Path(tmp) / LIB_NAME
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(lib_tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{proc.stderr}")
+        os.replace(lib_tmp, lib_path)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-    ptxas_log = proc.stderr
-    os.replace(tmp, lib_path)
+    ptxas_log = "".join(logs)
     return lib_path
 
 

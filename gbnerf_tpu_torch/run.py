@@ -1,0 +1,88 @@
+"""CLI entry of the port: train or render a scene with gbnerf_tpu_torch.
+
+The twin of the repository's run.py (same config files, same overrides):
+
+    python -m gbnerf_tpu_torch.run --config configs/scene1.txt \\
+        --set train.first_stage=True
+    python -m gbnerf_tpu_torch.run --config configs/scene1.txt \\
+        --set train.N_iters=2000 --set render.N_samples=64
+    python -m gbnerf_tpu_torch.run --config configs/scene1.txt --render_only
+
+It runs on the first CUDA device when there is one, else on the CPU (the
+kernels need the card; the CPU runs their plain versions). Reading a scene
+from disk needs ``imageio``. Stage 2 is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+
+def parse_overrides(cfg, pairs):
+    """``--set section.field=value`` pairs → a new Config (run.py's rules:
+    the value takes the type of the field it replaces)."""
+    sections = {}
+    for pair in pairs or []:
+        key, _, value = pair.partition("=")
+        if "." not in key or not value:
+            raise SystemExit(f"--set expects section.field=value, got: {pair!r}")
+        section, fname = key.split(".", 1)
+        try:
+            sub = getattr(cfg, section)
+            cur = getattr(sub, fname)
+        except AttributeError:
+            raise SystemExit(f"unknown config key: {key}")
+        if isinstance(cur, bool):
+            val = value in ("True", "true", "1")
+        elif isinstance(cur, int):
+            val = int(value)
+        elif isinstance(cur, float):
+            val = float(value)
+        else:
+            val = value
+        sections.setdefault(section, {})[fname] = val
+    return dataclasses.replace(cfg, **{
+        s: dataclasses.replace(getattr(cfg, s), **kv)
+        for s, kv in sections.items()
+    })
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True, help="config txt (reference format)")
+    p.add_argument("--set", action="append", metavar="section.field=value",
+                   help="override a config field (repeatable)")
+    p.add_argument("--render_only", action="store_true",
+                   help="skip training; render the test and path poses from "
+                        "the latest checkpoint to .npy maps")
+    args = p.parse_args(argv)
+
+    from gbnerf_tpu_torch.config import load_reference_config
+    cfg = load_reference_config(args.config)
+    cfg = parse_overrides(cfg, args.set)
+    if args.render_only:
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, render_only=True))
+    if not cfg.data.datadir or not os.path.isdir(cfg.data.datadir):
+        raise SystemExit(f"datadir does not exist: {cfg.data.datadir!r}")
+
+    import torch
+
+    from gbnerf_tpu_torch.train.loop import default_device, render_only, train
+    device = default_device()
+    print(f"[device] {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+    if cfg.train.render_only:
+        render_only(cfg, device=device)
+    else:
+        train(cfg, device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

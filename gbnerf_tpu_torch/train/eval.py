@@ -1,13 +1,15 @@
-"""Eval rendering: pose-path renders and their map dumps.
+"""Eval rendering: pose-path renders, their map dumps and held-out metrics.
 
-Port of gbnerf_tpu/train/eval.py::render_pose_path. Maps are written as
-.npy (``save_maps``), the raw-array dumps of the JAX package's render_only;
-PNG and video writers need imageio and come with the CLI.
+Port of gbnerf_tpu/train/eval.py (``render_pose_path``, the metrics of
+``dump_eval_images`` as ``eval_summary``). Maps are written as .npy
+(``save_maps``), the raw-array dumps of the JAX package's render_only; the
+PNG and video writers (imageio) are not ported, so the port needs no image
+codec to train or render.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -45,3 +47,32 @@ def save_maps(maps: Dict[str, np.ndarray], outdir: str) -> Dict[str, str]:
         paths[k] = os.path.join(outdir, f"{k}.npy")
         np.save(paths[k], np.asarray(v))
     return paths
+
+
+def _psnr(mse: float) -> float:
+    return -10.0 * np.log10(max(mse, 1e-10))
+
+
+def eval_summary(maps: Dict[str, np.ndarray], gt: Optional[np.ndarray] = None,
+                 gt_masks: Optional[np.ndarray] = None
+                 ) -> Dict[str, Optional[float]]:
+    """Held-out metrics of a pose-path render, as the JAX package's
+    dump_eval_images computes them: mean PSNR over the ground-truth views,
+    and where a view has an inpaint-region mask (1 = inpainted) the PSNR
+    inside it and outside it. Entries are None when not computable (LPIPS
+    is not ported)."""
+    psnrs, m_psnrs, u_psnrs = [], [], []
+    if gt is not None:
+        for k in range(len(maps["rgb"])):
+            err = (maps["rgb"][k] - gt[k]) ** 2
+            psnrs.append(_psnr(float(np.mean(err))))
+            if gt_masks is not None and gt_masks[k].max() > 0:
+                m = np.broadcast_to(gt_masks[k][..., None] > 0.5, err.shape)
+                m_psnrs.append(_psnr(float(np.mean(err[m]))))
+                u_psnrs.append(_psnr(float(np.mean(err[~m]))))
+
+    def mean(xs):
+        return float(np.mean(xs)) if xs else None
+
+    return {"psnr": mean(psnrs), "psnr_masked": mean(m_psnrs),
+            "psnr_unmasked": mean(u_psnrs)}

@@ -1,12 +1,16 @@
-"""Field construction: coarse + fine fields from a config.
+"""Train state: the coarse and fine fields, one Adam over both, the LR
+schedule.
 
-Port of the field half of gbnerf_tpu/train/state.py. In PyTorch a field
-module owns its parameters, so ``create_params`` returns the initialised
-modules. The Adam state and the LR schedule come with training.
+Port of gbnerf_tpu/train/state.py. In PyTorch a field module owns its
+parameters, so ``create_params`` returns the initialised modules and
+``TrainState`` holds them beside the optimizer and the step count. The
+state is updated in place; the step functions return it for the JAX
+package's calling convention.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,3 +52,72 @@ def create_params(cfg: Config, generator: torch.Generator, device=None
     if cfg.render.N_importance > 0:
         fine = build_field(cfg, fine=True, device=device, generator=generator)
     return coarse, fine
+
+
+def lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """lr(step) = lrate · 0.1^(step / (lrate_decay · 1000)) (the reference's
+    run.py:1542-1546)."""
+    t = cfg.train
+
+    def schedule(step):
+        return t.lrate * 0.1 ** (step / (t.lrate_decay * 1000.0))
+
+    return schedule
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """One Adam over ``params``, as optax.adam(lr_schedule): betas (0.9,
+    0.999), eps 1e-8. The step sets each update's learning rate from
+    ``lr_schedule`` at the step count before the update, as optax does."""
+    return torch.optim.Adam(list(params), lr=cfg.train.lrate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+@dataclass
+class TrainState:
+    step: int                     # updates done so far
+    coarse: nn.Module
+    fine: Optional[nn.Module]
+    optimizer: torch.optim.Adam
+
+    def fields(self) -> List[nn.Module]:
+        return [self.coarse] + ([self.fine] if self.fine is not None else [])
+
+    def state_dict(self) -> dict:
+        out = {"step": self.step, "coarse": self.coarse.state_dict(),
+               "optimizer": self.optimizer.state_dict()}
+        if self.fine is not None:
+            out["fine"] = self.fine.state_dict()
+        return out
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load in place: the step functions close over these modules."""
+        self.step = int(sd["step"])
+        self.coarse.load_state_dict(sd["coarse"])
+        if self.fine is not None:
+            self.fine.load_state_dict(sd["fine"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+
+
+def adam_step(state: TrainState, schedule: Callable[[int], float]) -> None:
+    """One Adam update of the gradients in place, as optax.adam(schedule):
+    the learning rate is schedule(step) at the update count before the
+    update, the bias corrections use the count after it (torch's ``step``
+    state); then the count advances."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = schedule(state.step)
+    state.optimizer.step()
+    state.step += 1
+
+
+def create_train_state(cfg: Config, generator: torch.Generator, device=None
+                       ) -> Tuple[TrainState, nn.Module, Optional[nn.Module]]:
+    """Init the fields (drawn from ``generator``, moved to ``device``) and
+    the optimizer → (state, coarse, fine), as the JAX package returns
+    (state, coarse_model, fine_model)."""
+    coarse, fine = create_params(cfg, generator, device)
+    params = list(coarse.parameters())
+    if fine is not None:
+        params += list(fine.parameters())
+    state = TrainState(0, coarse, fine, make_optimizer(cfg, params))
+    return state, coarse, fine

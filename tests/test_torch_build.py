@@ -52,16 +52,28 @@ def _calls(log):
 
 def test_build_is_keyed_by_source_hash_and_runs_once(fake_toolkit):
     csrc, log = fake_toolkit
+    # one nvcc per source (here one), then one link
     first = _build.build_library()
     assert first.is_file() and first.name == _build.LIB_NAME
     assert first.parent.name == _build.source_hash()
-    assert _build.build_library() == first and _calls(log) == 1
+    assert _build.build_library() == first and _calls(log) == 2
     (csrc / "k.cu").write_text("// kernel v2\n")      # an edit rebuilds
     second = _build.build_library()
-    assert second != first and second.is_file() and _calls(log) == 2
+    assert second != first and second.is_file() and _calls(log) == 4
     # no half-written temporaries are left beside the libraries
     assert sorted(p.name for p in second.parent.iterdir()) == [
         _build.LIB_NAME]
+
+
+def test_sources_compile_in_parallel_then_link(fake_toolkit):
+    """Each source gets its own nvcc (all started before any is waited
+    for), then one link of the objects makes the library."""
+    csrc, log = fake_toolkit
+    (csrc / "k2.cu").write_text("// kernel b\n")
+    (csrc / "k3.cu").write_text("// kernel c\n")
+    lib = _build.build_library()
+    assert lib.is_file() and _calls(log) == 4
+    assert sorted(p.name for p in lib.parent.iterdir()) == [_build.LIB_NAME]
 
 
 def test_failed_build_raises_with_nvcc_stderr(fake_toolkit):

@@ -145,10 +145,11 @@ def test_pack_weights_layout(rng):
 
 
 @pytest.mark.parametrize("case", ["meta_device", "feat_not_4", "x_strided",
-                                  "ws0_shape", "sh_missing", "needs_grad"])
+                                  "ws0_shape", "sh_missing", "bad_cotangent"])
 def test_field_wrapper_refuses(rng, case):
-    """Only a CPU tensor takes the plain version; the kernel's argument
-    checks raise on what csrc/field_fused.cu does not take."""
+    """Only a CPU tensor takes the plain version; the kernels' argument
+    checks raise on what csrc/field_fused.cu and field_fused_bwd.cu do not
+    take (a gradient is no longer refused: K4/K5 compute it)."""
     x01, sh, ulines, Ws = _mats(rng, 64, 33, 16)
     x, s, ul = (torch.from_numpy(a) for a in (x01, sh, ulines))
     W = {k: torch.from_numpy(v) for k, v in Ws.items()}
@@ -167,11 +168,13 @@ def test_field_wrapper_refuses(rng, case):
         W["ws0"] = W["ws0"][:, :32]
     elif case == "sh_missing":
         s = None
-    err = ValueError
-    if case == "needs_grad":
+    if case == "bad_cotangent":
         W["ws1"].requires_grad_(True)
-        err = NotImplementedError
-    with pytest.raises(err):
+        with pytest.raises(ValueError):
+            tff.check_bwd_args(x, s, ul, W, torch.zeros(64, 3), **kw)
+        tff.check_field_args(x, s, ul, W, **kw)   # a gradient is fine
+        return
+    with pytest.raises(ValueError):
         tff.check_field_args(x, s, ul, W, **kw)
 
 
