@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                  # from the root of a checkout
     python3 chip_smoke.py --profile DIR    # also trace one render and one
-                                           # train step (torch.profiler)
+                                           # step of each stage
+                                           # (torch.profiler)
 
 1. Requires CUDA (exits nonzero without it) and prints the card's name and
    power limit.
@@ -29,6 +30,24 @@
    K4 and K5 and the eval K2; it prints ms per step.
 6. Holds one stage-1 step on the card against the same step on the CPU
    plain path: same weights, injected batch indices, 64 rays per stream.
+7. Holds K7 (self-attention) against its plain version on the card, in
+   bf16, at the three shapes of the stage-2 path (the UNet at 64² and 32²
+   latents, the VAE mid block) and at a ragged N; times both.
+8. Drives stage 2 through train() (first_stage = False), warm-started
+   (ft_path) from the stage-1 run's last checkpoint on the same scene: the
+   full-width SD1.5-inpainting UNet, VAE and CLIP text tower at 512² / 64²
+   latents in bf16 with seeded random weights (sd_allow_random), 2-way SDS
+   at the shipped scales (RGB 7.5, normal 1.5), sds_loss_weight 1e-4, the
+   masked-latents cache, the normal map at normalmap_render_factor 7, and
+   normal_start_iter 0 so both modalities run from the first step. About
+   50 steps, timed as stage 1 is, plus the SD build and the cache. It
+   checks finite metrics, a nonzero sds_loss, that the steps launched K1,
+   K3, K4 and K7 (K7 from the UNet and from the VAE), and that the SDS term
+   alone gives the fine field's lines a nonzero, finite gradient.
+9. Holds one stage-2 step on the card against the same step on the CPU
+   plain path, at the tiny SD widths (f32) but sd_latent_size 512, so that
+   attention sees N = 4096 and 1024 and K7 runs on the card: the same
+   fields and SD weights, injected view, stream indices and draws.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it holds one JSON object
@@ -80,6 +99,34 @@ SIGMA_LOSS_WEIGHT = 0.1
 # and the plain ops move single samples: loss to 1e-3 relative, every
 # parameter's gradient to cosine 0.999
 STEP_RAYS, STEP_LOSS_RTOL, STEP_GRAD_COS = 64, 1e-3, 0.999
+# K7 against its plain version, bf16: |kernel − plain| ≤ atol + rtol·|plain|
+# with atol = ATTN_ATOL_FRAC·max|plain|. Both round q·scale, k, v and p to
+# bf16 once and sum in f32, but the kernel rounds the unnormalised p of an
+# online softmax where the plain version rounds the normalised p, so they
+# differ by bf16 roundings (2^-8 = 3.9e-3 relative) of the output's terms.
+ATTN_RTOL, ATTN_ATOL_FRAC = 1e-2, 1e-2
+# (label, batch·heads, N, D): the stage-2 path's shapes, 2 CFG copies × 8
+# heads in the UNet, one head in the VAE; and a ragged N
+ATTN_SHAPES = (("unet 64x64", 16, 4096, 40), ("unet 32x32", 16, 1024, 80),
+               ("vae mid", 1, 4096, 512), ("ragged", 3, 4000, 40),
+               ("ragged vae", 1, 4000, 512))
+# stage 2 through train(): the steps after the stage-1 checkpoint
+STAGE2_STEPS, STAGE2_PRINT = 50, 10
+# one stage-2 step, card vs the CPU plain path, tiny SD widths at 512²,
+# with both modalities and with RGB only. The card's bf16 attention (K7
+# rounds f32 q, k, v, p to bf16; the CPU does not) moves the UNet's ε and
+# the VAE's latents, which the 7.5× CFG scale amplifies in the SDS term:
+# loss to 1e-3 relative (the SDS term enters at weight 1e-4), the SDS loss
+# itself to 5e-2; with RGB only every parameter's gradient to cosine 0.999.
+# The normal term's gradient passes through depth2normal_geo's least-squares
+# solve, here on a 9 × 12 normal map whose 31 × 31 windows span the whole
+# map: an ill-conditioned solve that amplifies the field kernels' bf16
+# rounding flips (cosine 0.999997 on the stage-1 step) in the rendered
+# depth. Measured on the H100 the fine lines' cosines were 0.990–0.9992 in
+# three runs (every other parameter ≥ 0.9999; RGB only ≥ 0.99999): 0.98.
+STEP2_VIEW, STEP2_LATENT = (63, 84), 512
+STEP2_LOSS_RTOL, STEP2_SDS_RTOL = 1e-3, 5e-2
+STEP2_GRAD_COS = {"rgb+normal": 0.98, "rgb": 0.999}
 DEVICE = "cuda:0"
 
 
@@ -359,19 +406,311 @@ def spinnerf_scene(n_train: int, H: int, W: int, n_test: int = 2,
 
 
 def all_launches() -> dict:
+    from gbnerf_tpu_torch.ops import attention as at
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops import resample as rs
 
-    return {**ff.LAUNCHES, **rs.LAUNCHES}
+    return {**ff.LAUNCHES, **rs.LAUNCHES, **at.LAUNCHES}
 
 
 def zero_launches() -> None:
+    from gbnerf_tpu_torch.ops import attention as at
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops import resample as rs
 
-    for counts in (ff.LAUNCHES, rs.LAUNCHES):
+    for counts in (ff.LAUNCHES, rs.LAUNCHES, at.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    at.LAUNCHES_BY_SHAPE.clear()
+
+
+def check_attention(dev):
+    """K7 against its plain version at ATTN_SHAPES, bf16, q scaled ×3 for
+    a peaked softmax; times both at the non-ragged shapes."""
+    from gbnerf_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    results = []
+    for label, bh, n, d in ATTN_SHAPES:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        q = q * 3
+        scale = d ** -0.5
+        got = at.flash_fwd(q, k, v, scale)
+        ref = at.attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        r = compare_field(got.float(), ref.float(), rtol=ATTN_RTOL,
+                          atol_frac=ATTN_ATOL_FRAC)
+        r.update(shape=label, bh=bh, n=n, d=d,
+                 finite=bool(torch.isfinite(got).all()))
+        if not label.startswith("ragged"):
+            r["ms"] = cuda_ms(lambda: at.flash_fwd(q, k, v, scale), reps=20)
+            r["plain_ms"] = cuda_ms(
+                lambda: at.attention_plain(q, k, v, scale), reps=5)
+        print(f"check attention [{label}] {json.dumps(r)}")
+        if r["n_out_of_tol"] or not r["finite"]:
+            raise AssertionError(
+                f"attention [{label}]: {r['n_out_of_tol']} values outside "
+                f"rtol {ATTN_RTOL}, atol {ATTN_ATOL_FRAC}·max|plain|")
+        results.append(r)
+    return results
+
+
+def stage2_config(cfg, workdir: Path, ft_path: str, n_iters: int):
+    """The shipped stage-2 configuration with random SD weights, both
+    modalities on from the first step, cadences quiet."""
+    never = 10 ** 9
+    return cfg.replace(
+        train=dataclasses.replace(
+            cfg.train, first_stage=False, N_iters=n_iters,
+            i_print=STAGE2_PRINT, i_weights=never, i_evaluate=never,
+            i_testset=never, i_video=never, basedir=str(workdir),
+            expname="stage2", no_reload=True, ft_path=ft_path),
+        guidance=dataclasses.replace(cfg.guidance, sd_allow_random=True,
+                                     normal_start_iter=0))
+
+
+def stage2_train(cfg, dev, scene, depth_gts, workdir: Path, start: int):
+    """Stage 2 through train(), STAGE2_STEPS steps after the stage-1
+    checkpoint at ``start`` → (out, ms per step, launches, the config)."""
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.train.loop import train
+
+    cfg = stage2_config(cfg, workdir,
+                        str(workdir / "stage1" / "ckpt" / str(start)),
+                        start + STAGE2_STEPS)
+    group_ms = []
+
+    def log_fn(i, m):
+        print(f"stage2: [{i}/{start + STAGE2_STEPS}] " + " ".join(
+            f"{k}={v:.5g}" for k, v in m.items()))
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite stage-2 metrics at {i}: {bad}")
+        if m["sds_loss"] == 0.0:
+            raise AssertionError(f"sds_loss is 0 at {i}: no guidance")
+        group_ms.append(1e3 / m["iters_per_sec"])
+
+    # ---- the stage-2 main path: launches counted from here ...
+    zero_launches()
+    out = train(cfg, scene=scene, depth_gts=depth_gts, device=dev,
+                log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches, by_shape = all_launches(), dict(at.LAUNCHES_BY_SHAPE)
+    # ... to here
+    if out["state"].step != start + STAGE2_STEPS or len(group_ms) == 0:
+        raise AssertionError(f"stage 2 stopped at {out['state'].step}")
+    print(f"stage2: launches {json.dumps(launches)}; attention by (N, D) "
+          f"{json.dumps({f'{n}x{d}': c for (n, d), c in by_shape.items()})}")
+    for k in ("field_fused", "merge128", "field_fused_bwd", "attention"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by stage 2")
+    unet = sum(c for (n, d), c in by_shape.items() if d in (40, 80))
+    vae = sum(c for (n, d), c in by_shape.items() if d == 512)
+    if unet <= 0 or vae <= 0:
+        raise AssertionError(f"K7 launches: UNet {unet}, VAE {vae}")
+    ms = float(np.median(group_ms[1:] or group_ms))
+    times = out["setup_times"]
+    print(f"stage2: {STAGE2_STEPS} steps at the full SD1.5-inpaint width "
+          f"(bf16, 512² / 64² latents, RGB + normal SDS): {ms:.3f} ms per "
+          f"step (median of the groups of {STAGE2_PRINT} after the first: "
+          f"{', '.join(f'{g:.3f}' for g in group_ms)}); SD build "
+          f"{times['sd_build_s']:.3f} s, masked-latents cache of "
+          f"{len(scene.images)} views {times['masked_latents_s']:.3f} s; K7 "
+          f"launches UNet {unet}, VAE {vae}")
+    return out, ms, launches, cfg
+
+
+def sds_gradient_check(cfg, dev, out, scene):
+    """The SDS term alone, on one batch of the trained stage-2 state: its
+    gradient reaches the fine field's lines (render → VAE → latents)."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.train.loop import banks_to_device, scene_to_device
+    from gbnerf_tpu_torch.guidance import make_guidance_fn
+    from gbnerf_tpu_torch.guidance.stable import precompute_masked_latents
+    from gbnerf_tpu_torch.train.step import (make_train_step_stage2,
+                                             select_stage2_view)
+
+    state, mods = out["state"], out["guidance"]
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2])
+    scene_dev = scene_to_device(scene, banks, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scene_dev["masked_latents"] = precompute_masked_latents(
+        mods, scene_dev["images"][:2], scene_dev["masks"][:2], generator=gen)
+    step = make_train_step_stage2(
+        cfg, state.coarse, state.fine, scene.near, scene.far, scene.hwf,
+        guidance_fn=make_guidance_fn(mods, cfg.guidance))
+    batch = select_stage2_view(scene_dev, banks_to_device(banks, dev),
+                               cfg.train.N_rand, gen, img_i=1)
+    _, m = step.loss_fn(batch, state.step, gen)
+    lines = state.fine.lines()
+    grads = torch.autograd.grad(m["sds_loss"], lines)
+    norms = [float(g.norm()) for g in grads]
+    print(f"sds gradient: sds_loss {m['sds_loss'].detach().item():.6g}; "
+          f"|d sds / d "
+          f"fine lines_l| = {', '.join(f'{x:.4g}' for x in norms)}")
+    if not (all(np.isfinite(norms)) and sum(norms) > 0):
+        raise AssertionError(f"the SDS term gives the fine lines no finite "
+                             f"gradient: {norms}")
+    return norms
+
+
+def stage2_step_vs_plain(cfg, dev, state, np_rng):
+    """One stage-2 loss and gradient on the card vs the CPU plain path, at
+    the tiny SD widths in f32 and sd_latent_size 512, on a small view."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.guidance import build_sd_modules, make_guidance_fn
+    from gbnerf_tpu_torch.guidance.text import CLIPTextConfig
+    from gbnerf_tpu_torch.guidance.unet import UNetConfig
+    from gbnerf_tpu_torch.guidance.vae import VAEConfig
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.train.loop import banks_to_device, scene_to_device
+    from gbnerf_tpu_torch.train.step import (make_train_step_stage2,
+                                             select_stage2_view)
+
+    H, W = STEP2_VIEW
+    scene, depth_gts = spinnerf_scene(4, H, W, n_test=1, seed=3)
+    cfg = cfg.replace(
+        render=dataclasses.replace(cfg.render, perturb=0.0,
+                                   raw_noise_std=0.0),
+        train=dataclasses.replace(cfg.train, N_rand=STEP_RAYS,
+                                  first_stage=False),
+        guidance=dataclasses.replace(cfg.guidance, normal_start_iter=0,
+                                     cache_masked_latents=False))
+    mods_cpu = build_sd_modules(
+        cfg.guidance, torch.Generator().manual_seed(4),
+        unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
+        text_config=CLIPTextConfig(vocab_size=49408, width=32, layers=2,
+                                   heads=2),
+        latent_size=STEP2_LATENT, dtype=torch.float32)
+    banks = build_ray_banks(scene.images, scene.masks,
+                            scene.inpainted_depths, scene.poses,
+                            scene.hwf[2], depth_gts)
+    idx = {name: torch.from_numpy(np_rng.integers(0, len(s), STEP_RAYS))
+           for name, s in (("clf", banks.rgb_clf), ("inp", banks.inp),
+                           ("depth", banks.depth))}
+    lr = STEP2_LATENT // 8
+    draws = {mod: {k: torch.from_numpy(np_rng.standard_normal(
+        (1, lr, lr, 4)).astype(np.float32))
+        for k in ("noise", "enc_eps", "enc_masked_eps")}
+        for mod in ("rgb", "normal")}
+    out = {}
+    for variant, gcfg in (
+            ("rgb+normal", cfg.guidance),
+            ("rgb", dataclasses.replace(cfg.guidance,
+                                        is_normal_guidance=False))):
+        res, before = {}, all_launches()
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            fields = [copy.deepcopy(f).to(device) for f in state.fields()]
+            mods = dataclasses.replace(
+                mods_cpu, unet=copy.deepcopy(mods_cpu.unet).to(device),
+                vae=copy.deepcopy(mods_cpu.vae).to(device),
+                embeds_rgb=mods_cpu.embeds_rgb.to(device),
+                embeds_normal=mods_cpu.embeds_normal.to(device))
+            step = make_train_step_stage2(
+                cfg.replace(guidance=gcfg), fields[0], fields[1], scene.near,
+                scene.far, scene.hwf, guidance_fn=make_guidance_fn(mods, gcfg))
+            batch = select_stage2_view(
+                scene_to_device(scene, banks, device),
+                banks_to_device(banks, device), STEP_RAYS, img_i=1, idx=idx)
+            loss, m = step.loss_fn(batch, state.step, draws={
+                mod: {k: v.to(device) for k, v in d.items()}
+                for mod, d in draws.items()})
+            loss.backward()
+            res[where] = (loss.item(), m["sds_loss"].detach().item(), {
+                f"{name}.{k}": p.grad.detach().cpu().double()
+                for name, f in zip(("coarse", "fine"), fields)
+                for k, p in f.named_parameters()})
+        card_launches = {k: v - before[k] for k, v in all_launches().items()}
+        (l_card, s_card, g_card), (l_cpu, s_cpu, g_cpu) = (res["card"],
+                                                          res["cpu"])
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        sds_rel = abs(s_card - s_cpu) / abs(s_cpu)
+        cos = {k: float(torch.dot(g_card[k].ravel(), g_cpu[k].ravel())
+                        / (g_card[k].norm() * g_cpu[k].norm()).clamp_min(
+                            1e-300))
+               for k in g_cpu}
+        worst = min(cos, key=cos.get)
+        print(f"stage2 step vs plain [{variant}] (tiny SD at {STEP2_LATENT}², "
+              f"{H}x{W} view, {STEP_RAYS} rays a stream): loss card "
+              f"{l_card!r} cpu {l_cpu!r} (rel err {rel:.3e}, limit "
+              f"{STEP2_LOSS_RTOL}); sds_loss card {s_card!r} cpu {s_cpu!r} "
+              f"(rel err {sds_rel:.3e}, limit {STEP2_SDS_RTOL}); gradient "
+              f"cosine min {cos[worst]:.6f} ({worst}, limit "
+              f"{STEP2_GRAD_COS[variant]}) over {len(cos)} parameters: "
+              f"{json.dumps({k: round(v, 6) for k, v in cos.items()})}; "
+              f"kernel launches of the card's step "
+              f"{json.dumps(card_launches)}")
+        if card_launches["attention"] <= 0:
+            raise AssertionError("the card's stage-2 step launched no K7")
+        if (rel > STEP2_LOSS_RTOL or sds_rel > STEP2_SDS_RTOL
+                or cos[worst] < STEP2_GRAD_COS[variant]):
+            raise AssertionError(f"the card's stage-2 step [{variant}] "
+                                 "differs from the plain path")
+        out[variant] = {"loss_rel_err": rel, "sds_rel_err": sds_rel,
+                        "min_grad_cos": cos[worst]}
+    return out
+
+
+def profile_stage2(cfg, dev, out, scene, outdir: Path, step_ms: float):
+    """--profile: one traced stage-2 step, and the step's parts timed alone
+    with CUDA events: the UNet forward (2 CFG copies, per modality), the
+    VAE encode of a 512² render with its backward, and the NeRF renders of
+    the step with their backward (guidance replaced by a stub that keeps
+    the masked and normal-map renders)."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.guidance import make_guidance_fn
+    from gbnerf_tpu_torch.train.loop import banks_to_device, scene_to_device
+    from gbnerf_tpu_torch.train.step import make_train_step_stage2
+
+    state, mods = out["state"], out["guidance"]
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2])
+    scene_dev = scene_to_device(scene, banks, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    scene_dev["masked_latents"] = torch.zeros(
+        (len(scene.images), mods.latent_res, mods.latent_res, 4),
+        dtype=torch.bfloat16, device=dev)
+    banks_dev = banks_to_device(banks, dev)
+    step = make_train_step_stage2(
+        cfg, state.coarse, state.fine, scene.near, scene.far, scene.hwf,
+        guidance_fn=make_guidance_fn(mods, cfg.guidance))
+    profile_once(lambda: step(state, scene_dev, banks_dev, gen),
+                 "stage2_step", outdir, step_ms)
+
+    lr = mods.latent_res
+    unet_in = torch.randn((2, lr, lr, 9), generator=gen, device=dev)
+    with torch.no_grad():
+        unet_ms = cuda_ms(lambda: mods.unet(unet_in, 500,
+                                            mods.embeds_rgb[1:]), reps=5)
+    img = torch.rand((1, mods.latent_size, mods.latent_size, 3),
+                     generator=gen, device=dev, requires_grad=True)
+    eps = torch.randn((1, lr, lr, 4), generator=gen, device=dev)
+
+    def vae_fb():
+        z = mods.vae.encode(img * 2 - 1, eps)
+        torch.autograd.grad(z.float().sum(), img)
+
+    vae_ms = cuda_ms(vae_fb, reps=5)
+
+    def stub(step_i, combin, normal_map, mask, generator=None, **kw):
+        return (combin.sum() + normal_map.sum()) * 0.0
+
+    rstep = make_train_step_stage2(cfg, state.coarse, state.fine, scene.near,
+                                   scene.far, scene.hwf, guidance_fn=stub)
+    render_ms = cuda_ms(lambda: rstep(state, scene_dev, banks_dev, gen),
+                        reps=5)
+    # per step: one UNet forward and one differentiated VAE encode per
+    # modality (RGB, normal), and the normal modality's masked encode
+    # (no gradient) — counted here as a second differentiated one
+    parts = {"unet_forward": 2 * unet_ms, "vae_encode_fwd_bwd": 3 * vae_ms,
+             "renders_fwd_bwd": render_ms}
+    print(f"profile stage2 parts (ms, alone): UNet forward {unet_ms:.3f} ×2, "
+          f"VAE encode+backward {vae_ms:.3f} ×3 (one of them forward only), "
+          f"renders+backward {render_ms:.3f}; shares of the {step_ms:.3f} ms "
+          f"step: " + ", ".join(f"{k} {v / step_ms:.3f}"
+                                for k, v in parts.items()))
 
 
 def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
@@ -564,6 +903,7 @@ def main() -> None:
         field_res = check_fields(dev, fine, coarse, proposal, np_rng)
         merge_res = check_merge(dev, np_rng)
     field_res.update(check_field_bwd(dev, fine, coarse, np_rng))
+    attn_res = check_attention(dev)
 
     # ---- 4. the eval render path: launches counted from here ...
     render = make_render_fn(cfg, coarse, fine, near=NEAR, far=FAR)
@@ -658,10 +998,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         out, step_ms, step_launches, eval_launches = stage1_train(
             cfg, dev, scene, depth_gts, Path(workdir))
+        # ---- 8. stage 2 from the stage-1 checkpoint (its own counts)
+        out2, step2_ms, stage2_launches, cfg2 = stage2_train(
+            cfg, dev, scene, depth_gts, Path(workdir), TRAIN_STEPS)
     state = out["state"]
+    sds_gradient_check(cfg2, dev, out2, scene)
 
     # ---- 6. one step on the card vs the same step on the CPU plain path
     step_vs_plain(cfg, dev, state, scene, depth_gts)
+    # ---- 9. one stage-2 step on the card vs the CPU plain path
+    stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(7))
 
     if args.profile is not None:
         from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
@@ -678,9 +1024,11 @@ def main() -> None:
         gen = torch.Generator(device=dev).manual_seed(3)
         profile_once(lambda: step(state, banks, gen), "train_step",
                      args.profile, step_ms)
+        profile_stage2(cfg2, dev, out2, scene, args.profile, step2_ms)
 
     path_launches = {k: render_launches[k] + step_launches[k]
-                     + eval_launches[k] for k in render_launches}
+                     + eval_launches[k] + stage2_launches[k]
+                     for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/field_fused.cu",
@@ -697,7 +1045,11 @@ def main() -> None:
         {"name": "field_fused_bwd_sigma", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/field_fused_bwd.cu",
          "replaces": "gbnerf_tpu/ops/field_fused.py:439"},
+        {"name": "attention", "route": "cuda",
+         "source": "gbnerf_tpu_torch/csrc/attention.cu",
+         "replaces": "gbnerf_tpu/ops/attention.py:47"},
     ]
+    field_res["attention"] = attn_res
     for k in kernels:
         checks = merge_res if k["name"] == "merge128" else field_res[k["name"]]
         main_shape = checks[0]                    # the main-path shape

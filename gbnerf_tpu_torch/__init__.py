@@ -6,11 +6,13 @@ to find, and its tests hold every module against the JAX function it
 replaces on the same inputs.
 
 Layer map (mirrors gbnerf_tpu):
-  core/   rays, encodings, fields, sampling, volume rendering
+  core/   rays, encodings, fields, sampling, volume rendering, normal maps
   ops/    hand-written CUDA kernels (csrc/) with their plain PyTorch versions
+  guidance/ the SD1.5-inpainting stack (UNet, VAE, CLIP text), schedule,
+          score distillation
   data/   LLFF/COLMAP loaders (numpy), ray banks
-  train/  train state, losses, the stage-1 step and loop, checkpoints,
-          render functions, eval renders
+  train/  train state, losses, the stage-1 and stage-2 steps and loop,
+          checkpoints, render functions, eval renders
   utils/  metrics
   run.py  the CLI (``python -m gbnerf_tpu_torch.run --config …``)
 

@@ -15,9 +15,14 @@ A whole train state carries across too (``train_state_from_jax`` and
 params' tree structure and map to torch Adam's ``exp_avg``/``exp_avg_sq``
 by the same key rules; optax's ``count`` (updates done) is torch's
 per-parameter ``step``.
+
+The SD guidance stack carries across with ``sd_params_from_jax``: the flax
+module names (``down_0_resnets_1``, ``to_out_0``, ``net_0``) map to the
+port's diffusers names, and the leaves to torch's layouts.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -129,3 +134,66 @@ def train_state_to_jax(state):
     # one update advances every parameter: optax's count is the step
     count = np.asarray(state.step, np.int32)
     return params, ({"count": count, "mu": mu, "nu": nu}, {"count": count}), count
+
+
+# ---- the SD stack: flax module names → the port's diffusers names ----
+# (the inverse of gbnerf_tpu/guidance/weights.py's rules, written here: that
+# module imports JAX)
+_SD_RULES = [
+    (r"\b(down|up)_(\d+)_(resnets|attentions)_(\d+)\b", r"\1_blocks.\2.\3.\4"),
+    (r"\bdown_(\d+)_downsamplers_0\b", r"down_blocks.\1.downsamplers.0"),
+    (r"\bup_(\d+)_upsamplers_0\b", r"up_blocks.\1.upsamplers.0"),
+    (r"\bmid_(resnets|attentions)_(\d+)\b", r"mid_block.\1.\2"),
+    (r"\btransformer_blocks_(\d+)\b", r"transformer_blocks.\1"),
+    (r"\bto_out_0\b", "to_out.0"),
+    (r"\bnet_(\d+)\b", r"net.\1"),
+]
+_TEXT_RULES = [
+    (r"^token_embedding\.embedding$",
+     "text_model.embeddings.token_embedding.weight"),
+    (r"^position_embedding$", "text_model.embeddings.position_embedding.weight"),
+    (r"^layers_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\.",
+     r"text_model.encoder.layers.\1.self_attn.\2."),
+    (r"^layers_(\d+)\.(fc1|fc2)\.", r"text_model.encoder.layers.\1.mlp.\2."),
+    (r"^layers_(\d+)\.", r"text_model.encoder.layers.\1."),
+    (r"^final_layer_norm\.", "text_model.final_layer_norm."),
+]
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for name, v in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(v, Mapping):
+            yield from _flatten(v, key + ".")
+        else:
+            yield key, np.asarray(v)
+
+
+def flax_to_state_dict(tree: Mapping, rules=_SD_RULES
+                       ) -> Dict[str, torch.Tensor]:
+    """A flax param tree (numpy leaves) → a torch state dict: module names
+    by ``rules``; Conv ``kernel`` [kh, kw, in, out] → ``weight`` [out, in,
+    kh, kw], Dense ``kernel`` [in, out] → ``weight`` [out, in], norm
+    ``scale`` → ``weight``, Embed ``embedding`` → ``weight`` (by rule)."""
+    out = {}
+    for key, a in _flatten(tree):
+        for pat, rep in rules:
+            key = re.sub(pat, rep, key)
+        head, _, kind = key.rpartition(".")
+        if kind == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            kind = "weight"
+        elif kind == "scale":
+            kind = "weight"
+        key = f"{head}.{kind}" if head else kind
+        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return out
+
+
+def sd_params_from_jax(unet_tree: Mapping, vae_tree: Mapping,
+                       text_tree: Mapping):
+    """The JAX package's SD param trees (UNet, VAE, CLIP text) → the state
+    dicts of the port's UNet2DCondition, AutoencoderKL and
+    CLIPTextEncoder, in that order."""
+    return (flax_to_state_dict(unet_tree), flax_to_state_dict(vae_tree),
+            flax_to_state_dict(text_tree, _TEXT_RULES))

@@ -1,0 +1,325 @@
+"""Stable-Diffusion-inpainting guidance: the stack, the score-distillation
+step and the train-step hook.
+
+Port of gbnerf_tpu/guidance/stable.py: ``SDModules``, ``build_sd_modules``,
+``_resize``, ``_gate_negative``, ``sd_train_step`` (2-way SDS and the
+3-way CSD combine), ``precompute_masked_latents``, ``guidance_params`` and
+``make_guidance_fn`` for the RGB and normal-map modalities. As in the JAX
+package the prompts are encoded once at build time, the UNet runs without
+gradient (its CFG copies batched on the leading axis), and only the VAE
+encode of the render is differentiated.
+
+Every random draw is an optional argument (the noise ε, the VAE posterior
+ε of the render and of the masked image), else drawn from a
+``torch.Generator``; the tests hand the port the JAX package's draws.
+
+Resizing: ``jax.image.resize`` samples at half-pixel centres. Its
+"nearest" at the 512 → 64 mask downsample is torch's "nearest-exact"
+(pixel 8i + 4), not "nearest" (8i); its "bilinear" upsampling is
+``F.interpolate(mode="bilinear", align_corners=False)``. When it
+downsamples, jax antialiases (a triangle kernel widened by the scale);
+the port then passes ``antialias=True``, torch's kernel of the same shape.
+
+Not ported yet, and refused: Perp-Neg, the collaborative (colla)
+guidance, ``sd_lora_ckpt``, ``sd_prior_ckpt`` and the LoRA merge.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .blocks import init_weights_
+from .schedule import DiffusionSchedule
+from .sds import (cfg_combine_bsd, cfg_combine_sds, inject_gradient,
+                  score_distillation_grad)
+from .text import CLIPTextConfig, CLIPTextEncoder, Tokenizer
+from .unet import UNet2DCondition, UNetConfig
+from .vae import AutoencoderKL, VAEConfig
+
+LATENT_SIZE = 512  # the reference resizes every render to 512² (sd_utils.py:344)
+
+
+@dataclass
+class SDModules:
+    """The models and the precomputed prompt embeddings."""
+
+    unet: UNet2DCondition
+    vae: AutoencoderKL
+    schedule: DiffusionSchedule
+    embeds_rgb: torch.Tensor       # [3, L, D] (null, uncond, text), f32
+    embeds_normal: torch.Tensor    # the same triple for the normal prompt
+    latent_size: int = LATENT_SIZE
+    text_model: Any = None
+    tokenizer: Any = None
+
+    @property
+    def latent_res(self) -> int:
+        return self.latent_size // 8
+
+
+def _refuse_unported(gcfg, weights_dir) -> None:
+    if gcfg.perpneg:
+        raise NotImplementedError("Perp-Neg guidance (perpneg) is not ported "
+                                  "yet")
+    if gcfg.is_colla_guidance:
+        raise NotImplementedError("collaborative guidance "
+                                  "(is_colla_guidance) is not ported yet")
+    if gcfg.sd_lora_ckpt:
+        raise NotImplementedError("sd_lora_ckpt (LoRA adapters) is not "
+                                  "ported yet")
+    if gcfg.sd_prior_ckpt:
+        raise NotImplementedError("sd_prior_ckpt (prior checkpoints) is not "
+                                  "ported yet")
+    if weights_dir and gcfg.model_path:
+        raise NotImplementedError("the PEFT-LoRA merge (model_path) is not "
+                                  "ported yet")
+
+
+def _build(ctor, generator, device, dtype):
+    """ctor() built without storage, placed on ``device``, initialised from
+    ``generator`` there, then cast to ``dtype``: a full-size init on the
+    card takes a fraction of a second, on the host tens of seconds."""
+    with torch.device("meta"):
+        module = ctor()
+    module = module.to_empty(device=device)
+    init_weights_(module, generator)
+    return module.to(dtype).eval().requires_grad_(False)
+
+
+def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
+                     unet_config: Optional[UNetConfig] = None,
+                     vae_config: Optional[VAEConfig] = None,
+                     text_config: Optional[CLIPTextConfig] = None,
+                     weights_dir: Optional[str] = None,
+                     latent_size: int = LATENT_SIZE,
+                     dtype=torch.bfloat16, device=None) -> SDModules:
+    """Init (or load) the SD-inpainting stack on ``device`` and precompute
+    the prompt embeddings.
+
+    generator: draws the random init, on ``device`` (default: one seeded
+    with 0). weights_dir: a local diffusers-layout checkpoint; without it
+    the models keep their random init — the pipeline runs, quality needs
+    real weights. The UNet and VAE compute in ``dtype`` (bf16 on the card;
+    the JAX package keeps f32 params and computes in bf16, the same
+    rounding); the text tower in f32.
+    """
+    ver = getattr(gcfg, "sd_version", "1.5") or "1.5"
+    if str(ver).startswith("2"):
+        raise NotImplementedError(
+            f"sd_version={ver!r}: only the SD1.x-inpaint architecture is "
+            "implemented (UNet 320/640/1280, CLIP ViT-L text width 768); use "
+            "sd_version=1.5 with an SD1.x-inpaint checkpoint.")
+    _refuse_unported(gcfg, weights_dir)
+    device = torch.device(device if device is not None else "cpu")
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    ucfg = unet_config or UNetConfig.sd15_inpaint()
+    vcfg = vae_config or VAEConfig()
+    tcfg = text_config or CLIPTextConfig()
+
+    unet = _build(lambda: UNet2DCondition(ucfg), generator, device, dtype)
+    vae = _build(lambda: AutoencoderKL(vcfg), generator, device, dtype)
+    text = _build(lambda: CLIPTextEncoder(tcfg), generator, device,
+                  torch.float32)
+    with torch.no_grad():
+        text.text_model.embeddings.position_embedding.weight.normal_(
+            0.0, 0.01, generator=generator)
+
+    tok_dir = weights_dir and os.path.join(weights_dir, "tokenizer")
+    if tok_dir and not os.path.isdir(tok_dir):
+        print(f"[text] WARNING: {weights_dir} has no tokenizer/ dir — "
+              "prompts use the deterministic hash fallback, NOT real CLIP "
+              "BPE. Do not use this for a real-weights run.")
+        tok_dir = None
+    tok = Tokenizer(tok_dir, max_length=tcfg.max_length,
+                    vocab_size=tcfg.vocab_size)
+    if weights_dir:
+        from .weights import load_sd_weights
+
+        load_sd_weights(weights_dir, unet, vae, text)
+
+    @torch.no_grad()
+    def encode_triple(prompt: str, negative: str) -> torch.Tensor:
+        return text(tok(["", negative, prompt]))       # (null, uncond, text)
+
+    return SDModules(
+        unet=unet, vae=vae, schedule=DiffusionSchedule.sd_v1(),
+        embeds_rgb=encode_triple(gcfg.prompt, gcfg.negative_prompt),
+        embeds_normal=encode_triple(gcfg.prompt_normal or gcfg.prompt,
+                                    gcfg.negative_prompt),
+        latent_size=latent_size, text_model=text, tokenizer=tok)
+
+
+def _resize(img: torch.Tensor, size: int, method: str = "bilinear"
+            ) -> torch.Tensor:
+    """[B, H, W, C] → [B, size, size, C], as jax.image.resize (see the
+    module note)."""
+    x = img.permute(0, 3, 1, 2)
+    if method == "nearest":
+        x = F.interpolate(x, size=(size, size), mode="nearest-exact")
+    else:
+        down = size < img.shape[1] or size < img.shape[2]
+        x = F.interpolate(x, size=(size, size), mode="bilinear",
+                          align_corners=False, antialias=down)
+    return x.permute(0, 2, 3, 1)
+
+
+def _gate_negative(embeds: torch.Tensor, gate_step: int, use_negative: int):
+    """Delayed negative-prompt gate: until the global iteration passes
+    use_negative the uncond slot is the null ("") embedding. The step
+    counter is 0-based, the reference's 1-based: its ``i > use_negative``
+    is ``step + 1 > use_negative``."""
+    e_unc = embeds[1] if gate_step + 1 > use_negative else embeds[0]
+    return torch.stack([embeds[0], e_unc, embeds[2]])
+
+
+def _randn(shape, generator, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def sd_train_step(mods: SDModules, gcfg, step_i: int, rgb: torch.Tensor,
+                  mask: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, *,
+                  embeds: torch.Tensor, guidance_scale: float,
+                  mode: Optional[str] = None, w_triple=None,
+                  gate_step: Optional[int] = None,
+                  masked_latents: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  enc_eps: Optional[torch.Tensor] = None,
+                  enc_masked_eps: Optional[torch.Tensor] = None):
+    """One score-distillation step on an image modality → scalar loss.
+
+    rgb: [H, W, 3] differentiable render composite in [0, 1]; mask: [H, W]
+    (1 = masked); embeds: [3, L, D] (null, uncond, text); mode "csd" |
+    "sds" (default from gcfg.use_csd); w_triple: (w1, w2, w3) of the 3-way
+    combine (default the shared gcfg.w1..3); gate_step: the global
+    iteration of the use_negative gate (default step_i); masked_latents: a
+    cached [1, LR, LR, 4] encoding of the masked conditioning image.
+    noise, enc_eps, enc_masked_eps: the injected draws, [1, LR, LR, 4] each
+    (the noise ε, the posterior ε of the render's and of the masked image's
+    encode); each is drawn from ``generator`` when not given.
+    """
+    S, LR = mods.latent_size, mods.latent_res
+    sched = mods.schedule
+    mode = mode or ("csd" if gcfg.use_csd else "sds")
+    if w_triple is None:
+        w_triple = (gcfg.w1, gcfg.w2, gcfg.w3)
+    embeds = _gate_negative(embeds, step_i if gate_step is None else gate_step,
+                            gcfg.use_negative)
+    dev, vdt = rgb.device, mods.vae.quant_conv.weight.dtype
+    lat_shape = (1, LR, LR, mods.vae.config.latent_channels)
+
+    rgb512 = _resize(rgb[None], S) * 2.0 - 1.0               # [1,S,S,3]
+    mask512 = _resize(torch.abs(mask)[None, ..., None], S)    # [1,S,S,1]
+    if enc_eps is None:
+        enc_eps = _randn(lat_shape, generator, vdt, dev)
+    init_latents = mods.vae.encode(rgb512, enc_eps)           # differentiable
+    if masked_latents is None:
+        if enc_masked_eps is None:
+            enc_masked_eps = _randn(lat_shape, generator, vdt, dev)
+        with torch.no_grad():
+            masked_latents = mods.vae.encode(rgb512 * (mask512 < 0.5),
+                                             enc_masked_eps)
+    mask_latent = _resize(mask512, LR, method="nearest")      # [1,LR,LR,1]
+
+    t = sched.annealed_t(step_i, gcfg.t_range, gcfg.anneal_iters)
+    if noise is None:
+        noise = _randn(init_latents.shape, generator, torch.float32, dev)
+    latents_t = sched.add_noise(init_latents, noise, t)
+
+    k = 3 if mode == "csd" else 2
+    unet_in = torch.cat([latents_t.detach(), mask_latent,
+                         masked_latents.to(latents_t.dtype)], dim=-1)
+    emb = embeds if k == 3 else embeds[1:]                    # (u, t) 2-way
+    with torch.no_grad():
+        eps = mods.unet(unet_in.expand(k, -1, -1, -1), t, emb)
+    if mode == "csd":
+        pred = cfg_combine_bsd(eps[0], eps[1], eps[2], *w_triple)
+    else:
+        pred = cfg_combine_sds(eps[0], eps[1], guidance_scale)
+
+    grad = score_distillation_grad(pred[None], noise,
+                                   sched.sds_weight(t, dev), mode=mode)
+    return gcfg.lambda_guidance * inject_gradient(latents_t, grad,
+                                                  mask_latent)
+
+
+@torch.no_grad()
+def precompute_masked_latents(mods: SDModules, images: torch.Tensor,
+                              masks: torch.Tensor, *,
+                              generator: Optional[torch.Generator] = None,
+                              eps: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Per-view VAE encodings of the masked conditioning image →
+    [N, LR, LR, 4] (the RGB composite equals the GT outside the mask, so
+    this is a per-view constant; the divergence from the reference's
+    per-iteration encode is documented at the JAX helper). eps: the
+    injected posterior draws [N, LR, LR, 4], else drawn from generator."""
+    S, LR = mods.latent_size, mods.latent_res
+    vdt = mods.vae.quant_conv.weight.dtype
+    out = []
+    for i in range(images.shape[0]):
+        rgb512 = _resize(images[i][None], S) * 2.0 - 1.0
+        m512 = _resize(torch.abs(masks[i])[None, ..., None], S)
+        e = (eps[i:i + 1] if eps is not None else
+             _randn((1, LR, LR, mods.vae.config.latent_channels), generator,
+                    vdt, images.device))
+        out.append(mods.vae.encode(rgb512 * (m512 < 0.5), e))
+    return torch.cat(out, dim=0)
+
+
+def guidance_params(mods: SDModules) -> Dict[str, Any]:
+    """The SD state of the stack: the modules and the prompt embeddings
+    (the JAX package threads these through its jitted step as arguments;
+    the port's hook holds the modules, so nothing needs to)."""
+    return {"unet": mods.unet, "vae": mods.vae,
+            "embeds_rgb": mods.embeds_rgb,
+            "embeds_normal": mods.embeds_normal}
+
+
+def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
+    """The train-step guidance hook (the reference's Pretrain_Model
+    .cal_loss): RGB SDS on the composite, normal-map SDS after
+    normal_start_iter, each with its own CFG scale and CSD triple; the
+    modality losses sum into one scalar.
+
+    guidance_fn(step_i, combin_rgb [H,W,3], normal_map [h,w,3] | None,
+    mask [H,W], generator=None, *, masked_latents=None, draws=None) →
+    scalar. draws: {"rgb": {...}, "normal": {...}}, each the
+    injected draws of sd_train_step (noise, enc_eps, enc_masked_eps).
+    The normal term is not computed while it is gated off (the JAX
+    package computes it and multiplies by 0: the same value and
+    gradient).
+    """
+    del n_iters          # the progressive view ranges of Perp-Neg use it
+    _refuse_unported(gcfg, None)
+
+    def guidance_fn(step_i: int, combin_rgb, normal_map, mask,
+                    generator: Optional[torch.Generator] = None, *,
+                    masked_latents=None, draws=None):
+        draws = draws or {}
+        loss = torch.zeros((), device=combin_rgb.device)
+        if gcfg.is_rgb_guidance:
+            loss = loss + sd_train_step(
+                mods, gcfg, step_i, combin_rgb, mask, generator,
+                embeds=mods.embeds_rgb,
+                guidance_scale=gcfg.guidance_scale,
+                w_triple=(gcfg.rgb_w1, gcfg.rgb_w2, gcfg.rgb_w3),
+                masked_latents=masked_latents, **draws.get("rgb", {}))
+        if (gcfg.is_normal_guidance and normal_map is not None
+                and step_i > gcfg.normal_start_iter):
+            # the normal anneal restarts when it switches on: it runs on
+            # i − normal_start_iter; the use_negative gate on the global i
+            loss = loss + sd_train_step(
+                mods, gcfg, step_i - gcfg.normal_start_iter, normal_map, mask,
+                generator, embeds=mods.embeds_normal,
+                guidance_scale=gcfg.normal_guidance_scale,
+                w_triple=(gcfg.normal_w1, gcfg.normal_w2, gcfg.normal_w3),
+                gate_step=step_i, **draws.get("normal", {}))
+        return loss
+
+    return guidance_fn

@@ -10,7 +10,10 @@ The twin of the repository's run.py (same config files, same overrides):
 
 It runs on the first CUDA device when there is one, else on the CPU (the
 kernels need the card; the CPU runs their plain versions). Reading a scene
-from disk needs ``imageio``. Stage 2 is not ported yet.
+from disk needs ``imageio``. Stage 2 (``first_stage = False``) guides with
+the SD1.5-inpainting stack from ``guidance.sd_weights_dir`` (a local
+diffusers-layout checkpoint), or with random weights under
+``guidance.sd_tiny`` / ``guidance.sd_allow_random``.
 """
 from __future__ import annotations
 

@@ -1,17 +1,22 @@
-"""Render functions and the stage-1 train step.
+"""Render functions and the stage-1 and stage-2 train steps.
 
 Port of gbnerf_tpu/train/step.py: ``make_render_fn`` (with its NDC and
 non-NDC branches), ``make_image_renderer``, ``_full_view_rays``,
-``_sigma_depth_loss`` and ``make_train_step_stage1``. Not ported yet: the
-frozen-σ field (``alpha=``), the data mesh (``mesh=``) and stage 2.
+``_sigma_depth_loss``, ``make_train_step_stage1``, and stage 2:
+``Stage2Batch``, ``select_stage2_view``, ``_masked_rays`` and
+``make_train_step_stage2``. Not ported yet: the frozen-σ field
+(``alpha=``), the data mesh (``mesh=``), and in stage 2 the LPIPS patch
+loss (``lpips_fn``), ``gradient_clip`` (pwclip) and the collaborative
+neighbour views.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from ..config import Config
+from ..core.normals import depth2normal_geo, depth2xyz
 from ..core.fields import make_field_fn
 from ..core.rays import ndc_rays
 from ..core.render import RenderOutputs, render_rays, render_rays_blocked
@@ -196,6 +201,201 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
         }
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batches, generator)
+        loss.backward()
+        adam_step(state, schedule)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        return state, metrics
+
+    step.loss_fn = loss_fn
+    return step
+
+
+class Stage2Batch(NamedTuple):
+    """The device inputs of one stage-2 iteration (static shapes)."""
+
+    image: torch.Tensor       # [H, W, 3] GT (inpainted) image of the view
+    mask: torch.Tensor        # [H, W]
+    coords: torch.Tensor      # [K_max, 2] (x, y) masked pixels, padded
+    valid: torch.Tensor       # [K_max] bool
+    pose: torch.Tensor        # [3, 4] c2w of the view
+    clf: Dict[str, torch.Tensor]    # unmasked rays {o, d, target[3]}
+    inp: Dict[str, torch.Tensor]    # inpainted-disparity rays {o, d, target[1]}
+    depth: Optional[Dict[str, torch.Tensor]]  # COLMAP {o, d, target[depth, w]}
+    # cached [1, LR, LR, 4] VAE encoding of the view's masked conditioning
+    # image (guidance/stable.py::precompute_masked_latents)
+    masked_latents: Optional[torch.Tensor] = None
+
+
+def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
+                       n_rand: int,
+                       generator: Optional[torch.Generator] = None, *,
+                       img_i=None, idx=None) -> Stage2Batch:
+    """A random view and N_rand rays of each stream, on the device. The
+    view index (``img_i``) and the stream draws (``idx``: {"clf", "inp",
+    "depth"} → [n_rand] indices) may be injected; otherwise they come from
+    ``generator``."""
+    idx = idx or {}
+    images = scene_dev["images"]
+    if img_i is None:
+        img_i = torch.randint(0, images.shape[0], (1,), generator=generator,
+                              device=images.device)
+    else:
+        img_i = torch.as_tensor(img_i, device=images.device).reshape(1)
+
+    def take(name):
+        return scene_dev[name].index_select(0, img_i)[0]
+
+    ml = scene_dev.get("masked_latents")
+    depth = banks_dev.get("depth")
+    return Stage2Batch(
+        image=take("images"), mask=take("masks"), coords=take("mask_coords"),
+        valid=take("mask_valid"), pose=take("poses")[:3, :4],
+        clf=sample_batch(banks_dev["rgb_clf"], n_rand, generator,
+                         idx.get("clf")),
+        inp=sample_batch(banks_dev["inp"], n_rand, generator, idx.get("inp")),
+        depth=(sample_batch(depth, n_rand, generator, idx.get("depth"))
+               if depth is not None else None),
+        masked_latents=ml.index_select(0, img_i) if ml is not None else None)
+
+
+def _masked_rays(H: int, W: int, focal: float, pose: torch.Tensor,
+                 coords: torch.Tensor):
+    """Rays through the (padded) masked pixel coords [K, 2] of one view."""
+    x = (coords[:, 0].float() - W * 0.5) / focal
+    y = -(coords[:, 1].float() - H * 0.5) / focal
+    dirs = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    rays_d = torch.sum(dirs[..., None, :] * pose[:3, :3], dim=-1)
+    rays_o = pose[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def _composite(image: torch.Tensor, coords: torch.Tensor,
+               valid: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+    """The GT view with the valid masked pixels replaced by the render, by
+    a scatter (differentiable in rgb). The padded entries are sent to one
+    extra slot past the image, so that they never collide with a real
+    pixel (the JAX package writes them back onto pixel (0, 0))."""
+    H, W, C = image.shape
+    flat = coords[:, 1].long() * W + coords[:, 0].long()
+    flat = torch.where(valid, flat, torch.full_like(flat, H * W))
+    vals = torch.where(valid[:, None], rgb, torch.zeros_like(rgb))
+    out = torch.cat([image.reshape(H * W, C), image.new_zeros((1, C))])
+    return out.index_put((flat,), vals)[:H * W].reshape(H, W, C)
+
+
+# guidance_fn(step, combin_rgb [H,W,3], normal_map [h,w,3] | None,
+#             mask [H,W], generator, *, masked_latents, draws) → scalar
+GuidanceFn = Callable[..., torch.Tensor]
+
+
+def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
+                           near: float, far: float, hwf, *,
+                           guidance_fn: Optional[GuidanceFn] = None,
+                           lpips_fn=None, alpha=None, mesh=None):
+    """Masked-inpainting training step (the reference's second stage).
+
+    step(state, scene_dev, banks, generator=None, idx=None, draws=None) →
+    (state, metrics): a random view (``idx["img"]`` may inject it, and
+    ``idx["clf"|"inp"|"depth"]`` the stream draws), the unmasked RGB,
+    inpainted-disparity and COLMAP-depth terms, and with ``guidance_fn``
+    the masked rays rendered and composited into the GT view, the normal
+    map of a 1/normalmap_render_factor full view from the rendered depth,
+    and the score-distillation term at weight sds_loss_weight; one
+    backward and one Adam step at lr_schedule(state.step).
+    ``step.loss_fn(batch, step_i, generator=None, draws=None)`` → (loss,
+    metrics) is exposed for the loss tests; ``draws`` goes to guidance_fn.
+    hwf: (H, W, focal) of the training views.
+
+    Divergence kept from the JAX package: the reference's shipped stage-2
+    loop never calls backward; here the full loss is differentiated.
+    """
+    if alpha is not None:
+        raise NotImplementedError("the frozen-σ field (alpha=) is not ported "
+                                  "yet")
+    if mesh is not None:
+        raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
+                                  "the port trains on one device")
+    if lpips_fn is not None:
+        raise NotImplementedError("the LPIPS patch loss (lpips_fn) is not "
+                                  "ported yet")
+    t, d, g = cfg.train, cfg.data, cfg.guidance
+    if t.gradient_clip:
+        raise NotImplementedError("gradient_clip (pwclip) is not ported yet")
+    if guidance_fn is not None and g.is_colla_guidance:
+        raise NotImplementedError("collaborative guidance (is_colla_guidance)"
+                                  " is not ported yet")
+    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf)
+    schedule = lr_schedule(cfg)
+    fields = [m for m in (coarse_model, fine_model) if m is not None]
+    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    nrf = g.normalmap_render_factor
+    H_r, W_r, focal_r = H // nrf, W // nrf, focal / nrf
+    K_r = [[focal_r, 0.0, W_r / 2], [0.0, focal_r, H_r / 2], [0.0, 0.0, 1.0]]
+
+    def loss_fn(batch: Stage2Batch, step_i: int,
+                generator: Optional[torch.Generator] = None, draws=None):
+        dev = batch.image.device
+        zero = torch.zeros((), device=dev)
+        out2 = render(batch.clf["o"], batch.clf["d"], generator, train=True)
+        img_loss = img2mse(out2.rgb, batch.clf["target"])
+        loss = img_loss
+        if out2.rgb0 is not None:
+            loss = loss + img2mse(out2.rgb0, batch.clf["target"])
+
+        out_i = render(batch.inp["o"], batch.inp["d"], generator, train=True)
+        depth_loss = img2mse(out_i.disp, batch.inp["target"][:, 0])
+        loss = loss + d.depth_lambda * depth_loss
+
+        # Divergence kept from the JAX package: the reference's stage 2
+        # samples only the clf and inp streams; the COLMAP depth term stays
+        # live here (colmap_depth=False for the reference's behaviour).
+        sig_loss = zero
+        if batch.depth is not None and d.colmap_depth:
+            dep = batch.depth
+            out_d = render(dep["o"], dep["d"], generator, train=True)
+            loss = loss + d.sdepth_lambda * weighted_mse(
+                out_d.depth, dep["target"][:, 0], dep["target"][:, 1])
+            if t.sigma_loss_weight > 0:
+                sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
+                                             dep, near, generator)
+                loss = loss + t.sigma_loss_weight * sig_loss
+
+        sds_loss = zero
+        if guidance_fn is not None:
+            # render the masked pixels and composite them into the GT view
+            ro, rd = _masked_rays(H, W, focal, batch.pose, batch.coords)
+            out_m = render(ro, rd, generator, train=True)
+            combin = _composite(batch.image, batch.coords, batch.valid,
+                                out_m.rgb)
+            normal_map = None
+            if g.is_normal_guidance:
+                ro_n, rd_n = _full_view_rays(H_r, W_r, focal_r, batch.pose)
+                out_n = render(ro_n.reshape(-1, 3), rd_n.reshape(-1, 3),
+                               generator, train=True)
+                depth_n = out_n.depth.reshape(H_r, W_r)
+                pts = depth2xyz(depth_n, torch.tensor(K_r, device=dev))
+                normal_map = (depth2normal_geo(pts) + 1.0) / 2.0
+            sds_loss = guidance_fn(step_i, combin, normal_map, batch.mask,
+                                   generator,
+                                   masked_latents=batch.masked_latents,
+                                   draws=draws)
+            loss = loss + g.sds_loss_weight * sds_loss
+
+        if t.tv_loss_weight > 0:
+            loss = loss + t.tv_loss_weight * cp_tv_loss(fields)
+
+        return loss, {"img_loss": img_loss, "depth_loss": depth_loss,
+                      "sds_loss": sds_loss, "sigma_loss": sig_loss,
+                      "psnr": mse2psnr(img_loss)}
+
+    def step(state: TrainState, scene_dev, banks, generator=None, idx=None,
+             draws=None):
+        idx = idx or {}
+        batch = select_stage2_view(scene_dev, banks, t.N_rand, generator,
+                                   img_i=idx.get("img"), idx=idx)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch, state.step, generator, draws)
         loss.backward()
         adam_step(state, schedule)
         metrics = {k: v.detach() for k, v in metrics.items()}

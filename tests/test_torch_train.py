@@ -532,11 +532,13 @@ def test_train_nan_restarts_then_aborts(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
+    """Stage 2 trains now (tests/test_torch_stage2.py); LPIPS, the
+    other loaders and the frozen-σ field and mesh of the step do not."""
     cfg = _loop_cfg(tmp_path)
     with pytest.raises(NotImplementedError):
         tloop.train(cfg.replace(train=dataclasses.replace(
-            cfg.train, first_stage=False)), scene=_scene(2, 8, 8),
-            device="cpu")
+            cfg.train, first_stage=False, lpips=True)),
+            scene=_scene(2, 8, 8), device="cpu")
     with pytest.raises(NotImplementedError):
         tloop.load_scene(cfg.replace(data=dataclasses.replace(
             cfg.data, dataset_type="blender")))
