@@ -48,10 +48,23 @@
    plain path, at the tiny SD widths (f32) but sd_latent_size 512, so that
    attention sees N = 4096 and 1024 and K7 runs on the card: the same
    fields and SD weights, injected view, stream indices and draws.
+10. Holds K6 (the standalone CP encode) against its plain version on the
+   card, bit for bit: at the profile's 2,097,152 points (R_max 257, F
+   80), at the proposal field's R_max 65, F 24, and at a ragged N, each
+   with points on 0, 1 and the grid nodes; and the gradient of
+   cp_encode_unified on the card against the CPU plain path's.
+11. Drives the profiling entry points in-process, each with its own
+   launch counts: prof_field's main at its full workload (16384 rays;
+   encode_dense_kernel is K6's path), then prof_train and prof_guidance
+   (the full-size SD stack in bf16) at a few reps.
+12. Times a library call beside K3 (torch.sort of the [16384, 128] rows)
+   and K7 (scaled_dot_product_attention), which the port never calls, and
+   computes each kernel's bound on the H100 from its shapes.
 
 Every failure raises, so the script exits nonzero. The last line is
-{"ok": true, "device": {...}}; the line before it holds one JSON object
-with each kernel's launches on the main paths, error and times.
+{"ok": true, "device": {...}}; the line before it names the card and its
+power limit, and the one before that holds one JSON object with each
+kernel's launches on the main paths, error, times and bound.
 """
 from __future__ import annotations
 
@@ -127,6 +140,29 @@ STAGE2_STEPS, STAGE2_PRINT = 50, 10
 STEP2_VIEW, STEP2_LATENT = (63, 84), 512
 STEP2_LOSS_RTOL, STEP2_SDS_RTOL = 1e-3, 5e-2
 STEP2_GRAD_COS = {"rgb+normal": 0.98, "rgb": 0.999}
+# K6 against its plain version: the same taps and roundings, so bit-equal
+# (limit 1e-6·max|plain|, which equality meets). (label, points, R_max, F):
+# the profile's fine pass, the proposal field, a ragged N.
+CP_CASES = (("fine", BENCH_RAYS * 128, 257, 80),
+            ("proposal", BENCH_RAYS * 64, 65, 24),
+            ("ragged", BENCH_RAYS * 128 - 29, 257, 80))
+CP_ATOL_FRAC = 1e-6
+# its gradient (the plain backward on both sides) card vs CPU: the cotangents
+# are rounded to bf16 after f32 sums in another order, one bf16 step
+# (2^-7 relative) and 5e-3·max where the three axes' terms cancel
+CP_GRAD_POINTS, CP_GRAD_RTOL, CP_GRAD_ATOL_FRAC = 65536 - 29, 2.0 ** -7, 5e-3
+# the profiling entry points' reps in this script
+PROF_FIELD_REPS, PROF_TRAIN_REPS, PROF_GUIDANCE_REPS = 5, 5, 3
+# Peaks of an H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16
+# tensor-core and f32 FLOP/s. A kernel's bound is the larger of its bytes
+# (each input read once, each output written once) over the memory rate
+# and its operations over their peaks (bf16 products on the tensor cores,
+# the elementwise f32 arithmetic on the CUDA cores; the two kinds of unit
+# run at once, so each is a bound of its own).
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# f32 operations per encoded feature: three two-tap lerps (mul + fma) and
+# the two products of the axes
+ENC_OPS = 11
 DEVICE = "cuda:0"
 
 
@@ -138,17 +174,57 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call on the card (CUDA events, after one warm-up call)."""
+    from gbnerf_tpu_torch.utils.profiling import time_ms
+
+    return time_ms(fn, torch.device(DEVICE), reps)
+
+
+def roofline(nbytes: float, bf16_flop: float = 0.0, f32_op: float = 0.0
+             ) -> dict:
+    """The least time the H100 could take for this work, and what sets it."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = max(bf16_flop / BF16_FLOPS, f32_op / F32_FLOPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def head_macs(feat: int, sigma_only: bool) -> int:
+    """Multiply-adds a point of the σ (and colour) heads: the weights' size."""
+    macs = feat * 64 + 64 * 16
+    return macs if sigma_only else macs + 31 * 64 + 64 * 64 + 64 * 3
+
+
+def kernel_bound(name: str, c: dict) -> dict:
+    """roofline() of one kernel call at the shapes of its check line ``c``.
+    Bytes: points in and results out, lines and weights once (f32; twice
+    for the backward, which writes their gradients). Operations: the heads'
+    products in bf16 (2 per multiply-add; a backward 3× its forward: the
+    recomputed forward and the two products of each layer's backward), the
+    encode's ENC_OPS f32 operations per feature (3× in a backward);
+    attention 4·BH·N²·D bf16 and 4 f32 operations per score (scale and
+    subtract as one FMA, max, exp, sum); the merge one comparison per
+    output."""
+    if name == "merge128":
+        rows = c["rows"]
+        return roofline(rows * 128 * 4 * 2, 0.0, rows * 128)
+    if name == "attention":
+        bh, n, d = c["bh"], c["n"], c["d"]
+        return roofline(bh * n * d * (3 * 2 + 4), 4.0 * bh * n * n * d,
+                        4.0 * bh * n * n)
+    n, feat, r = c["points"], c["F"], c["R_max"]
+    lines, enc = 3 * r * feat * 4, float(n) * feat * ENC_OPS
+    if name == "cp_encode":
+        return roofline(n * (12 + feat * 4) + lines, 0.0, enc)
+    sigma = name.endswith("sigma")
+    macs = head_macs(feat, sigma)
+    if name.startswith("field_fused_bwd"):
+        per_point = 12 + 16 + 12 + (0 if sigma else 2 * 64)  # x, g; dx; sh, dsh
+        return roofline(n * per_point + 2 * (lines + macs * 4),
+                        3 * 2.0 * n * macs, 3 * enc)
+    per_point = 12 + 16 + (0 if sigma else 64)               # x; raw; sh
+    return roofline(n * per_point + lines + macs * 4, 2.0 * n * macs, enc)
 
 
 def compare_field(got, ref, rtol=FIELD_RTOL, atol_frac=FIELD_ATOL_FRAC) -> dict:
@@ -224,6 +300,7 @@ def check_field_bwd(dev, fine, coarse, np_rng):
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
                 r["plain_ms"] = cuda_ms(lambda: ff.field_bwd_plain(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=3)
+                r.update(kernel_bound(name, r))
             print(f"check {name} [{label}{' ' + variant if variant else ''}] "
                   f"{json.dumps(r)}")
             bad = {k: v["n_out_of_tol"] for k, v in r.items()
@@ -262,8 +339,12 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
             if not ragged:
                 r["ms"] = cuda_ms(lambda: ff.cp_field_fused(
                     x, sh, ul, Ws, sigma_only=sigma_only), reps=10)
+                # the plain encode (here and in K4/K5's plain backward) is
+                # cp_pallas.encode_plain, built for JAX's tie gradients:
+                # slower than a clamp/relu/abs encode (PERF.md has both)
                 r["plain_ms"] = cuda_ms(lambda: ff.field_plain(
                     x, sh, ul, Ws, sigma_only=sigma_only), reps=3)
+                r.update(kernel_bound(name, r))
             print(f"check {name} [{label}{' ragged' if ragged else ''}] "
                   f"{json.dumps(r)}")
             if r["n_out_of_tol"]:
@@ -295,6 +376,10 @@ def check_merge(dev, np_rng):
         if rows == BENCH_RAYS:
             r["ms"] = cuda_ms(lambda: rs.merge128(x, 64), reps=20)
             r["plain_ms"] = cuda_ms(lambda: rs.merge128_plain(x, 64), reps=20)
+            # the yardstick: one library sort of the rows (never called by
+            # the port)
+            r["library_ms"] = cuda_ms(lambda: torch.sort(x, dim=-1), reps=20)
+            r.update(kernel_bound("merge128", r))
         print(f"check merge128 {json.dumps(r)}")
         if not r["exact"]:
             raise AssertionError("merge128 differs from the stable sort")
@@ -317,32 +402,26 @@ def camera_arc(n: int, radius: float = 4.0) -> np.ndarray:
 
 
 def profile_once(fn, label: str, outdir: Path, untraced_ms: float) -> None:
-    """Trace one call of fn (after one untraced warm call); print device
-    time by kernel and the device's idle share of the untraced time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Trace one call of fn (after one untraced warm call) into
+    outdir/label/trace.json; print device time by kernel and the device's
+    idle share of the untraced time (tools/trace_summary.py)."""
+    from gbnerf_tpu_torch.tools.trace_summary import summarize
+    from gbnerf_tpu_torch.utils.profiling import trace
 
-    outdir.mkdir(parents=True, exist_ok=True)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(str(outdir / label)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(str(outdir / f"{label}_trace.json"))
-    # device-side events only (kernels, copies): the aten ops above them
-    # carry the same time again
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"profile {label}: device busy {busy_ms:.3f} ms in {len(rows)} "
-          f"kernel kinds, {sum(e.count for e in rows)} launches; "
+    s = summarize(str(outdir / label), untraced_ms=untraced_ms)
+    print(f"profile {label}: device busy {s['busy_ms']:.3f} ms in "
+          f"{len(s['kernels'])} kernel kinds, {s['launches']:.0f} launches; "
           f"{untraced_ms:.3f} ms untraced ({traced_ms:.3f} traced): idle "
-          f"share {1 - busy_ms / untraced_ms:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<4d} {e.key[:100]}")
+          f"share {s['idle_share']:.3f}")
+    for name, ms, count in s["kernels"][:15]:
+        print(f"profile {label}:   {ms:9.3f} ms x{count:<4.0f} {name[:100]}")
 
 
 def synthetic_tool():
@@ -405,20 +484,23 @@ def spinnerf_scene(n_train: int, H: int, W: int, n_test: int = 2,
     return scene, [depth_gts[k] for k in train]
 
 
-def all_launches() -> dict:
+def _launch_counters() -> tuple:
     from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.ops import cp_pallas as cp
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops import resample as rs
 
-    return {**ff.LAUNCHES, **rs.LAUNCHES, **at.LAUNCHES}
+    return ff.LAUNCHES, rs.LAUNCHES, at.LAUNCHES, cp.LAUNCHES
+
+
+def all_launches() -> dict:
+    return {k: v for counts in _launch_counters() for k, v in counts.items()}
 
 
 def zero_launches() -> None:
     from gbnerf_tpu_torch.ops import attention as at
-    from gbnerf_tpu_torch.ops import field_fused as ff
-    from gbnerf_tpu_torch.ops import resample as rs
 
-    for counts in (ff.LAUNCHES, rs.LAUNCHES, at.LAUNCHES):
+    for counts in _launch_counters():
         for k in counts:
             counts[k] = 0
     at.LAUNCHES_BY_SHAPE.clear()
@@ -447,6 +529,13 @@ def check_attention(dev):
             r["ms"] = cuda_ms(lambda: at.flash_fwd(q, k, v, scale), reps=20)
             r["plain_ms"] = cuda_ms(
                 lambda: at.attention_plain(q, k, v, scale), reps=5)
+            # the yardstick: one library call on [1, BH, N, D] (never called
+            # by the port)
+            q4, k4, v4 = q[None], k[None], v[None]
+            r["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, scale=scale), reps=20)
+            r.update(kernel_bound("attention", r))
         print(f"check attention [{label}] {json.dumps(r)}")
         if r["n_out_of_tol"] or not r["finite"]:
             raise AssertionError(
@@ -852,6 +941,136 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
     return {"loss_rel_err": rel, "min_grad_cos": cos[worst]}
 
 
+def cp_operands(n: int, r_max: int, feat: int, np_rng):
+    """x01 [n, 3] (the corners 0 and 1, points past them and 4096 points on
+    grid nodes first, then uniform) and unified lines [3, R_max, F]."""
+    x = np_rng.random((n, 3), dtype=np.float32)
+    x[0], x[1], x[2] = 0.0, 1.0, (-0.25, 1.5, 0.5)
+    x[3:3 + 4096] = np_rng.integers(0, r_max, (4096, 3)) / (r_max - 1)
+    ul = np_rng.standard_normal((3, r_max, feat), dtype=np.float32) * 0.1
+    return torch.from_numpy(x), torch.from_numpy(ul)
+
+
+def check_cp_encode(dev, np_rng):
+    """K6 against its plain version at CP_CASES, times at the non-ragged
+    shapes; then the gradient of cp_encode_unified, card vs CPU."""
+    from gbnerf_tpu_torch.ops import cp_pallas as cp
+
+    results = []
+    for label, n, r_max, feat in CP_CASES:
+        x, ul = (t.to(dev) for t in cp_operands(n, r_max, feat, np_rng))
+        with torch.no_grad():
+            got = cp.encode_kernel(x, ul, r_max)
+            ref = cp.encode_plain(x, ul, r_max)
+        torch.cuda.synchronize()
+        r = {"shape": label, "points": n, "R_max": r_max, "F": feat,
+             "max_abs_err": float((got - ref).abs().max()),
+             "bit_equal": bool(torch.equal(got, ref)),
+             "atol": CP_ATOL_FRAC * float(ref.abs().max()),
+             "finite": bool(torch.isfinite(got).all())}
+        del got, ref
+        if label != "ragged":
+            r["ms"] = cuda_ms(lambda: cp.encode_kernel(x, ul, r_max), reps=20)
+            r["plain_ms"] = cuda_ms(lambda: cp.encode_plain(x, ul, r_max),
+                                    reps=3)
+            r.update(kernel_bound("cp_encode", r))
+        print(f"check cp_encode [{label}] {json.dumps(r)}")
+        if r["max_abs_err"] > r["atol"] or not r["finite"]:
+            raise AssertionError(f"cp_encode [{label}]: differs from the "
+                                 f"plain version by {r['max_abs_err']}")
+        results.append(r)
+
+    # a NaN coordinate gives a row of NaN features, as the plain version's
+    # clip and maximum make it; the other rows stay bit-equal
+    x, ul = (t.to(dev) for t in cp_operands(4099, 257, 80, np_rng))
+    x[7, 0] = x[100, 2] = float("nan")
+    with torch.no_grad():
+        got, ref = cp.encode_kernel(x, ul, 257), cp.encode_plain(x, ul, 257)
+    r = {"points": 4099, "nan_points": 2,
+         "nan_rows": int(got.isnan().all(dim=1).sum()),
+         "nan_where_plain": bool(torch.equal(got.isnan(), ref.isnan())),
+         "rest_bit_equal": bool(torch.equal(got.nan_to_num(0.0),
+                                            ref.nan_to_num(0.0)))}
+    print(f"check cp_encode [nan] {json.dumps(r)}")
+    if r["nan_rows"] != 2 or not (r["nan_where_plain"]
+                                  and r["rest_bit_equal"]):
+        raise AssertionError("cp_encode: a NaN point differs from the plain "
+                             "version")
+
+    x, ul = cp_operands(CP_GRAD_POINTS, 257, 80, np_rng)
+    g = torch.from_numpy(np_rng.standard_normal((CP_GRAD_POINTS, 80),
+                                                dtype=np.float32))
+    res = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        xd = x.to(device).requires_grad_(True)
+        ld = ul.to(device).requires_grad_(True)
+        out = cp.cp_encode_unified(xd, ld, 257)
+        dx, dl = torch.autograd.grad(out, (xd, ld), g.to(device))
+        res[where] = [t.detach().cpu() for t in (out, dx, dl)]
+    r = {"points": CP_GRAD_POINTS,
+         "out_bit_equal": bool(torch.equal(res["card"][0], res["cpu"][0]))}
+    for name, a, b in zip(("dx", "dlines"), res["card"][1:], res["cpu"][1:]):
+        r[name] = compare_field(a, b, rtol=CP_GRAD_RTOL,
+                                atol_frac=CP_GRAD_ATOL_FRAC)
+    print(f"check cp_encode gradient (card vs cpu) {json.dumps(r)}")
+    if not r["out_bit_equal"] or r["dx"]["n_out_of_tol"] or \
+            r["dlines"]["n_out_of_tol"]:
+        raise AssertionError("cp_encode_unified's gradient on the card "
+                             "differs from the CPU plain path")
+    return results
+
+
+def profile_paths(workdir: Path) -> dict:
+    """The profiling entry points in-process, each with its own launch
+    counts → {path: launches}. prof_field at its full workload is K6's
+    path; prof_train and prof_guidance run at a few reps."""
+    from gbnerf_tpu_torch.tools import prof_field, prof_guidance, prof_train
+
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    # ---- prof_field: launches counted from here ...
+    zero_launches()
+    lines = prof_field.main(["--rays", str(BENCH_RAYS), "--reps",
+                             str(PROF_FIELD_REPS)])
+    torch.cuda.synchronize()
+    out["prof_field"] = all_launches()
+    # ... to here
+    want = {"full_render", "encode_dense_plain", "encode_dense_kernel",
+            "encode_kr", "mlp_heads", "resample+merge", "raw2outputs_128"}
+    if {l["component"] for l in lines} != want or not all(
+            l["device"] == name and np.isfinite(l["ms"]) and l["ms"] > 0
+            for l in lines):
+        raise AssertionError(f"prof_field's lines: {lines}")
+    # ---- prof_train: launches counted from here ...
+    zero_launches()
+    summary = prof_train.main(["--reps", str(PROF_TRAIN_REPS), "--out",
+                               str(workdir / "prof_train")])
+    torch.cuda.synchronize()
+    out["prof_train"] = all_launches()
+    # ... to here
+    if summary["device"] != "cuda" or not summary["busy_ms"] > 0:
+        raise AssertionError(f"prof_train traced no device time: {summary}")
+    # ---- prof_guidance: launches counted from here ...
+    zero_launches()
+    glines = prof_guidance.main(["--reps", str(PROF_GUIDANCE_REPS)])
+    torch.cuda.synchronize()
+    out["prof_guidance"] = all_launches()
+    # ... to here
+    if not all(l["device"] == name and np.isfinite(l.get("ms", l.get("s")))
+               for l in glines):
+        raise AssertionError(f"prof_guidance's lines: {glines}")
+    print(f"profilers: launches {json.dumps(out)}")
+    for path, kernels in (("prof_field", ("cp_encode", "field_fused",
+                                          "field_fused_sigma", "merge128")),
+                          ("prof_train", ("field_fused", "field_fused_bwd",
+                                          "merge128")),
+                          ("prof_guidance", ("attention",))):
+        for k in kernels:
+            if out[path][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by {path}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -904,6 +1123,7 @@ def main() -> None:
         merge_res = check_merge(dev, np_rng)
     field_res.update(check_field_bwd(dev, fine, coarse, np_rng))
     attn_res = check_attention(dev)
+    cp_res = check_cp_encode(dev, np_rng)
 
     # ---- 4. the eval render path: launches counted from here ...
     render = make_render_fn(cfg, coarse, fine, near=NEAR, far=FAR)
@@ -1008,6 +1228,9 @@ def main() -> None:
     step_vs_plain(cfg, dev, state, scene, depth_gts)
     # ---- 9. one stage-2 step on the card vs the CPU plain path
     stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(7))
+    # ---- 11. the profiling entry points (their own counts)
+    with tempfile.TemporaryDirectory() as workdir:
+        prof_launches = profile_paths(Path(workdir))
 
     if args.profile is not None:
         from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
@@ -1026,9 +1249,9 @@ def main() -> None:
                      args.profile, step_ms)
         profile_stage2(cfg2, dev, out2, scene, args.profile, step2_ms)
 
-    path_launches = {k: render_launches[k] + step_launches[k]
-                     + eval_launches[k] + stage2_launches[k]
-                     for k in render_launches}
+    paths = [render_launches, step_launches, eval_launches, stage2_launches,
+             *prof_launches.values()]
+    path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/field_fused.cu",
@@ -1048,14 +1271,24 @@ def main() -> None:
         {"name": "attention", "route": "cuda",
          "source": "gbnerf_tpu_torch/csrc/attention.cu",
          "replaces": "gbnerf_tpu/ops/attention.py:47"},
+        {"name": "cp_encode", "route": "cuda",
+         "source": "gbnerf_tpu_torch/csrc/cp_encode.cu",
+         "replaces": "gbnerf_tpu/ops/cp_pallas.py:69"},
     ]
-    field_res["attention"] = attn_res
+    field_res.update(attention=attn_res, merge128=merge_res,
+                     cp_encode=cp_res)
     for k in kernels:
-        checks = merge_res if k["name"] == "merge128" else field_res[k["name"]]
+        checks = field_res[k["name"]]
         main_shape = checks[0]                    # the main-path shape
         k.update(launches=path_launches[k["name"]],
                  max_abs_err=max(c["max_abs_err"] for c in checks),
-                 ms=main_shape["ms"], plain_ms=main_shape["plain_ms"])
+                 ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+                 bound_ms=main_shape["bound_ms"],
+                 bound_by=main_shape["bound_by"],
+                 library_ms=main_shape.get("library_ms"))
+        if k["launches"] <= 0:
+            raise AssertionError(f"kernel {k['name']} was launched on no "
+                                 "path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,15 @@ Layer map (mirrors gbnerf_tpu):
   data/   LLFF/COLMAP loaders (numpy), ray banks
   train/  train state, losses, the stage-1 and stage-2 steps and loop,
           checkpoints, render functions, eval renders
-  utils/  metrics
+  utils/  metrics, profiling (trace, annotate, StepTimer, nan_guard)
+  tools/  profilers: prof_field, prof_train, prof_guidance, trace_summary
+  config.py  the config schema, a copy of the JAX package's
   run.py  the CLI (``python -m gbnerf_tpu_torch.run --config …``)
 
-This package imports ``torch`` and never ``jax``: the machine with the card
-has no JAX. Only ``config.py`` reaches into ``gbnerf_tpu``, for its
-dependency-free config schema.
+This package imports ``torch`` and never ``jax``, and nothing of
+``gbnerf_tpu``: the machine with the card has no JAX. Its entry points run
+on the card and refuse to start without one unless the caller asks for
+the CPU (``--device cpu``), where every kernel runs its plain version.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-// Shared by the fused CP-field kernels: field_fused.cu (K1/K2, forward) and
-// field_fused_bwd.cu (K4/K5, backward). Widths of the heads, the layout of
-// the packed weights (ops/field_fused.py::pack_weights) and small helpers.
+// Shared by the CP kernels: field_fused.cu (K1/K2, forward),
+// field_fused_bwd.cu (K4/K5, backward) and cp_encode.cu (K6, the encode
+// alone). Widths of the heads, the layout of the packed weights
+// (ops/field_fused.py::pack_weights), the encode's two taps and small
+// helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +25,32 @@ constexpr int kTail = kOffWc2 + kColorWidth * 4;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));   // round to nearest even
+}
+
+// The two nonzero taps of the TPU's triangle row max(1 − |pos − u|, 0) at
+// u = clip(x, 0, 1)·(R_max − 1): rows i0 = min(⌊u⌋, R_max − 2) and i0 + 1,
+// at signed distances d0 = i0 − u and d1 = i0 + 1 − u, each weight rounded
+// to bf16 as the TPU rounds its mask. A lerp of two bf16 line values with
+// these weights is the TPU's dot over R_max to the last bit: the products
+// of two bf16 values are exact in f32 and the other terms are exact zeros.
+// At u = R_max − 1 (x clipped to 1) the clamp gives w0 = 0 and w1 = 1.
+// A NaN x stays NaN (fmaxf/fminf would map it to 0), so its weights and
+// features are NaN, as the plain version's clip and maximum make them.
+struct CpTap {
+  int i0;
+  float d0, d1, w0, w1;
+};
+
+__device__ __forceinline__ CpTap cp_tap(float x, int r_max) {
+  CpTap t;
+  const float c = (x != x) ? x : fminf(fmaxf(x, 0.f), 1.f);
+  const float u = c * (float)(r_max - 1);
+  t.i0 = (u == u) ? min((int)floorf(u), r_max - 2) : 0;
+  t.d0 = (float)t.i0 - u;
+  t.d1 = (float)(t.i0 + 1) - u;
+  t.w0 = bf16_round(1.f - fabsf(t.d0));
+  t.w1 = bf16_round(1.f - fabsf(t.d1));
+  return t;
 }
 
 __device__ __forceinline__ void unpack4(uint2 raw, float* out) {

@@ -67,11 +67,10 @@ field_fused_kernel(const float* __restrict__ x, const float* __restrict__ sh,
     float w0[3], w1[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float u = fminf(fmaxf(x[3 * p + a], 0.f), 1.f) * (float)(r_max - 1);
-      const int i0 = min((int)floorf(u), r_max - 2);
-      w0[a] = bf16_round(1.f - fabsf((float)i0 - u));
-      w1[a] = bf16_round(1.f - fabsf((float)(i0 + 1) - u));
-      row0[a] = lines + ((size_t)a * r_max + i0) * feat;
+      const CpTap t = cp_tap(x[3 * p + a], r_max);
+      w0[a] = t.w0;
+      w1[a] = t.w1;
+      row0[a] = lines + ((size_t)a * r_max + t.i0) * feat;
     }
 
     // ---- encode ⊗ ws0, folded per feature into the h0 accumulators

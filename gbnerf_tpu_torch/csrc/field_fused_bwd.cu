@@ -167,15 +167,13 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       xa[a] = live ? x[3 * p + a] : 0.5f;
-      const float u = fminf(fmaxf(xa[a], 0.f), 1.f) * (float)(r_max - 1);
-      const int i = min((int)floorf(u), r_max - 2);
-      const float d0 = (float)i - u, d1 = (float)(i + 1) - u;
-      w0[a] = bf16_round(1.f - fabsf(d0));
-      w1[a] = bf16_round(1.f - fabsf(d1));
-      s0[a] = tie_sign(d0);
-      s1[a] = tie_sign(d1);
-      i0[a] = i;
-      row0[a] = lines + ((size_t)a * r_max + i) * feat;
+      const CpTap tap = cp_tap(xa[a], r_max);
+      w0[a] = tap.w0;
+      w1[a] = tap.w1;
+      s0[a] = tie_sign(tap.d0);
+      s1[a] = tie_sign(tap.d1);
+      i0[a] = tap.i0;
+      row0[a] = lines + ((size_t)a * r_max + tap.i0) * feat;
     }
 
     // ---- h0 = relu(bf16(prod) @ ws0); prod rows to the tile buffer

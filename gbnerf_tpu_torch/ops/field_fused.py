@@ -6,8 +6,8 @@ the unified-line CP encode, the σ-net F → 64 → 16 and the colour net
 SH ⊕ geo(15) = 31 → 64 → 64 → 3, with every matmul operand rounded to
 bf16 and accumulated in f32. It is differentiable in every operand.
 
-- On a CPU tensor the forward is the plain version (``encode_oracle`` +
-  ``heads_apply``) and the backward is ``field_bwd_plain``, which
+- On a CPU tensor the forward is the plain version (``encode_plain`` of
+  ops/cp_pallas.py + ``heads_apply``) and the backward is ``field_bwd_plain``, which
   re-linearises it with ``torch.autograd.grad`` (the JAX package's
   non-TPU path). The CPU tests hold both against the JAX package.
 - On a CUDA tensor the forward launches csrc/field_fused.cu (K1, or K2
@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from ._build import kernel_function
+from .cp_pallas import check_points_and_lines, encode_plain
 
 # Ws dict keys, Dense-style [in, out] orientation (as in the JAX package).
 W_KEYS = ("ws0", "ws1", "wc0", "wc1", "wc2")
@@ -71,28 +72,14 @@ def heads_apply(enc: torch.Tensor, sh: Optional[torch.Tensor],
     return torch.cat([rgb, sigma], dim=-1)
 
 
-def encode_oracle(x01: torch.Tensor, ulines: torch.Tensor) -> torch.Tensor:
-    """Unified triangle-kernel CP encode — plain version, [points, feats].
-
-    Materialises one [N, R_max] f32 weight matrix per axis: at N = 4 M
-    points and R_max = 257 that is ≈ 4.3 GB, so compare against it on a
-    subset of points.
-    """
-    r_max = ulines.shape[1]
-    pos = torch.arange(r_max, dtype=torch.float32, device=x01.device)
-    prod = None
-    for axis in range(3):
-        u = torch.clamp(x01[..., axis].float(), 0.0, 1.0) * (r_max - 1)
-        w = torch.clamp(1.0 - torch.abs(pos - u[..., None]), min=0.0)
-        fa = _bf16(w) @ _bf16(ulines[axis])
-        prod = fa if prod is None else prod * fa
-    return prod
-
-
 def field_plain(x01, sh, ulines, Ws, *, sigma_only: bool = False):
-    """The plain version of K1/K2 (the JAX package's ``_oracle``)."""
-    return heads_apply(encode_oracle(x01, ulines), sh, Ws,
-                       sigma_only=sigma_only)
+    """The plain version of K1/K2 (the JAX package's ``_oracle``). Its
+    encode is K6's plain version, ``encode_plain`` (the JAX package's
+    ``encode_oracle``), which materialises one [N, R_max] f32 weight matrix
+    per axis: ≈ 4.3 GB at N = 4 M points and R_max = 257, so compare
+    against it on a subset of points."""
+    return heads_apply(encode_plain(x01.float(), ulines, ulines.shape[1]), sh,
+                       Ws, sigma_only=sigma_only)
 
 
 def field_bwd_plain(x01, sh, ulines, Ws, g, *, sigma_only: bool):
@@ -228,22 +215,8 @@ def check_field_args(x01, sh, ulines, Ws, *, sigma_only: bool) -> None:
                          "unless sigma_only)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("cp_field_fused: operands lie on different devices")
-    if x01.dtype != torch.float32 or x01.dim() != 2 or x01.shape[1] != 3:
-        raise ValueError(f"cp_field_fused: x01 must be [N, 3] float32, got "
-                         f"{tuple(x01.shape)} {x01.dtype}")
-    if not x01.is_contiguous():
-        raise ValueError("cp_field_fused: x01 must be contiguous")
-    n = x01.shape[0]
-    if n >= 1 << 29:
-        raise ValueError(f"cp_field_fused: {n} points exceed the kernel's "
-                         "32-bit indexing; split the call")
-    if ulines.dim() != 3 or ulines.shape[0] != 3 or ulines.shape[1] < 2:
-        raise ValueError(f"cp_field_fused: ulines must be [3, R_max, F], "
-                         f"got {tuple(ulines.shape)}")
-    feat = ulines.shape[2]
-    if feat % 4 or feat == 0:
-        raise ValueError(f"cp_field_fused: the kernel reads features in "
-                         f"fours; F = {feat} is not a multiple of 4")
+    check_points_and_lines("cp_field_fused", x01, ulines)
+    n, feat = x01.shape[0], ulines.shape[2]
     shapes = weight_shapes(feat, sigma_only=sigma_only)
     for k in shapes:
         if tuple(Ws[k].shape) != shapes[k]:

@@ -7,10 +7,12 @@ The twin of the repository's run.py (same config files, same overrides):
     python -m gbnerf_tpu_torch.run --config configs/scene1.txt \\
         --set train.N_iters=2000 --set render.N_samples=64
     python -m gbnerf_tpu_torch.run --config configs/scene1.txt --render_only
+    python -m gbnerf_tpu_torch.run --config configs/scene1.txt --device cpu
 
-It runs on the first CUDA device when there is one, else on the CPU (the
-kernels need the card; the CPU runs their plain versions). Reading a scene
-from disk needs ``imageio``. Stage 2 (``first_stage = False``) guides with
+It runs on the first CUDA device (``--device cuda``, the default) and
+exits with an error when there is none: it never falls back to the CPU by
+itself. ``--device cpu`` runs on the CPU, where every kernel runs its plain
+PyTorch version. Reading a scene from disk needs ``imageio``. Stage 2 (``first_stage = False``) guides with
 the SD1.5-inpainting stack from ``guidance.sd_weights_dir`` (a local
 diffusers-layout checkpoint), or with random weights under
 ``guidance.sd_tiny`` / ``guidance.sd_allow_random``.
@@ -62,6 +64,9 @@ def main(argv=None):
     p.add_argument("--render_only", action="store_true",
                    help="skip training; render the test and path poses from "
                         "the latest checkpoint to .npy maps")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; an error without a card) or cpu "
+                        "(the kernels' plain versions)")
     args = p.parse_args(argv)
 
     from gbnerf_tpu_torch.config import load_reference_config
@@ -75,8 +80,9 @@ def main(argv=None):
 
     import torch
 
-    from gbnerf_tpu_torch.train.loop import default_device, render_only, train
-    device = default_device()
+    from gbnerf_tpu_torch.train.loop import (device_from_flag, render_only,
+                                             train)
+    device = device_from_flag(args.device)
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))

@@ -36,9 +36,26 @@ from .step import (make_render_fn, make_train_step_stage1,
                    make_train_step_stage2)
 
 
+_NO_CARD = ("no CUDA device (torch.cuda.is_available() is False): the "
+            "port runs on an NVIDIA GPU; pass --device cpu (device='cpu' "
+            "from Python) to run the kernels' plain versions on the CPU")
+
+
 def default_device() -> torch.device:
-    """The first CUDA device if there is one, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device; raises when there is none. The entry points
+    never fall back to the CPU by themselves: a caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(_NO_CARD)
+    return torch.device("cuda:0")
+
+
+def device_from_flag(name: str) -> torch.device:
+    """A command line's ``--device`` → a torch.device. A CUDA device
+    without a card exits with a message naming the flag."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(_NO_CARD)
+    return device
 
 
 def load_scene(cfg: Config):
@@ -205,7 +222,7 @@ def train(cfg: Config, *, guidance_fn=None,
     scene/depth_gts can be injected (tests, synthetic data); otherwise they
     are loaded from cfg.data.datadir. guidance_fn may be injected for stage
     2; otherwise the SD stack is built as the config says. device: default
-    the first CUDA device, else the CPU.
+    the first CUDA device (an error without one; pass "cpu" for the CPU).
     """
     _refuse_unported(cfg, training=True)
     t = cfg.train

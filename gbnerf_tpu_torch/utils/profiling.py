@@ -1,0 +1,124 @@
+"""Tracing, profiling and numerical-health helpers.
+
+Port of gbnerf_tpu/utils/profiling.py:
+
+  - ``trace(logdir)``: a ``torch.profiler`` trace (CPU and, on a machine
+    with a card, CUDA activity) around a code region, exported on exit as a
+    chrome trace, ``logdir/trace.json`` (chrome://tracing, Perfetto;
+    tools/trace_summary.py sums it by kernel).
+  - ``annotate(name)``: a named span in that trace
+    (``torch.profiler.record_function``).
+  - ``StepTimer``: steps/sec with the first (warm-up) interval excluded.
+  - ``time_ms``: a call's mean time after a warm-up call, with CUDA events
+    on a card (the host clock on the CPU).
+  - ``nan_guard``: whether any floating tensor holds a non-finite value, as
+    one device bool tensor (one fused reduction, no host sync).
+  - ``check_metrics``: the host-side guard of the cadenced log path.
+
+A device's clock runs apart from the host's: time device work with CUDA
+events or a ``synchronize()`` before reading the host clock.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, Iterable, Iterator
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[profile]:
+    """Profile the region; on exit write ``logdir/trace.json``. Yields the
+    ``torch.profiler.profile`` (its ``key_averages()`` are there too)."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+def annotate(name: str):
+    return record_function(name)
+
+
+class StepTimer:
+    """steps/sec with the first (warm-up) interval excluded."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.steps = 0
+        self.total = 0.0
+        self.intervals = 0
+
+    def tick(self, n: int = 1) -> float:
+        now = time.perf_counter()
+        dt = now - self.t0
+        self.t0 = now
+        self.intervals += 1
+        if self.intervals > 1:  # skip the warm-up interval
+            self.steps += n
+            self.total += dt
+        return n / dt if dt > 0 else float("inf")
+
+    @property
+    def steady_rate(self) -> float:
+        return self.steps / self.total if self.total > 0 else 0.0
+
+
+def time_ms(fn, device: torch.device, reps: int) -> float:
+    """Mean ms per call of fn() over reps calls, after one warm-up call."""
+    fn()
+    if torch.device(device).type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(stop) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _leaves(tree) -> Iterable[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def nan_guard(tree) -> torch.Tensor:
+    """A bool tensor on the leaves' device: True if ANY floating leaf of
+    the (nested dict/list/tuple) tree holds a non-finite value. One
+    ``isfinite`` reduction per leaf, combined on the device; no host sync
+    until the caller reads it."""
+    bad = None
+    for leaf in _leaves(tree):
+        if not leaf.is_floating_point():
+            continue
+        b = ~torch.isfinite(leaf).all()
+        bad = b if bad is None else bad | b
+    return torch.zeros((), dtype=torch.bool) if bad is None else bad
+
+
+def check_metrics(metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """Host-side guard for the cadenced log path (cheap: metrics only)."""
+    for k, v in metrics.items():
+        val = float(v)
+        if val != val or val in (float("inf"), float("-inf")):
+            raise FloatingPointError(
+                f"[step {step}] metric {k!r} is non-finite: {val}")

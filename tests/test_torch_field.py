@@ -100,7 +100,8 @@ def test_encode_oracle_matches_jax(rng):
     """Two nonzero taps per axis, products of bf16 values exact in f32: the
     encode agrees to the last bit whatever the order of the sum."""
     x01, _, ulines, _ = _mats(rng, 300, 257, 80)
-    got = tff.encode_oracle(torch.from_numpy(x01), torch.from_numpy(ulines))
+    got = tcpp.encode_plain(torch.from_numpy(x01), torch.from_numpy(ulines),
+                             ulines.shape[1])
     ref = jff.encode_oracle(jnp.asarray(x01), jnp.asarray(ulines))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
@@ -111,7 +112,8 @@ def test_encode_oracle_clipped_points_match_jax(rng):
     _, _, ulines, _ = _mats(rng, 8, 33, 16)
     x01 = np.array([[-0.5, 1.0, 1.5], [0.0, 2.0, -1.0], [1.0, 1.0, 1.0],
                     [0.5, 0.0, 1.0]], np.float32)
-    got = tff.encode_oracle(torch.from_numpy(x01), torch.from_numpy(ulines))
+    got = tcpp.encode_plain(torch.from_numpy(x01), torch.from_numpy(ulines),
+                             ulines.shape[1])
     ref = jff.encode_oracle(jnp.asarray(x01), jnp.asarray(ulines))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 

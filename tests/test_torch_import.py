@@ -1,5 +1,6 @@
-"""The port imports no JAX: every module of gbnerf_tpu_torch, and
-chip_smoke.py, imported in a fresh interpreter leave ``jax`` out of
+"""The port imports no JAX and nothing of the JAX package: every module of
+gbnerf_tpu_torch, and chip_smoke.py, imported in a fresh interpreter leave
+``jax`` (and flax, optax, orbax) and ``gbnerf_tpu`` out of
 ``sys.modules``. The machine with the card has no JAX installed."""
 import json
 import os
@@ -22,24 +23,38 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
     out[name] = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                              "optax", "orbax"))
+                                              "optax", "orbax",
+                                              "gbnerf_tpu"))
 print(json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def loaded():
+def _probe(names):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, *MODULES, "chip_smoke"],
+        [sys.executable, "-c", _PROBE, *names],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+@pytest.fixture(scope="module")
+def loaded():
+    return _probe(MODULES + ["chip_smoke"])
+
+
 def test_every_module_is_listed():
     assert len(MODULES) >= 20
     assert "gbnerf_tpu_torch.ops.field_fused" in MODULES
+    assert "gbnerf_tpu_torch.tools.prof_field" in MODULES
+
+
+def test_probe_sees_the_jax_package_and_not_the_port():
+    """The probe matches the top-level name exactly: the JAX package's
+    config (which imports no JAX) is flagged, the port's prefix is not."""
+    got = _probe(["gbnerf_tpu.config"])["gbnerf_tpu.config"]
+    assert "gbnerf_tpu" in got and "gbnerf_tpu.config" in got
+    assert not any(m.startswith("gbnerf_tpu_torch") for m in got)
 
 
 @pytest.mark.parametrize("name", MODULES + ["chip_smoke"])

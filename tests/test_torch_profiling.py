@@ -1,0 +1,206 @@
+"""Port vs JAX: the profiling helpers (utils/profiling.py) on the same
+inputs, exactly (they compute booleans, counts and host times); the trace
+and its summary on the CPU; the three profilers end to end on the CPU at
+tiny sizes; and the device rule of every entry point: without a card and
+without ``--device cpu`` each exits non-zero with a message naming the
+flag, and never falls back to the CPU."""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gbnerf_tpu.utils.profiling as jprof
+import gbnerf_tpu_torch.utils.profiling as tprof
+from gbnerf_tpu_torch import run as trun
+from gbnerf_tpu_torch.ops import cp_pallas as tcpp
+from gbnerf_tpu_torch.tools import prof_field, prof_guidance, prof_train
+from gbnerf_tpu_torch.tools import trace_summary
+
+torch.set_num_threads(1)
+
+
+def _tree(rng, bad):
+    a = rng.standard_normal((4, 5)).astype(np.float32)
+    b = rng.standard_normal((7,)).astype(np.float32)
+    if bad is not None:
+        b[3] = bad
+    return {"w": a, "nested": [b, {"c": np.arange(3, dtype=np.int32)}]}
+
+
+def _to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, fn) for v in tree]
+    return fn(tree)
+
+
+@pytest.mark.parametrize("bad", [None, np.nan, np.inf, -np.inf])
+def test_nan_guard_matches_jax(rng, bad):
+    tree = _tree(rng, bad)
+    got = tprof.nan_guard(_to(tree, torch.from_numpy))
+    ref = jprof.nan_guard(_to(tree, jnp.asarray))
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.bool
+    assert got.dim() == 0 and bool(got) == bool(ref) == (bad is not None)
+
+
+def test_nan_guard_ignores_integer_leaves_as_jax_does():
+    tree = {"i": np.array([1, 2], np.int64)}
+    assert bool(tprof.nan_guard(_to(tree, torch.from_numpy))) is False
+    assert bool(jprof.nan_guard(_to(tree, jnp.asarray))) is False
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    """The same clock readings give the same rates, the first (warm-up)
+    interval left out of the steady rate."""
+    clock = [0.0, 5.0, 5.5, 6.5, 6.75]
+    rates = {}
+    for name, mod in (("jax", jprof), ("torch", tprof)):
+        it = iter(clock)
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(it))
+        timer = mod.StepTimer()
+        ticks = [timer.tick(n) for n in (1, 2, 4, 1)]
+        rates[name] = (ticks, timer.steady_rate, timer.steps)
+        monkeypatch.undo()
+    assert rates["torch"] == rates["jax"]
+    assert rates["torch"][1] == 7 / 1.75
+
+
+@pytest.mark.parametrize("value", [0.5, float("nan"), float("inf"),
+                                   float("-inf")])
+def test_check_metrics_matches_jax(value):
+    results = []
+    for mod, conv in ((jprof, jnp.asarray), (tprof, torch.tensor)):
+        try:
+            mod.check_metrics({"loss": conv(1.0), "psnr": conv(value)}, 7)
+            results.append(None)
+        except FloatingPointError as e:
+            results.append(str(e))
+    assert results[0] == results[1]
+    assert (results[0] is None) == np.isfinite(value)
+
+
+def test_trace_writes_a_trace_that_the_summary_reads(tmp_path):
+    a = torch.randn(64, 64)
+    with tprof.trace(str(tmp_path)) as prof:
+        for _ in range(3):
+            with tprof.annotate("step"):
+                (a @ a).relu().sum()
+    assert prof is not None
+    doc = json.loads((tmp_path / tprof.TRACE_FILE).read_text())
+    assert any(e.get("name") == "step" for e in doc["traceEvents"])
+    s = trace_summary.summarize(str(tmp_path), n_calls=3, untraced_ms=1e3)
+    assert s["device"] == "cpu" and s["busy_ms"] > 0
+    assert {"aten::mm", "aten::relu"} <= {k for k, _, _ in s["kinds"]}
+    # self times: the parent aten::matmul holds less than its aten::mm
+    ms = {k: v for k, v, _ in s["kernels"]}
+    assert ms["aten::mm"] > 0 and 0 < s["idle_share"] < 1
+    assert sum(ms.values()) == pytest.approx(s["busy_ms"])
+
+
+def test_trace_summary_reads_device_kernels(tmp_path):
+    """A trace with device events sums those, not the host's ops: the
+    format the profiler exports on a machine with a card."""
+    evs = [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
+            "dur": 50, "pid": 1, "tid": 1},
+           {"ph": "X", "cat": "kernel", "name": "void gemm<128, 2>(float*)",
+            "ts": 10, "dur": 30, "pid": 0, "tid": 7},
+           {"ph": "X", "cat": "kernel", "name": "void gemm<64, 2>(float*)",
+            "ts": 45, "dur": 10, "pid": 0, "tid": 7},
+           {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD",
+            "ts": 60, "dur": 4, "pid": 0, "tid": 8},
+           {"ph": "X", "cat": "kernel", "dur": 0, "ts": 70, "pid": 0,
+            "tid": 7, "name": "(anonymous namespace)::k<true>(int)"}]
+    (tmp_path / "trace.json").write_text(json.dumps(
+        {"traceEvents": evs, "deviceProperties": [{"name": "Card"}]}))
+    s = trace_summary.summarize(str(tmp_path / "trace.json"), n_calls=2,
+                                untraced_ms=0.1)
+    assert s["device"] == "cuda" and s["device_name"] == "Card"
+    assert s["busy_ms"] == pytest.approx(0.022) and s["launches"] == 2
+    assert s["kinds"][0] == ("gemm", pytest.approx(0.02), 1.0)
+    assert s["kinds"][-1][0] == "k"
+    assert len(s["kernels"]) == 4 and s["idle_share"] == pytest.approx(0.78)
+
+
+def test_prof_field_runs_on_the_cpu(capsys):
+    lines = prof_field.main(["--device", "cpu", "--rays", "64", "--reps",
+                             "1"])
+    names = [l["component"] for l in lines]
+    assert names == ["full_render", "encode_dense_plain",
+                     "encode_dense_kernel", "encode_kr", "mlp_heads",
+                     "resample+merge", "raw2outputs_128"]
+    printed = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert printed == lines
+    assert all(l["device"] == "cpu" and l["ms"] > 0 for l in lines)
+
+
+def test_encode_kr_computes_the_encode(rng):
+    """The profiled KR formulation is the same function: within the bf16
+    rounding of its three products' outputs (3 · 2^-8 relative)."""
+    x = torch.from_numpy(rng.random((200, 3)).astype(np.float32))
+    x[0], x[1] = 0.0, 1.0
+    ul = torch.from_numpy(rng.standard_normal((3, 257, 8)).astype(
+        np.float32))
+    ref = tcpp.encode_plain(x, ul, 257)
+    torch.testing.assert_close(prof_field.encode_kr(x, ul), ref,
+                               rtol=3 * 2.0 ** -8,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+def test_prof_train_runs_on_the_cpu(capsys, tmp_path):
+    s = prof_train.main(["--device", "cpu", "--rays", "32", "--reps", "2",
+                         "--bank", "512", "--proposal", "--out",
+                         str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "traced, loss:" in out and "--- by kernel kind" in out
+    assert (tmp_path / "trace.json").is_file()
+    assert s["device"] == "cpu" and s["busy_ms"] > 0 and s["step_ms"] > 0
+    assert any(k == "_FieldBackward" for k, _, _ in s["kinds"])
+
+
+def test_prof_guidance_runs_on_the_cpu(capsys):
+    lines = prof_guidance.main(["--device", "cpu", "--tiny", "--size", "64",
+                                "--reps", "1"])
+    assert [l.get("comp", l.get("stage")) for l in lines] == [
+        "built", "full_guidance_step_fwd+bwd", "unet_fwd_B3",
+        "vae_encode_fwd_B1", "vae_encode_fwd+bwd_B1"]
+    assert all(l["device"] == "cpu" for l in lines)
+    assert all(l["ms"] > 0 for l in lines[1:])
+
+
+def _run_argv(tmp_path):
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text(f"datadir = {tmp_path}\nbasedir = {tmp_path}\n")
+    return ["--config", str(cfg)]
+
+
+@pytest.mark.parametrize("entry", ["run", "prof_field", "prof_train",
+                                   "prof_guidance"])
+def test_entry_points_refuse_to_start_without_a_card(monkeypatch, tmp_path,
+                                                     entry):
+    """No card and no --device cpu: a non-zero exit whose message names the
+    flag, before any work (the default is the card, with no fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = {"run": trun.main, "prof_field": prof_field.main,
+            "prof_train": prof_train.main,
+            "prof_guidance": prof_guidance.main}[entry]
+    argv = _run_argv(tmp_path) if entry == "run" else []
+    for extra in ([], ["--device", "cuda"], ["--device", "cuda:0"]):
+        with pytest.raises(SystemExit) as e:
+            main(argv + extra)
+        assert isinstance(e.value.code, str) and "--device cpu" in \
+            e.value.code
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    from gbnerf_tpu_torch.config import Config
+    from gbnerf_tpu_torch.train import loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (loop.default_device, lambda: loop.train(Config()),
+               lambda: loop.render_only(Config())):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            fn()
+    assert loop.device_from_flag("cpu") == torch.device("cpu")

@@ -572,7 +572,7 @@ def test_cli_trains_then_renders_only(tmp_path):
         "no_ndc = True", "white_bkgd = True", "first_stage = True",
         "N_iters = 6", "i_print = 3", "i_weights = 6", "i_video = 6",
         "i_evaluate = 6", "i_testset = 6", "render_factor = 1"]) + "\n")
-    sets = ["--set", "data.test_split_count=1"]
+    sets = ["--set", "data.test_split_count=1", "--device", "cpu"]
     r = _run_cli(["--config", str(cfg), *sets], tmp_path)
     assert r.returncode == 0, r.stderr
     assert "[6/6]" in r.stdout and "col_loss" in r.stdout
