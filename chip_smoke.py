@@ -11,8 +11,9 @@
 2. Builds the CUDA kernels from gbnerf_tpu_torch/csrc (ops/_build.py).
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (and once at a ragged size), and times
-   both with CUDA events: K1/K2 (field forward), K3 (z-merge), K4/K5
-   (field backward, every cotangent).
+   both with CUDA events: K1/K2 (field forward), K3 (z-merge, and its
+   gradient against the CPU's, ties included), K4/K5 (field backward,
+   every cotangent; two calls on the same inputs must be bit-equal).
 4. Drives the eval render path at the full width of configs/spinnerf_scene.txt
    (CP fields 17…257 at rank 16, 64 + 64 samples, lindisp, white background)
    with seeded random weights: bench.py's workload, 16384 rays, for rays/s,
@@ -29,10 +30,13 @@
    finite metrics, a falling img_loss, and that the steps launched K1, K3,
    K4 and K5 and the eval K2; it prints ms per step.
 6. Holds one stage-1 step on the card against the same step on the CPU
-   plain path: same weights, injected batch indices, 64 rays per stream.
+   plain path: same weights, injected batch indices, 64 rays per stream;
+   and runs one full-width stage-1 step twice from the same state and
+   batch, which must leave bit-equal parameters and Adam moments.
 7. Holds K7 (self-attention) against its plain version on the card, in
    bf16, at the three shapes of the stage-2 path (the UNet at 64² and 32²
-   latents, the VAE mid block) and at a ragged N; times both.
+   latents, the VAE mid block), at a ragged N and with an f32 q; times
+   both, beside the previous design's time (PREV_MS).
 8. Drives stage 2 through train() (first_stage = False), warm-started
    (ft_path) from the stage-1 run's last checkpoint on the same scene: the
    full-width SD1.5-inpainting UNet, VAE and CLIP text tower at 512² / 64²
@@ -59,7 +63,9 @@
    (the full-size SD stack in bf16) at a few reps.
 12. Times a library call beside K3 (torch.sort of the [16384, 128] rows)
    and K7 (scaled_dot_product_attention), which the port never calls, and
-   computes each kernel's bound on the H100 from its shapes.
+   computes each kernel's bound on the H100 from its shapes. K3, K4/K5, K7
+   and SDPA are also timed with the host out of the loop (graph_ms: the
+   calls replayed from a CUDA graph).
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -123,6 +129,25 @@ ATTN_RTOL, ATTN_ATOL_FRAC = 1e-2, 1e-2
 ATTN_SHAPES = (("unet 64x64", 16, 4096, 40), ("unet 32x32", 16, 1024, 80),
                ("vae mid", 1, 4096, 512), ("ragged", 3, 4000, 40),
                ("ragged vae", 1, 4000, 512))
+# the same check with an f32 q (the kernel scales q as it loads it and
+# writes q's dtype): the UNet's head dim, and the VAE's with a ragged N
+ATTN_F32_SHAPES = (("f32 q", 4, 4096, 40), ("f32 q vae", 1, 4000, 512))
+# and with an f16 q (scaled in f16 by the wrapper, passed as f32)
+ATTN_F16_SHAPES = (("f16 q", 4, 4096, 40),)
+# K7 at every head dim it takes up to 264, and at 384 and 512: each of its
+# compiled variants (one warp a 16-row group up to D 128, an 8-deep last
+# q·kᵀ step at odd D/8, two warps above), a ragged N, q in bf16, f32 and
+# f16, the keys unsplit and split in two
+ATTN_SWEEP_BH, ATTN_SWEEP_N = 2, 333
+ATTN_SWEEP_D = tuple(range(8, 265, 8)) + (384, 512)
+# The previous designs' times at the main-path shapes (this script on the
+# tree before K7's redesign and K4/K5's fixed-order sums, NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's.
+PREV_MS = {("attention", "unet 64x64"): 0.482,
+           ("attention", "unet 32x32"): 0.103,
+           ("attention", "vae mid"): 0.747,
+           ("field_fused_bwd", "fine"): 3.768,
+           ("field_fused_bwd_sigma", "coarse"): 0.598}
 # stage 2 through train(): the steps after the stage-1 checkpoint
 STAGE2_STEPS, STAGE2_PRINT = 50, 10
 # one stage-2 step, card vs the CPU plain path, tiny SD widths at 512²,
@@ -179,6 +204,13 @@ def cuda_ms(fn, reps: int) -> float:
     from gbnerf_tpu_torch.utils.profiling import time_ms
 
     return time_ms(fn, torch.device(DEVICE), reps)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call with the host out of the loop (CUDA graph)."""
+    from gbnerf_tpu_torch.utils.profiling import graph_ms as _graph_ms
+
+    return _graph_ms(fn, torch.device(DEVICE), reps)
 
 
 def roofline(nbytes: float, bf16_flop: float = 0.0, f32_op: float = 0.0
@@ -282,9 +314,15 @@ def check_field_bwd(dev, fine, coarse, np_rng):
             g = torch.from_numpy(np_rng.standard_normal(
                 (m, 4)).astype(np.float32)).to(dev)
             got = ff.field_fused_bwd(x, sh, ul, Ws, g, sigma_only=sigma_only)
+            again = ff.field_fused_bwd(x, sh, ul, Ws, g, sigma_only=sigma_only)
             ref = ff.field_bwd_plain(x, sh, ul, Ws, g, sigma_only=sigma_only)
             torch.cuda.synchronize()
-            r = {"points": m, "F": ul.shape[2], "R_max": ul.shape[1]}
+            r = {"points": m, "F": ul.shape[2], "R_max": ul.shape[1],
+                 "deterministic": all(
+                     (a is None and b is None) or torch.equal(a, b)
+                     for a, b in zip(list(got[:3]) + list(got[3].values()),
+                                     list(again[:3])
+                                     + list(again[3].values())))}
             for cot, a, b in zip(("dx", "dsh", "dulines"), got[:3], ref[:3]):
                 if b is None:
                     continue
@@ -298,9 +336,12 @@ def check_field_bwd(dev, fine, coarse, np_rng):
             if not variant:
                 r["ms"] = cuda_ms(lambda: ff.field_fused_bwd(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
+                r["graph_ms"] = graph_ms(lambda: ff.field_fused_bwd(
+                    x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
                 r["plain_ms"] = cuda_ms(lambda: ff.field_bwd_plain(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=3)
                 r.update(kernel_bound(name, r))
+                r["prev_ms"] = PREV_MS.get((name, label))
             print(f"check {name} [{label}{' ' + variant if variant else ''}] "
                   f"{json.dumps(r)}")
             bad = {k: v["n_out_of_tol"] for k, v in r.items()
@@ -309,6 +350,9 @@ def check_field_bwd(dev, fine, coarse, np_rng):
                 raise AssertionError(f"{name} [{label} {variant}]: values "
                                      f"outside tolerance {bad}, or non-zero "
                                      "dx at clipped coordinates")
+            if not r["deterministic"]:
+                raise AssertionError(f"{name} [{label} {variant}]: two calls "
+                                     "on the same inputs differ")
             r["max_abs_err"] = max(v["max_abs_err"] for v in r.values()
                                    if isinstance(v, dict))
             results.setdefault(name, []).append(r)
@@ -379,11 +423,34 @@ def check_merge(dev, np_rng):
             # the yardstick: one library sort of the rows (never called by
             # the port)
             r["library_ms"] = cuda_ms(lambda: torch.sort(x, dim=-1), reps=20)
+            r["graph_ms"] = graph_ms(lambda: rs.merge128(x, 64), reps=20)
             r.update(kernel_bound("merge128", r))
         print(f"check merge128 {json.dumps(r)}")
         if not r["exact"]:
             raise AssertionError("merge128 differs from the stable sort")
         results.append(r)
+
+    # its gradient: rows with ties within and across the halves, a random
+    # cotangent; the card's forward and gradient against the CPU's
+    vals = np_rng.integers(0, 12, size=(BENCH_RAYS, 128)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([np.sort(vals[:, :64], -1),
+                                         np.sort(vals[:, 64:], -1)], -1))
+    g = torch.from_numpy(np_rng.standard_normal((BENCH_RAYS, 128)).astype(
+        np.float32))
+    res = {}
+    with torch.enable_grad():
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            xd = x.to(device).requires_grad_(True)
+            out = rs.merge128(xd, 64)
+            (dx,) = torch.autograd.grad(out, xd, g.to(device))
+            res[where] = (out.detach().cpu(), dx.cpu())
+    r = {"rows": BENCH_RAYS, "ties": True,
+         "forward_equal": bool(torch.equal(res["card"][0], res["cpu"][0])),
+         "grad_equal": bool(torch.equal(res["card"][1], res["cpu"][1]))}
+    print(f"check merge128 gradient (card vs cpu) {json.dumps(r)}")
+    if not (r["forward_equal"] and r["grad_equal"]):
+        raise AssertionError("merge128's gradient on the card differs from "
+                             "the CPU plain path's")
     return results
 
 
@@ -507,25 +574,34 @@ def zero_launches() -> None:
 
 
 def check_attention(dev):
-    """K7 against its plain version at ATTN_SHAPES, bf16, q scaled ×3 for
-    a peaked softmax; times both at the non-ragged shapes."""
+    """K7 against its plain version at ATTN_SHAPES (bf16) and
+    ATTN_F32_SHAPES (f32 q), q scaled ×3 for a peaked softmax; times both
+    at the main-path shapes, beside SDPA and the previous design."""
     from gbnerf_tpu_torch.ops import attention as at
 
     gen = torch.Generator(device=dev).manual_seed(5)
     results = []
-    for label, bh, n, d in ATTN_SHAPES:
+    cases = ([(c, torch.bfloat16) for c in ATTN_SHAPES]
+             + [(c, torch.float32) for c in ATTN_F32_SHAPES]
+             + [(c, torch.float16) for c in ATTN_F16_SHAPES])
+    for (label, bh, n, d), dtype in cases:
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        q = q * 3
+        q = (q * 3).to(dtype)
         scale = d ** -0.5
+        before = at.LAUNCHES["attention_kernels"]
         got = at.flash_fwd(q, k, v, scale)
+        kernels = at.LAUNCHES["attention_kernels"] - before
         ref = at.attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         r = compare_field(got.float(), ref.float(), rtol=ATTN_RTOL,
                           atol_frac=ATTN_ATOL_FRAC)
-        r.update(shape=label, bh=bh, n=n, d=d,
+        r.update(shape=label, bh=bh, n=n, d=d, q_dtype=str(dtype),
+                 out_dtype=str(got.dtype),
+                 plan=at.kernel_plan(bh, n, d, dev),
+                 kernels_a_call=kernels,
                  finite=bool(torch.isfinite(got).all()))
-        if not label.startswith("ragged"):
+        if (label, bh, n, d) in ATTN_SHAPES[:3]:
             r["ms"] = cuda_ms(lambda: at.flash_fwd(q, k, v, scale), reps=20)
             r["plain_ms"] = cuda_ms(
                 lambda: at.attention_plain(q, k, v, scale), reps=5)
@@ -535,14 +611,63 @@ def check_attention(dev):
             r["library_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, scale=scale), reps=20)
+            # both again with the host out of the loop (device time alone)
+            r["graph_ms"] = graph_ms(lambda: at.flash_fwd(q, k, v, scale),
+                                     reps=20)
+            r["library_graph_ms"] = graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, scale=scale), reps=20)
             r.update(kernel_bound("attention", r))
+            r["prev_ms"] = PREV_MS[("attention", label)]
         print(f"check attention [{label}] {json.dumps(r)}")
-        if r["n_out_of_tol"] or not r["finite"]:
+        if (r["n_out_of_tol"] or not r["finite"]
+                or got.dtype != q.dtype or kernels not in (1, 2)):
             raise AssertionError(
                 f"attention [{label}]: {r['n_out_of_tol']} values outside "
-                f"rtol {ATTN_RTOL}, atol {ATTN_ATOL_FRAC}·max|plain|")
+                f"rtol {ATTN_RTOL}, atol {ATTN_ATOL_FRAC}·max|plain|, or "
+                f"output {got.dtype} for q {q.dtype}, or {kernels} kernels")
         results.append(r)
+    results.append(check_attention_head_dims(dev, gen))
     return results
+
+
+def check_attention_head_dims(dev, gen):
+    """K7 against its plain version at ATTN_SWEEP_D (see there); one line
+    with the worst case, and every case outside tolerance."""
+    from gbnerf_tpu_torch.ops import attention as at
+
+    bh, n = ATTN_SWEEP_BH, ATTN_SWEEP_N
+    cases, bad, worst, max_err = 0, [], {"err_over_atol": 0.0}, 0.0
+    for d in ATTN_SWEEP_D:
+        q0, k, v = (torch.randn((bh, n, d), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(3))
+        for dtype in (torch.bfloat16, torch.float32, torch.float16):
+            q = (q0 * 3).to(dtype)
+            ref = at.attention_plain(q, k, v, d ** -0.5).float()
+            for split in (1, 2):
+                plan = at.kernel_plan(bh, n, d, dev, plan=at.Plan(0, split))
+                got = at.flash_fwd(q, k, v, d ** -0.5, plan=plan)
+                r = compare_field(got.float(), ref, rtol=ATTN_RTOL,
+                                  atol_frac=ATTN_ATOL_FRAC)
+                case = {"d": d, "q_dtype": str(dtype), "plan": plan,
+                        "max_abs_err": r["max_abs_err"],
+                        "err_over_atol": r["max_abs_err"] / r["atol"]}
+                cases += 1
+                max_err = max(max_err, r["max_abs_err"])
+                if (r["n_out_of_tol"] or got.dtype != dtype
+                        or not bool(torch.isfinite(got).all())):
+                    bad.append(case)
+                if case["err_over_atol"] > worst["err_over_atol"]:
+                    worst = case
+    r = {"shape": "head dims", "bh": bh, "n": n, "d": list(ATTN_SWEEP_D),
+         "cases": cases, "n_bad": len(bad), "bad": bad[:10],
+         "max_abs_err": max_err, "worst": worst,
+         "rtol": ATTN_RTOL, "atol_frac": ATTN_ATOL_FRAC}
+    print(f"check attention [head dims] {json.dumps(r)}")
+    if bad:
+        raise AssertionError(f"attention: {len(bad)} of {cases} head-dim "
+                             f"cases outside tolerance, e.g. {bad[0]}")
+    return r
 
 
 def stage2_config(cfg, workdir: Path, ft_path: str, n_iters: int):
@@ -941,6 +1066,62 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
     return {"loss_rel_err": rel, "min_grad_cos": cos[worst]}
 
 
+def stage1_step_twice(cfg, dev, state, scene, depth_gts):
+    """One full-width stage-1 step (N_rand rays a stream, the σ term on),
+    run twice from the same trained state and the same injected batch,
+    perturb and σ noise off: K4/K5 sum in a fixed order, so the parameters
+    and Adam moments after the two steps must be bit-equal."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.train.loop import banks_to_device
+    from gbnerf_tpu_torch.train.state import create_train_state
+    from gbnerf_tpu_torch.train.step import make_train_step_stage1
+
+    cfg = cfg.replace(
+        render=dataclasses.replace(cfg.render, perturb=0.0,
+                                   raw_noise_std=0.0),
+        train=dataclasses.replace(cfg.train,
+                                  sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    host = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                           scene.poses, scene.hwf[2], depth_gts)
+    banks = banks_to_device(host, dev)
+    rng = np.random.default_rng(4)
+    idx = {key: torch.from_numpy(rng.integers(0, len(s), cfg.train.N_rand))
+           for key, s in (("clf", host.rgb_clf), ("inp", host.inp),
+                          ("depth", host.depth))}
+    before = all_launches()
+    after = []
+    for _ in range(2):
+        run, _, _ = create_train_state(cfg, torch.Generator().manual_seed(9),
+                                       dev)
+        run.load_state_dict(copy.deepcopy(state.state_dict()))
+        step = make_train_step_stage1(cfg, run.coarse, run.fine, scene.near,
+                                      scene.far, hwf=scene.hwf)
+        step(run, banks, torch.Generator(device=dev).manual_seed(3), idx=idx)
+        torch.cuda.synchronize()
+        tensors = {f"{name}.{k}": p.detach().clone()
+                   for name, f in zip(("coarse", "fine"), run.fields())
+                   for k, p in f.named_parameters()}
+        for i, st in run.optimizer.state_dict()["state"].items():
+            tensors.update({f"adam.{i}.{k}": v.clone() for k, v in st.items()
+                            if torch.is_tensor(v)})
+        after.append(tensors)
+    launches = {k: v - before[k] for k, v in all_launches().items()}
+    differ = [k for k in after[0] if not torch.equal(after[0][k], after[1][k])]
+    moved = sum(not torch.equal(after[0][k], p.detach())
+                for k, p in ((f"{name}.{n}", q) for name, f in
+                             zip(("coarse", "fine"), state.fields())
+                             for n, q in f.named_parameters()))
+    r = {"rays_a_stream": cfg.train.N_rand, "tensors": len(after[0]),
+         "parameters_moved": moved, "deterministic": not differ,
+         "launches": launches}
+    print(f"stage1 step twice {json.dumps(r)}")
+    if differ or launches["field_fused_bwd"] <= 0 or moved == 0:
+        raise AssertionError(f"two stage-1 steps from one state differ in "
+                             f"{differ[:8]} (or launched no K4, or moved "
+                             "nothing)")
+    return r
+
+
 def cp_operands(n: int, r_max: int, feat: int, np_rng):
     """x01 [n, 3] (the corners 0 and 1, points past them and 4096 points on
     grid nodes first, then uniform) and unified lines [3, R_max, F]."""
@@ -1224,8 +1405,10 @@ def main() -> None:
     state = out["state"]
     sds_gradient_check(cfg2, dev, out2, scene)
 
-    # ---- 6. one step on the card vs the same step on the CPU plain path
+    # ---- 6. one step on the card vs the same step on the CPU plain path,
+    # and one full-width step twice from one state (bit-equal)
     step_vs_plain(cfg, dev, state, scene, depth_gts)
+    stage1_step_twice(cfg, dev, state, scene, depth_gts)
     # ---- 9. one stage-2 step on the card vs the CPU plain path
     stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(7))
     # ---- 11. the profiling entry points (their own counts)

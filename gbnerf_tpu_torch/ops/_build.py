@@ -112,13 +112,20 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+_functions: dict = {}
+
+
 def kernel_function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """A C entry point of the library, returning a cudaError_t as int.
+    """A C entry point of the library, returning a cudaError_t as int,
+    declared once per process (the wrappers call this at every launch).
 
     Pointers and the stream must be declared ``ctypes.c_void_p``: an
     undeclared Python int is passed as a 32-bit int and cuts the pointer.
     """
-    fn = getattr(load_library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(load_library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn

@@ -13,8 +13,11 @@ bf16 and accumulated in f32. It is differentiable in every operand.
 - On a CUDA tensor the forward launches csrc/field_fused.cu (K1, or K2
   when ``sigma_only``) and the backward launches csrc/field_fused_bwd.cu
   (K4, or K5 when ``sigma_only``), which recomputes the forward per point
-  and emits all the cotangents in one pass, as the TPU kernel does.
-  Anything the kernels do not take raises. There is no fallback.
+  and emits all the cotangents in one pass, as the TPU kernel does. Its
+  sums run in an order fixed by the inputs (per-block partials in a
+  scratch buffer, summed in block order by a second kernel), so the same
+  inputs give bit-equal cotangents on every call. Anything the kernels do
+  not take raises. There is no fallback.
 
 On the layout: the TPU kernels work in [features, points], a Mosaic layout
 choice; the port keeps the public [points, features] layout throughout.
@@ -22,6 +25,7 @@ choice; the port keeps the public [points, features] layout throughout.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -278,6 +282,23 @@ def check_bwd_args(x01, sh, ulines, Ws, g, *, sigma_only: bool) -> None:
                          f"float32, got {tuple(g.shape)} {g.dtype}")
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_grid(n: int, feat: int, sigma_only: bool, device: int) -> int:
+    del device                # the key: the card the query ran on
+    fn = kernel_function("gbnerf_field_fused_bwd_grid", [ctypes.c_int] * 3)
+    grid = fn(n, feat, int(sigma_only))
+    if grid <= 0:
+        raise RuntimeError(f"field_fused_bwd: occupancy query failed: CUDA "
+                           f"error {-grid}")
+    return grid
+
+
+def bwd_grid(n: int, feat: int, sigma_only: bool) -> int:
+    """The persistent blocks K4/K5 run for n points on the current card:
+    the first dimension of their scratch buffer (queried once a shape)."""
+    return _bwd_grid(n, feat, sigma_only, torch.cuda.current_device())
+
+
 def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
                 need_dsh: bool):
     check_bwd_args(x01, sh, ulines, Ws, g, sigma_only=sigma_only)
@@ -290,27 +311,32 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
     wpack = pack_weights({k: w.detach() for k, w in Ws.items()
                           if w is not None}, sigma_only=sigma_only)
     shapes = weight_shapes(feat, sigma_only=sigma_only)
-    # summed into by atomics: zeroed here, on the same stream
-    dlines = torch.zeros((3, r_max, feat), dtype=torch.float32, device=dev)
-    dw = torch.zeros(sum(a * b for a, b in shapes.values()),
-                     dtype=torch.float32, device=dev)
-    dx = (torch.empty((n, 3), dtype=torch.float32, device=dev)
-          if need_dx else None)
-    dsh = (torch.empty((n, SH_DIM), dtype=torch.float32, device=dev)
-           if need_dsh and not sigma_only else None)
-    fn = kernel_function("gbnerf_field_fused_bwd", [ctypes.c_void_p] * 9
-                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    n_dl = 3 * r_max * feat
+    row = n_dl + sum(a * b for a, b in shapes.values())
+    # the blocks' partials (each block's dlines slice and dW), summed in
+    # block order into out = dlines ⊕ dW by the kernel's second launch
     with torch.cuda.device(dev):
+        grid = bwd_grid(n, feat, sigma_only)
+        scratch = torch.empty((grid, row), dtype=torch.float32, device=dev)
+        out = torch.empty(row, dtype=torch.float32, device=dev)
+        dx = (torch.empty((n, 3), dtype=torch.float32, device=dev)
+              if need_dx else None)
+        dsh = (torch.empty((n, SH_DIM), dtype=torch.float32, device=dev)
+               if need_dsh and not sigma_only else None)
+        fn = kernel_function("gbnerf_field_fused_bwd", [ctypes.c_void_p] * 9
+                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         err = fn(x01.data_ptr(), None if sigma_only else sh.data_ptr(),
                  g.data_ptr(), lines.data_ptr(), wpack.data_ptr(),
                  None if dx is None else dx.data_ptr(),
                  None if dsh is None else dsh.data_ptr(),
-                 dlines.data_ptr(), dw.data_ptr(), n, r_max, feat,
-                 int(sigma_only), torch.cuda.current_stream().cuda_stream)
+                 scratch.data_ptr(), out.data_ptr(), n, r_max, feat,
+                 int(sigma_only), grid,
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"field_fused_bwd kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["field_fused_bwd_sigma" if sigma_only else "field_fused_bwd"] += 1
+    dlines, dw = out[:n_dl].view(3, r_max, feat), out[n_dl:]
     dWs, off = {}, 0
     for k, (a, b) in shapes.items():
         dWs[k] = dw[off:off + a * b].view(a, b)

@@ -12,7 +12,9 @@ Port of gbnerf_tpu/ops/resample.py.
   For the render's 64 + 64, 2-D case it goes through ``merge128``, which
   launches csrc/resample.cu (K3) on a CUDA tensor and runs the plain
   stable sort on a CPU tensor; other shapes take the stable sort, as in
-  the JAX package.
+  the JAX package. On a CUDA tensor ``merge128`` is differentiable as the
+  JAX ``_merge128`` is: its backward routes the cotangent through the
+  permutation of the stable sort (``_merge128_vbwd``).
 """
 from __future__ import annotations
 
@@ -100,14 +102,21 @@ def merge128_plain(x: torch.Tensor, split: int) -> torch.Tensor:
 def merge128(x: torch.Tensor, split: int) -> torch.Tensor:
     """Merge x[:, :split] and x[:, split:], each sorted, along each row.
 
-    x: [N, 128] f32. On a CPU tensor: the stable sort; on a CUDA tensor:
-    the bitonic-merge kernel, or an error.
+    x: [N, 128] f32. On a CPU tensor: the stable sort (differentiated by
+    autograd); on a CUDA tensor: the bitonic-merge kernel, whose backward
+    is the stable sort's (``_Merge128``), or an error.
     """
     if x.device.type == "cpu":
         return merge128_plain(x, split)
     if x.device.type != "cuda":
         raise ValueError(f"merge128: no kernel for device {x.device}; "
                          "tensors must lie on the CPU or a CUDA device")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Merge128.apply(x, split)
+    return _launch_merge(x, split)
+
+
+def _launch_merge(x: torch.Tensor, split: int) -> torch.Tensor:
     check_merge_args(x, split)
     out = torch.empty_like(x)
     fn = kernel_function("gbnerf_merge128", [
@@ -122,6 +131,27 @@ def merge128(x: torch.Tensor, split: int) -> torch.Tensor:
     return out
 
 
+class _Merge128(torch.autograd.Function):
+    """K3 forward; the backward is the JAX ``_merge128_vbwd``: the cotangent
+    goes back through the permutation of ``torch.sort(x, stable=True)``
+    (a library sort is right here: this is the JAX package's XLA backward,
+    not a kernel body). Where x holds equal values the kernel's order of
+    them may differ from the stable sort's; the two are the same value, so
+    the gradient is still a valid subgradient, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.save_for_backward(x)
+        return _launch_merge(x.detach(), split)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        perm = torch.sort(x, dim=-1, stable=True).indices
+        dx = torch.zeros_like(x).scatter_(-1, perm, g.to(x.dtype))
+        return dx, None
+
+
 def check_merge_args(x: torch.Tensor, split: int) -> None:
     """Raise on anything csrc/resample.cu does not take."""
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 128:
@@ -134,6 +164,3 @@ def check_merge_args(x: torch.Tensor, split: int) -> None:
         raise ValueError(f"merge128: split must lie in (0, 128), got {split}")
     if x.shape[0] >= 1 << 31:
         raise ValueError("merge128: too many rows for 32-bit indexing")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("merge128: the CUDA kernel is "
-                                  "forward-only; the render detaches z")

@@ -11,6 +11,8 @@ Port of gbnerf_tpu/utils/profiling.py:
   - ``StepTimer``: steps/sec with the first (warm-up) interval excluded.
   - ``time_ms``: a call's mean time after a warm-up call, with CUDA events
     on a card (the host clock on the CPU).
+  - ``graph_ms``: a call's mean device time on a card with the host out of
+    the loop (calls captured into one CUDA graph and replayed).
   - ``nan_guard``: whether any floating tensor holds a non-finite value, as
     one device bool tensor (one fused reduction, no host sync).
   - ``check_metrics``: the host-side guard of the cadenced log path.
@@ -88,6 +90,30 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def graph_ms(fn, device: torch.device, reps: int) -> float:
+    """Mean device ms per call of fn() on a card, the host out of the loop:
+    reps calls captured into one CUDA graph (after one warm-up call), the
+    graph replayed once to warm it and once under CUDA events. time_ms's
+    back-to-back calls wait on the host where a call's kernels take less
+    time than its Python and launch work; this does not."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("graph_ms: CUDA graphs need a card")
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(stop) / reps
 
 
 def _leaves(tree) -> Iterable[torch.Tensor]:

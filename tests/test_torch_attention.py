@@ -6,13 +6,20 @@ branch (the autograd Function for long aligned self-attention; the plain
 version for short, misaligned and cross attention; single-head [B, N, D]
 callers; the wider query tile of D > 160), and the kernel wrapper's
 refusals. K7 itself runs only on the card (chip_smoke.py holds it against
-``attention_plain``); here the Function's CPU forward is the plain version.
+``attention_plain``); here the Function's CPU forward is the plain version,
+and ``attention_tiled_plain`` — K7's algorithm in plain PyTorch: key tiles,
+the base-2 online softmax, the key split and its log-sum-exp merge — is
+held against the plain version and JAX's ``_oracle``.
 
 Tolerances, with their reasons: f32, the same einsums and softmax summed in
 another order: rtol 1e-5, atol 1e-6·max|ref|, forward and gradient. bf16
 inputs: the operands are exact in f32 on both sides and p is rounded to
 bf16 once, which a one-ulp difference in f32 can flip: atol 2^-8·max|ref|
-(one bf16 ulp of the largest output).
+(one bf16 ulp of the largest output). The tiled form rounds the
+unnormalised p of each tile (relative to the running max) where the plain
+version rounds the normalised p; each output term moves by a bf16 rounding
+(2^-8 relative): atol 1e-2·max|ref|, the card's tolerance for K7
+(chip_smoke.py ATTN_ATOL_FRAC).
 """
 import numpy as np
 import jax
@@ -118,5 +125,111 @@ def test_kernel_wrapper_refuses(rng):
     for shapes in bad:
         with pytest.raises(ValueError):
             tat.check_attention_args(*(torch.zeros(s) for s in shapes))
-    tat.check_attention_args(q, k, v)
-    assert tat.LAUNCHES == {"attention": 0}
+    with pytest.raises(ValueError, match="floating"):
+        tat.check_attention_args(q.to(torch.int32), k, v)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        tat.check_attention_args(q.to(dtype), k, v)
+    assert tat.LAUNCHES == {"attention": 0, "attention_kernels": 0}
+
+
+# (BH, N, D, keys a tile, key ranges asked, q dtype): ragged N, splits
+# whose ranges differ in length, more ranges asked than there are tiles,
+# the three tile sizes of the kernel, and an f16 q (the wrapper scales it
+# in f16 and passes it as f32)
+TILED = {
+    "d40_ragged": (2, 300, 40, 64, 1, torch.bfloat16),
+    "d40_split2": (2, 300, 40, 64, 2, torch.bfloat16),
+    "d40_split_past_tiles": (1, 100, 40, 64, 5, torch.bfloat16),
+    "d40_f16q": (2, 300, 40, 64, 1, torch.float16),
+    "d8_ragged_f32q": (2, 77, 8, 64, 1, torch.float32),
+    "d80_ragged_split2": (2, 300, 80, 128, 2, torch.bfloat16),
+    "d64_split3_f32q": (1, 257, 64, 32, 3, torch.float32),
+    "d16_split4_f32q": (3, 1000, 16, 64, 4, torch.float32),
+    "wide_ragged_split2": (1, 200, 136, 32, 2, torch.bfloat16),
+    "d512_ragged_split2": (1, 200, 512, 32, 2, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILED))
+def test_tiled_plain_matches_plain_and_jax_oracle(rng, case):
+    bh, n, d, bk, split, dtype = TILED[case]
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, (bh, n, d)))
+    q = (q * 3).to(dtype)              # a peaked softmax, as on the card
+    k, v = k.to(dtype), v.to(dtype)
+    scale = d ** -0.5
+    got = tat.attention_tiled_plain(q, k, v, scale, block_k=bk, split=split)
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = tat.attention_plain(q, k, v, scale)
+    _close(got.float(), ref.float().numpy(), rtol=0.0, atol_frac=1e-2)
+    bf = jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (q, k, v))
+    jref = jat._oracle((jq * jnp.asarray(scale, jq.dtype)).astype(bf),
+                       jk.astype(bf), jv.astype(bf), 1.0)
+    _close(got.float(), np.asarray(jref.astype(jnp.float32)), rtol=0.0,
+           atol_frac=1e-2)
+
+
+def test_tiled_plain_without_split_is_the_online_softmax(rng):
+    """One key range and one tile is the plain softmax with p rounded
+    unnormalised: equal to the plain version to one bf16 step."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(rng, (2, 48, 16)))
+    got = tat.attention_tiled_plain(q, k, v, 0.25, block_k=64)
+    _close(got.float(), tat.attention_plain(q, k, v, 0.25).float().numpy(),
+           rtol=0.0, atol_frac=2.0 ** -7)
+
+
+MAIN_SHAPES = ((16, 4096, 40), (16, 1024, 80), (1, 4096, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(MAIN_SHAPES) + [
+    (3, 4000, 40), (1, 4000, 512), (2, 77, 512)])
+def test_kernel_plan_is_valid(shape):
+    """kernel_plan's (wm, split), from the kernel's library and the card's
+    SM count: blocks of at most 8 warps, a split cut to the key tiles
+    there are, and at the stage-2 path's shapes a grid of at least 90 % of
+    the card's SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the plan comes from the CUDA "
+                    "library)")
+    dev = torch.device("cuda:0")
+    bh, n, d = shape
+    wm, split = tat.kernel_plan(bh, n, d, dev)
+    assert 1 <= wm * (1 if d <= 128 else 2) <= 8 and split >= 1
+    assert tat.kernel_plan(bh, n, d, dev, plan=tat.Plan(wm, 0)) == (wm, split)
+    assert tat.kernel_plan(bh, n, d, dev, plan=tat.Plan(wm, n)).split \
+        <= -(-n // 32)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = -(-n // (16 * wm)) * split * bh
+    if shape in MAIN_SHAPES:
+        assert blocks >= 0.9 * sm, (shape, wm, split, blocks)
+    with pytest.raises(ValueError, match="no launch plan"):
+        tat.kernel_plan(bh, n, d, dev, plan=tat.Plan(9, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TILED))
+def test_kernel_matches_plain_on_the_card(rng, case):
+    """K7 on the card against attention_plain, q in bf16, f32 (the folded
+    scale and the output in q's dtype) and f16, with the plan forced to
+    the case's split; one launch per call, plus the merge of a split.
+    chip_smoke.py makes the same checks at the stage-2 shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K7 is CUDA C++; no CPU mode)")
+    bh, n, d, _, split, dtype = TILED[case]
+    dev = torch.device("cuda:0")
+    q, k, v = (torch.from_numpy(x).to(dev) for x in _qkv(rng, (bh, n, d)))
+    q = (q * 3).to(dtype)
+    k, v = k.to(dtype), v.to(dtype)
+    before = dict(tat.LAUNCHES)
+    plan = tat.Plan(4, split)
+    got = tat.flash_fwd(q, k, v, d ** -0.5, plan=plan)
+    run = tat.kernel_plan(bh, n, d, dev, plan=plan).split
+    assert tat.LAUNCHES["attention"] == before["attention"] + 1
+    assert tat.LAUNCHES["attention_kernels"] == (
+        before["attention_kernels"] + (2 if run > 1 else 1))
+    assert got.dtype == dtype
+    ref = tat.attention_plain(q, k, v, d ** -0.5)
+    _close(got.float().cpu(), ref.float().cpu().numpy(), rtol=1e-2,
+           atol_frac=1e-2)

@@ -86,6 +86,32 @@ def test_failed_build_raises_with_nvcc_stderr(fake_toolkit):
     assert list(out_dir.iterdir()) == []
 
 
+def test_kernel_function_declares_each_entry_once(monkeypatch):
+    """An entry point is looked up and declared (argument types, an int
+    cudaError_t) at its first call and reused after: the wrappers ask for
+    it at every launch."""
+    import ctypes
+
+    class Entry:                      # a stand-in for a ctypes function
+        pass
+
+    lookups = []
+
+    class Library:                    # a stand-in for the loaded library
+        def __getattr__(self, name):
+            lookups.append(name)
+            return Entry()
+
+    monkeypatch.setattr(_build, "_lib", Library())
+    monkeypatch.setattr(_build, "_functions", {})
+    fn = _build.kernel_function("gbnerf_k", [ctypes.c_void_p, ctypes.c_int])
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert fn.restype is ctypes.c_int
+    assert _build.kernel_function("gbnerf_k", []) is fn
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert lookups == ["gbnerf_k"]
+
+
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
     monkeypatch.setenv("PATH", str(tmp_path))

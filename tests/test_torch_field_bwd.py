@@ -254,3 +254,36 @@ def test_weight_shapes_are_the_dw_layout():
     assert list(full) == list(K) and full["ws0"] == (80, 64)
     assert sum(a * b for a, b in full.values()) == 80 * 64 + 7296
     assert list(tff.weight_shapes(80, sigma_only=True)) == ["ws0", "ws1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_only,n", [(False, 131072), (False, 65536 - 29),
+                                          (True, 65536)])
+def test_kernel_bwd_is_deterministic_on_the_card(rng, sigma_only, n):
+    """K4/K5 on the card: two calls on the same inputs give bit-equal dx,
+    dsh, dlines and dW (every sum runs in an order fixed by the inputs),
+    each within the tolerances above of field_bwd_plain. chip_smoke.py
+    makes the same checks there at every check_field_bwd case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K4/K5 are CUDA C++; no CPU mode)")
+    dev = torch.device("cuda:0")
+    x01, sh, ulines, Ws, g = _mats(rng, n, r_max=257, feat=80)
+    keys = K[:2] if sigma_only else K
+    args = [torch.from_numpy(a).to(dev) for a in (x01, sh, ulines)]
+    W = {k: torch.from_numpy(Ws[k]).to(dev) for k in keys}
+    gt = torch.from_numpy(g).to(dev)
+    if sigma_only:
+        args[1] = None
+        gt[:, :3] = 0.0
+    runs = [tff.field_fused_bwd(*args, W, gt, sigma_only=sigma_only)
+            for _ in range(2)]
+    flat = [[r[0], r[1], r[2]] + [r[3][k] for k in keys] for r in runs]
+    for a, b in zip(*flat):
+        assert (a is None and b is None) or torch.equal(a, b)
+    ref = tff.field_bwd_plain(*args, W, gt, sigma_only=sigma_only)
+    got = flat[0]
+    names = ("dx", "dsh", "dul") + keys
+    for name, a, b in zip(names, got, [ref[0], ref[1], ref[2]]
+                          + [ref[3][k] for k in keys]):
+        if b is not None:
+            _close_all([a.cpu().numpy()], [b.cpu().numpy()], (name,))

@@ -15,7 +15,8 @@ import gbnerf_tpu.utils.profiling as jprof
 import gbnerf_tpu_torch.utils.profiling as tprof
 from gbnerf_tpu_torch import run as trun
 from gbnerf_tpu_torch.ops import cp_pallas as tcpp
-from gbnerf_tpu_torch.tools import prof_field, prof_guidance, prof_train
+from gbnerf_tpu_torch.tools import (prof_attention, prof_field, prof_guidance,
+                                    prof_train)
 from gbnerf_tpu_torch.tools import trace_summary
 
 torch.set_num_threads(1)
@@ -192,6 +193,16 @@ def test_entry_points_refuse_to_start_without_a_card(monkeypatch, tmp_path,
             main(argv + extra)
         assert isinstance(e.value.code, str) and "--device cpu" in \
             e.value.code
+
+
+def test_card_only_timers_refuse_the_cpu(monkeypatch):
+    """graph_ms (CUDA-graph replay) and prof_attention (K7's plans) need a
+    card and say so; they never time the CPU under a device's name."""
+    with pytest.raises(ValueError, match="card"):
+        tprof.graph_ms(lambda: None, torch.device("cpu"), 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="card"):
+        prof_attention.main(["--reps", "2"])
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

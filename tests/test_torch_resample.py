@@ -60,6 +60,65 @@ def test_merge_sorted_fast_takes_a_broadcast_row(rng):
     np.testing.assert_array_equal(got, ref)
 
 
+def _tied_halves(rng, rows):
+    """Two per-row sorted halves of 64 with ties within and across them."""
+    vals = rng.integers(0, 12, size=(rows, 128)).astype(np.float32)
+    return np.sort(vals[:, :64], axis=-1), np.sort(vals[:, 64:], axis=-1)
+
+
+def test_merge128_grad_matches_jax_vjp_with_ties(rng):
+    """The gradient through merge_sorted_fast (the stable sort's backward on
+    the CPU) equals jax.vjp of the JAX _merge128 (its custom VJP, the
+    Pallas forward in interpret mode) exactly, ties included: both route
+    the cotangent through the stable sort's permutation."""
+    a, b = _tied_halves(rng, 19)
+    g = rng.standard_normal((19, 128)).astype(np.float32)
+    out, vjp = jax.vjp(jres._merge128, jnp.asarray(a), jnp.asarray(b))
+    ja, jb = vjp(jnp.asarray(g))
+    ta, tb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+    got = tres.merge_sorted_fast(ta, tb)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(out))
+    np.testing.assert_array_equal(ta.grad.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tb.grad.numpy(), np.asarray(jb))
+
+
+def test_merge128_function_backward_is_the_stable_sorts(rng, monkeypatch):
+    """The card's autograd Function, with K3 replaced by its plain version:
+    its backward gives exactly the CPU path's gradient, ties included."""
+    monkeypatch.setattr(tres, "_launch_merge", tres.merge128_plain)
+    a, b = _tied_halves(rng, 23)
+    x = np.concatenate([a, b], -1)
+    g = torch.from_numpy(rng.standard_normal((23, 128)).astype(np.float32))
+    xf = torch.from_numpy(x).requires_grad_(True)
+    out = tres._Merge128.apply(xf, 64)
+    (dx,) = torch.autograd.grad(out, xf, g)
+    xp = torch.from_numpy(x).requires_grad_(True)
+    (ref,) = torch.autograd.grad(tres.merge128(xp, 64), xp, g)
+    assert torch.equal(out, tres.merge128_plain(xp.detach(), 64))
+    assert torch.equal(dx, ref)
+
+
+@pytest.mark.cuda
+def test_merge128_grad_on_the_card_equals_the_cpu(rng):
+    """K3 with a gradient on the card: the forward bit-equal to the stable
+    sort and the gradient of a random cotangent equal to the CPU plain
+    path's, ties included. chip_smoke.py makes the same check there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K3 is CUDA C++; no CPU mode)")
+    a, b = _tied_halves(rng, 1000)
+    x = torch.from_numpy(np.concatenate([a, b], -1))
+    g = torch.from_numpy(rng.standard_normal((1000, 128)).astype(np.float32))
+    res = []
+    for dev in ("cuda:0", "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        out = tres.merge128(xd, 64)
+        (dx,) = torch.autograd.grad(out, xd, g.to(dev))
+        res.append((out.detach().cpu(), dx.cpu()))
+    assert torch.equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])
+
+
 @pytest.mark.parametrize("case", ["meta_device", "not_contiguous",
                                   "wrong_width", "bad_split", "wrong_dtype"])
 def test_merge128_wrapper_refuses(case):
