@@ -140,14 +140,17 @@ ATTN_F16_SHAPES = (("f16 q", 4, 4096, 40),)
 # f16, the keys unsplit and split in two
 ATTN_SWEEP_BH, ATTN_SWEEP_N = 2, 333
 ATTN_SWEEP_D = tuple(range(8, 265, 8)) + (384, 512)
-# The previous designs' times at the main-path shapes (this script on the
-# tree before K7's redesign and K4/K5's fixed-order sums, NVIDIA H100 80GB
-# HBM3, 700.00 W), printed beside this run's.
+# The previous designs' times at the main-path shapes (this script, NVIDIA
+# H100 80GB HBM3, 700.00 W): K7 before its redesign; K1/K2/K4/K5 before
+# their heads moved onto the tensor cores (by CUDA events). Printed beside
+# this run's.
 PREV_MS = {("attention", "unet 64x64"): 0.482,
            ("attention", "unet 32x32"): 0.103,
            ("attention", "vae mid"): 0.747,
-           ("field_fused_bwd", "fine"): 3.768,
-           ("field_fused_bwd_sigma", "coarse"): 0.598}
+           ("field_fused", "fine"): 2.404,
+           ("field_fused_sigma", "coarse"): 0.590,
+           ("field_fused_bwd", "fine"): 3.678,
+           ("field_fused_bwd_sigma", "coarse"): 0.394}
 # stage 2 through train(): the steps after the stage-1 checkpoint
 STAGE2_STEPS, STAGE2_PRINT = 50, 10
 # one stage-2 step, card vs the CPU plain path, tiny SD widths at 512²,
@@ -383,12 +386,15 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
             if not ragged:
                 r["ms"] = cuda_ms(lambda: ff.cp_field_fused(
                     x, sh, ul, Ws, sigma_only=sigma_only), reps=10)
+                r["graph_ms"] = graph_ms(lambda: ff.cp_field_fused(
+                    x, sh, ul, Ws, sigma_only=sigma_only), reps=10)
                 # the plain encode (here and in K4/K5's plain backward) is
                 # cp_pallas.encode_plain, built for JAX's tie gradients:
                 # slower than a clamp/relu/abs encode (PERF.md has both)
                 r["plain_ms"] = cuda_ms(lambda: ff.field_plain(
                     x, sh, ul, Ws, sigma_only=sigma_only), reps=3)
                 r.update(kernel_bound(name, r))
+                r["prev_ms"] = PREV_MS.get((name, label))
             print(f"check {name} [{label}{' ragged' if ragged else ''}] "
                   f"{json.dumps(r)}")
             if r["n_out_of_tol"]:
@@ -397,6 +403,28 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
                     f"rtol {FIELD_RTOL}, atol {FIELD_ATOL_FRAC}·max|plain|")
             results.setdefault(name, []).append(r)
     return results
+
+
+def field_kernel_info(fine, coarse, proposal) -> None:
+    """Print the field kernels' registers, spill bytes, shared memory a
+    block and blocks an SM at the fields' shapes (the CUDA runtime's
+    account of the built kernels)."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+
+    for name, field, backward, sigma_only in (
+            ("field_fused", fine, False, False),
+            ("field_fused_sigma", coarse, False, True),
+            ("field_fused_sigma", proposal, False, True),
+            ("field_fused_bwd", fine, True, False),
+            ("field_fused_bwd_sigma", coarse, True, True)):
+        r_max = max(field.resolutions)
+        feat = len(field.resolutions) * field.rank
+        info = ff.kernel_info(backward=backward, sigma_only=sigma_only,
+                              r_max=r_max, feat=feat)
+        print(f"kernel info {name} [R_max {r_max}, F {feat}] "
+              f"{json.dumps(info)}")
+        if info["blocks_per_sm"] < 1:
+            raise AssertionError(f"{name}: a block does not fit an SM: {info}")
 
 
 def check_merge(dev, np_rng):
@@ -1297,6 +1325,7 @@ def main() -> None:
                            rank=8, device=dev,
                            generator=torch.Generator().manual_seed(1))
     np_rng = np.random.default_rng(0)
+    field_kernel_info(fine, coarse, proposal)
 
     # ---- 3. each kernel vs its plain version, at main-path shapes
     with torch.no_grad():

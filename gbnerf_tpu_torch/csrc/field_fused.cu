@@ -8,189 +8,153 @@
 //   encode  u_a = clip(x_a, 0, 1)·(R_max − 1), a = 0..2; the TPU contracts
 //           the triangle row relu(1 − |pos − u|) with the unified lines
 //           [R_max, F]. Only the taps i0 = ⌊u⌋ and i0 + 1 are nonzero, so a
-//           2-tap lerp computes the same number: each tap weight is rounded
-//           to bf16 as the TPU's mask is, the lines are bf16, the products of
-//           two bf16 values are exact in f32 and the two-term sum rounds once,
-//           as the dot over R_max does (the other terms are exact zeros).
-//           i0 is clamped to R_max − 2: at u = R_max − 1 (x clipped to 1.0)
-//           the first tap's weight is then 0 and the second's 1.
+//           2-tap lerp computes the same number (cp_tap, field_common.cuh):
+//           each tap weight is rounded to bf16 as the TPU's mask is, the
+//           lines are bf16, the products of two bf16 values are exact in
+//           f32 and the two-term sum rounds once, as the dot over R_max does.
 //           feat_f = fa_0 · fa_1 · fa_2 (CP product).
 //   σ-net   h0 = relu(feat @ ws0 [F,64]); h1 = h0 @ ws1 [64,16]; σ = h1[0].
 //   colour  hc = SH(16) ⊕ h1[1..15]; relu(hc @ wc0 [31,64]) → relu(@ wc1
 //           [64,64]) → @ wc2 [64,3] = rgb logits.
-//   Every layer's input is rounded to bf16 and accumulated in f32, with relu
-//   in f32, as heads_apply does (field_fused.py:65-79).
+//   Every layer's input is rounded to bf16 and summed in f32, with relu in
+//   f32, as heads_apply does (ops/field_fused.py).
 //
-// What bounds it on the H100: at the fine pass of one 16384-ray block
-// (2.1 M points) the heads are ≈ 25 kFLOP a point, ≈ 52 GFLOP in all, while
-// the HBM traffic is ≈ 100 B a point (x, SH in; raw out). This version does
-// the heads as scalar f32 FMAs, one point per thread, with the weights
-// staged in shared memory as f32 (bf16-rounded by the wrapper) and read as
-// warp-wide broadcasts, so it is bound by the CUDA cores' FMA rate. A
-// tensor-core (mma/wgmma) version would move the heads to a 989 TFLOP/s
-// unit and leave it bound by memory; that is later work.
+// What bounds it on the H100: at the fine pass of one 16384-ray render
+// (2,097,152 points, F 80) the heads are 12,416 multiply-adds a point, 52
+// GFLOP in all: 0.053 ms on the bf16 tensor cores (989 TFLOP/s), 0.78 ms
+// as scalar f32 FMAs (67 TFLOP/s, the previous design). The bytes (x, SH
+// in, raw out: ≈ 0.058 ms at 3.35 TB/s) set the bound once the heads run
+// on the tensor cores. Beside them the encode gathers 6 line values and
+// does ≈ 11 f32 operations a feature.
 //
-// Design against that bound: the encode is computed feature by feature and
-// folded straight into the 64 h0 accumulators, so no [F] vector is ever
-// live; each later layer loops over its input with the output accumulators
-// in registers (at most 64 + 16 live); every weight row is read as float4
-// broadcasts (one shared load per 4 FMAs). Blocks are persistent (as many
-// as are resident at once) so each loads the ≈ 50 KB of weights once, not
-// once per tile. The unified lines (3 × 257 × 80 bf16 = 123 KB) are read
-// through L1/L2: they do not fit beside the weights of several blocks.
+// Design (field_tile.cuh holds the parts shared with K4/K5):
+// - The heads on the tensor cores: each warp takes 16-point m-tiles and
+//   runs every layer as an mma.sync.m16n8k16 chain, each layer's C
+//   fragments turned into the next one's bf16 A fragments in registers;
+//   nothing but the output leaves the registers.
+// - The encode is computed straight into the A fragments of bf16(enc): a
+//   lane's entries are its two points × the k-chunk's features 2·tig,
+//   2·tig + 1, +8, +9, each a product of three 2-tap lerps.
+// - The weights (≈ 29 KB bf16 at F 80) and, when they fit, the unified
+//   lines (3 × 257 × 88 bf16 = 136 KB, rows padded to 4·odd words for the
+//   banks) are staged in shared memory once per persistent block of 8
+//   warps; where the lines do not fit, they are read through L1/L2.
+// Registers, spills and shared memory per block: chip_smoke.py prints them
+// ("kernel info" lines), and PERF.md keeps them.
 
-#include "field_common.cuh"
+#include "field_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+// 16 warps a block: each warp's chain of products waits on the one
+// before, so an SM needs many warps in flight (≈ 100 registers a thread)
+constexpr int kFwdWarps = 16;
+constexpr int kFwdBlock = 32 * kFwdWarps;
 
 template <bool kSigmaOnly>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdBlock, 1)
 field_fused_kernel(const float* __restrict__ x, const float* __restrict__ sh,
-                   const __nv_bfloat16* __restrict__ lines,
-                   const float* __restrict__ wpack, float* __restrict__ out,
-                   int n, int r_max, int feat) {
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  const int n_w = feat * kSigmaWidth + (kSigmaOnly ? kOffWc0 : kTail);
-  for (int i = threadIdx.x; i < n_w / 4; i += blockDim.x)
-    smem4[i] = reinterpret_cast<const float4*>(wpack)[i];
+                   const bf16* __restrict__ lines,
+                   const bf16* __restrict__ wpack, float* __restrict__ out,
+                   int n, int r_max, int feat, int stage_lines) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WLayout W = weight_layout(feat, kSigmaOnly);
+  bf16* sw = reinterpret_cast<bf16*>(smem);
+  copy16(sw, wpack, W.total);
+  const bf16* L = lines;
+  int ls = feat;
+  if (stage_lines) {             // [3·R_max][line_stride] bf16, 8 B a copy
+    bf16* sl = sw + W.total;
+    ls = line_stride(feat);
+    const int q = feat / 4;
+    for (int i = threadIdx.x; i < 3 * r_max * q; i += blockDim.x)
+      *reinterpret_cast<uint2*>(sl + (i / q) * ls + (i % q) * 4) =
+          reinterpret_cast<const uint2*>(lines)[i];
+    L = sl;
+  }
   __syncthreads();
-  const float* s_ws0 = sw;
-  const float* s_ws1 = sw + feat * kSigmaWidth;
 
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    // ---- encode taps, one pair per axis
-    const __nv_bfloat16* row0[3];
-    float w0[3], w1[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const CpTap t = cp_tap(x[3 * p + a], r_max);
-      w0[a] = t.w0;
-      w1[a] = t.w1;
-      row0[a] = lines + ((size_t)a * r_max + t.i0) * feat;
-    }
-
-    // ---- encode ⊗ ws0, folded per feature into the h0 accumulators
-    float h0[kSigmaWidth];
-#pragma unroll
-    for (int j = 0; j < kSigmaWidth; ++j) h0[j] = 0.f;
-    for (int f = 0; f < feat; f += 4) {
-      float e[4] = {1.f, 1.f, 1.f, 1.f};   // 1·fa_0 is exact: (fa_0·fa_1)·fa_2
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float l0[4], l1[4];
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + f)), l0);
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + feat + f)), l1);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          e[k] *= fmaf(w1[a], l1[k], w0[a] * l0[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        axpy64(h0, bf16_round(e[k]), s_ws0 + (f + k) * kSigmaWidth);
-    }
-
-    // ---- h1 = bf16(relu(h0)) @ ws1
-    float h1[kGeo];
-#pragma unroll
-    for (int j = 0; j < kGeo; ++j) h1[j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kSigmaWidth; ++j) {
-      const float a = bf16_round(fmaxf(h0[j], 0.f));
-      const float4* w4 = reinterpret_cast<const float4*>(s_ws1 + j * kGeo);
-#pragma unroll
-      for (int q = 0; q < kGeo / 4; ++q) {
-        const float4 v = w4[q];
-        h1[4 * q + 0] = fmaf(a, v.x, h1[4 * q + 0]);
-        h1[4 * q + 1] = fmaf(a, v.y, h1[4 * q + 1]);
-        h1[4 * q + 2] = fmaf(a, v.z, h1[4 * q + 2]);
-        h1[4 * q + 3] = fmaf(a, v.w, h1[4 * q + 3]);
-      }
-    }
-    const float sigma = h1[0];
+  const int l = lane_id(), tig = l & 3;
+  const int mtiles = (n + 15) / 16;
+  for (int mt = blockIdx.x * kFwdWarps + (threadIdx.x >> 5); mt < mtiles;
+       mt += gridDim.x * kFwdWarps) {
+    const int p0 = mt * 16;
+    LaneTaps t;
+    lane_taps(t, x, p0, n, r_max, ls);
+    float h1[2][4];
+    sigma_net<true, false>(h1, t, L, ls, feat, sw, W, nullptr, 0, nullptr);
+    // σ = h1[:, 0]: C entries 0 (row g) and 2 (row g + 8) of lanes tig 0
+    const int pa = p0 + (l >> 2), pb = pa + 8;
     if (kSigmaOnly) {
-      reinterpret_cast<float4*>(out)[p] = make_float4(0.f, 0.f, 0.f, sigma);
+      if (tig == 0) {
+        if (pa < n)
+          reinterpret_cast<float4*>(out)[pa] = make_float4(0.f, 0.f, 0.f, h1[0][0]);
+        if (pb < n)
+          reinterpret_cast<float4*>(out)[pb] = make_float4(0.f, 0.f, 0.f, h1[0][2]);
+      }
       continue;
     }
-
-    // ---- h2 = relu((SH ⊕ h1[1:]) @ wc0), inputs bf16-rounded
-    const float* s_wc0 = s_ws1 + kOffWc0;
-    float h2[kColorWidth];
-#pragma unroll
-    for (int j = 0; j < kColorWidth; ++j) h2[j] = 0.f;
-    const float4* sh4 = reinterpret_cast<const float4*>(sh + (size_t)p * kSh);
-#pragma unroll
-    for (int q = 0; q < kSh / 4; ++q) {
-      const float4 s = __ldg(sh4 + q);
-      axpy64(h2, bf16_round(s.x), s_wc0 + (4 * q + 0) * kColorWidth);
-      axpy64(h2, bf16_round(s.y), s_wc0 + (4 * q + 1) * kColorWidth);
-      axpy64(h2, bf16_round(s.z), s_wc0 + (4 * q + 2) * kColorWidth);
-      axpy64(h2, bf16_round(s.w), s_wc0 + (4 * q + 3) * kColorWidth);
+    uint32_t hc[2][4];
+    hc_frags(hc, h1, sh, p0, n);
+    float rgb[4];
+    uint32_t m2, m3;
+    color_net<true, false>(rgb, m2, m3, hc, sw, W, nullptr, nullptr,
+                          nullptr);
+    // rgb: lane tig 0 holds columns 0, 1 and tig 1 columns 2, 3 (3 is the
+    // zero padding of wc2), which takes σ from its tig-0 neighbour
+    const float sa = __shfl_sync(0xffffffffu, h1[0][0], l & ~3);
+    const float sb = __shfl_sync(0xffffffffu, h1[0][2], l & ~3);
+    if (tig < 2) {
+      if (pa < n)
+        reinterpret_cast<float2*>(out)[2 * pa + tig] =
+            make_float2(rgb[0], tig ? sa : rgb[1]);
+      if (pb < n)
+        reinterpret_cast<float2*>(out)[2 * pb + tig] =
+            make_float2(rgb[2], tig ? sb : rgb[3]);
     }
-#pragma unroll
-    for (int i = 1; i < kGeo; ++i)
-      axpy64(h2, bf16_round(h1[i]), s_wc0 + (kSh + i - 1) * kColorWidth);
-#pragma unroll
-    for (int j = 0; j < kColorWidth; ++j) h2[j] = bf16_round(fmaxf(h2[j], 0.f));
-
-    // ---- h3_k = relu(h2 @ wc1[:, k]), folded at once into rgb += h3_k·wc2[k]
-    const float* s_wc1t = s_ws1 + kOffWc1;
-    const float4* s_wc2 = reinterpret_cast<const float4*>(s_ws1 + kOffWc2);
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < kColorWidth; ++k) {
-      const float4* w4 = reinterpret_cast<const float4*>(s_wc1t + k * kColorWidth);
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < kColorWidth / 4; ++q) {
-        const float4 v = w4[q];
-        acc = fmaf(h2[4 * q + 0], v.x, acc);
-        acc = fmaf(h2[4 * q + 1], v.y, acc);
-        acc = fmaf(h2[4 * q + 2], v.z, acc);
-        acc = fmaf(h2[4 * q + 3], v.w, acc);
-      }
-      const float g = bf16_round(fmaxf(acc, 0.f));
-      const float4 c = s_wc2[k];
-      r0 = fmaf(g, c.x, r0);
-      r1 = fmaf(g, c.y, r1);
-      r2 = fmaf(g, c.z, r2);
-    }
-    reinterpret_cast<float4*>(out)[p] = make_float4(r0, r1, r2, sigma);
   }
 }
 
+// Shared memory of a block: the weights, and the lines when stage_lines
+size_t fwd_smem(int r_max, int feat, bool sigma_only, bool stage_lines) {
+  size_t b = (size_t)weight_layout(feat, sigma_only).total * sizeof(bf16);
+  if (stage_lines) b += (size_t)3 * r_max * line_stride(feat) * sizeof(bf16);
+  return b;
+}
+
 template <bool kSigmaOnly>
-int launch(const float* x, const float* sh, const __nv_bfloat16* lines,
-           const float* wpack, float* out, int n, int r_max, int feat,
+int launch(const float* x, const float* sh, const bf16* lines,
+           const bf16* wpack, float* out, int n, int r_max, int feat,
            cudaStream_t stream) {
-  const int n_w = feat * kSigmaWidth + (kSigmaOnly ? kOffWc0 : kTail);
-  const size_t smem = (size_t)n_w * sizeof(float);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const bool stage = fwd_smem(r_max, feat, kSigmaOnly, true) <= (size_t)optin;
+  const size_t smem = fwd_smem(r_max, feat, kSigmaOnly, stage);
   cudaError_t err = cudaFuncSetAttribute(
       field_fused_kernel<kSigmaOnly>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // persistent blocks: exactly as many as are resident at once (registers
-  // or shared memory bound it), so no block waits for a second wave
+  // persistent blocks: exactly as many as are resident at once, so each
+  // stages the weights (and lines) once
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, field_fused_kernel<kSigmaOnly>, kThreads, smem);
+      &per_sm, field_fused_kernel<kSigmaOnly>, kFwdBlock, smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + 16 * kFwdWarps - 1) / (16 * kFwdWarps);
   const int cap = sm_count() * (per_sm > 0 ? per_sm : 1);
-  const int grid = tiles < cap ? tiles : cap;
-  field_fused_kernel<kSigmaOnly><<<grid, kThreads, smem, stream>>>(
-      x, sh, lines, wpack, out, n, r_max, feat);
+  const int grid = blocks < cap ? blocks : cap;
+  field_fused_kernel<kSigmaOnly><<<grid, kFwdBlock, smem, stream>>>(
+      x, sh, lines, wpack, out, n, r_max, feat, (int)stage);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [n,3] f32, sh [n,16] f32 (unused when sigma_only), lines [3,r_max,feat]
-// bf16, wpack the packed bf16-rounded f32 weights (see field_fused.py), out
-// [n,4] f32. Returns cudaGetLastError() after the launch (0 = success).
+// bf16 (feat a multiple of 4), wpack the packed bf16 weights
+// (ops/field_fused.py::pack_weights; 16-byte aligned), out [n,4] f32.
+// Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int gbnerf_field_fused(const void* x, const void* sh,
                                   const void* lines, const void* wpack,
                                   void* out, int n, int r_max, int feat,
@@ -198,10 +162,38 @@ extern "C" int gbnerf_field_fused(const void* x, const void* sh,
   if (n == 0) return 0;
   const auto* xl = static_cast<const float*>(x);
   const auto* sl = static_cast<const float*>(sh);
-  const auto* ll = static_cast<const __nv_bfloat16*>(lines);
-  const auto* wl = static_cast<const float*>(wpack);
+  const auto* ll = static_cast<const bf16*>(lines);
+  const auto* wl = static_cast<const bf16*>(wpack);
   auto* ol = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   return sigma_only ? launch<true>(xl, sl, ll, wl, ol, n, r_max, feat, st)
                     : launch<false>(xl, sl, ll, wl, ol, n, r_max, feat, st);
+}
+
+// Registers, local (spill) bytes a thread, dynamic shared memory and blocks
+// an SM of K1 (K2 when sigma_only) at this shape → info[4]; 0 = success.
+extern "C" int gbnerf_field_fused_info(int r_max, int feat, int sigma_only,
+                                       int* info) {
+  const void* fn = sigma_only ? (const void*)field_fused_kernel<true>
+                              : (const void*)field_fused_kernel<false>;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const bool so = sigma_only != 0;
+  const bool stage = fwd_smem(r_max, feat, so, true) <= (size_t)optin;
+  const size_t smem = fwd_smem(r_max, feat, so, stage);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kFwdBlock, smem);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  return (int)err;
 }

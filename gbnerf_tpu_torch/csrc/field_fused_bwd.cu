@@ -4,149 +4,107 @@
 // the full field) and ::_kernel_bwd_sigma (K5, the σ-only variant), one
 // templated source with SIGMA_ONLY as the flag, as K1/K2 are.
 //
-// What it computes, per point p, given the output cotangent g [N, 4]
-// (rgb ⊕ σ): it recomputes K1's forward (2-tap encode, h0, h1, hc, h2, h3)
-// and runs the head backward
-//   dh3 = wc2·g_rgb ⊙ [h3>0]     dh2 = wc1·dh3 ⊙ [h2>0]   dhc = wc0·dh2
+// What it computes, given the output cotangent g [N, 4] (rgb ⊕ σ): it
+// recomputes K1's forward (field_tile.cuh, the same code) and runs the
+// head backward
+//   dh3 = g_rgb·wc2ᵀ ⊙ [h3>0]     dh2 = dh3·wc1ᵀ ⊙ [h2>0]   dhc = dh2·wc0ᵀ
 //   dsh = dhc[:16]                dh1 = [g_σ, dhc[16:]]
-//   dh0 = ws1·dh1 ⊙ [h0>0]        dprod = ws0·dh0  [F]
+//   dh0 = dh1·ws1ᵀ ⊙ [h0>0]       dprod = dh0·ws0ᵀ  [F]
 // then the encode backward, per axis a: dfa = bf16(dprod ⊙ fa_b ⊙ fa_c);
-// dlines[a] gets dfa·w at the two taps; du = Σ_taps (line·dfa)·sign(r − u)
-// ·[|r − u| < 1]; dx_a = du·(R_max − 1)·[0 < x_a < 1]. The weight
-// gradients are sums over points of outer products, dW = Σ_p a_p ⊗ b_p.
-// The TPU kernel's rounding is kept: every matmul operand is bf16 (the
-// cotangents and the activations of the outer products included), every
-// sum f32; the ties are its ties (du = 0 at a grid node, dx = 0 for a
-// clipped coordinate that still adds to dlines, K1's first-tap clamp).
-// K5: dh1 = [g_σ, 0…]; no colour head, no dsh, no dwc*.
+// dlines[a] += maskᵀ · dfa (the bf16 triangle mask); du = Σ_taps (line ·
+// dfa)·sign(r − u)·[|r − u| < 1]; dx_a = du·(R_max − 1)·[0 < x_a < 1]; and
+// the weight gradients dW = Σ_p a_p ⊗ b_p. The TPU kernel's rounding is
+// kept: every product's operands are bf16 (the cotangents, the activations
+// and the mask included), every sum f32; the ties are its ties (du = 0 at
+// a grid node, dx = 0 for a clipped coordinate that still adds to dlines,
+// K1's first-tap clamp: cp_tap and tie_sign in field_common.cuh). K5:
+// dh1 = [g_σ, 0…]; no colour head, no dsh, no dwc*.
 //
 // What bounds it on the H100, at the stage-1 fine pass (131,072 points,
-// F 80, R_max 257): per point ≈ 13 k FMAs of forward recompute, ≈ 12 k of
-// head backward and ≈ 12 k of weight-gradient outer products, all scalar
-// f32 on the CUDA cores; and 480 additions into dlines per point (2 taps ×
-// F × 3 axes), which land on only 3·257·80 addresses.
+// F 80, R_max 257): the products, 3 × 12,416 multiply-adds a point (the
+// recomputed forward and the two products of each layer's backward),
+// 0.0099 ms on the bf16 tensor cores; the dense dlines contraction the
+// TPU does adds 3 × 272 × 80 × 2 FLOP a point (17 GFLOP). The previous
+// design did all of it as scalar f32 FMAs at 4 warps an SM and sorted each
+// tile's dlines contributions (3.664 ms).
 //
-// Design against that:
-// - One thread per point for the per-point phases, weights read as
-//   warp-uniform float4 loads through L1 (no room for them in shared
-//   memory beside the tile buffer).
-// - The weight gradients need the whole tile's activations and cotangents:
-//   each thread writes its point's bf16 operands into a [row][point] tile
-//   buffer in shared memory (516 rows × 128 points at F 80, 134 KB; the row
-//   stride of 130 elements puts consecutive rows on consecutive banks), and
-//   after a barrier every thread owns 4 × 4 blocks of the dW outputs and
-//   sums them over the tile's points (two points per bf16x2 load). The
-//   partial dW of a block lives in shared memory (50 KB) across all of the
-//   block's tiles (blocks are persistent).
-// - The encode backward runs after the dW phase, so its per-point dfa
-//   (bf16-rounded, so exact in bf16) and tap weights can take the tile
-//   buffer's freed rows.
+// Design: persistent blocks of 8 warps (one an SM: the shared memory), a
+// tile of 128 points a step, four phases a tile with a barrier after each:
+// 1. Heads (each warp its 16 points): the forward and the head backward
+//    as mma.sync chains in registers; each layer's bf16 operands (the
+//    activations and the cotangents) go to tile buffers [point][column] in
+//    shared memory, as the weight gradients need them.
+// 2. dW on the tensor cores: dW = Actᵀ·Cot with the tile's 128 points as
+//    the k dimension, both operands by ldmatrix.trans from the buffers.
+//    Each (matrix, 16 inputs, 16 outputs) unit belongs to one warp for
+//    good; it adds its tile sum to the block's dW row of the scratch buffer.
+// 3. Encode backward (each warp its 16 points): dprod = dh0·ws0ᵀ one
+//    k-chunk of features at a time, dfa, du and dx; dfa goes to shared
+//    memory [axis][point][feature], over the buffers phase 2 has read.
+// 4. dlines as the TPU computes it: per axis, maskᵀ [R_max × 128] · dfa
+//    [128 × F] on the tensor cores. The A fragments of the mask are made
+//    in registers from the tile's taps (each entry w0, w1 or 0); a 16-row
+//    block of rows that no point of a 16-point k-step touches is skipped
+//    (the test reads the k-step's range of taps: the inputs alone decide
+//    it). Each (axis, 16 rows) unit belongs to one warp for good and adds
+//    its 16 × F sum to the block's dlines slice of the scratch buffer.
+// Shared memory: the weights (29 KB at F 80) and the tile buffers (152 KB)
+// and taps; registers and spills: chip_smoke.py's "kernel info" lines.
 //
-// Determinism: every sum is taken in an order fixed by the inputs alone,
-// so the same inputs give bit-equal dx, dsh, dlines and dW on every call.
-// There is no atomic in this source.
-// - dlines: each persistent block owns a [3, R_max, F] f32 slice of a
-//   scratch buffer (≈ 32.6 MB at 132 blocks, which L2's 50 MB holds). Per
-//   tile, the 256 (point, tap) contributions of each axis are sorted by
-//   (row, tap, point) in shared memory (a bitonic network); each run of one
-//   row is summed in that order and added to the block's slice, one owner
-//   thread per (row, 4 features), so no two threads touch one address
-//   within a tile and barriers order the tiles. The flush issues four
-//   independent float4 read-add-writes at a time to hide L2 latency.
-//   (Route (a) of the two fixed-order routes; the other, writing dfa
-//   [3, N, F] to memory and bucketing the points by row with a counting
-//   sort, moves ≈ 126 MB more a call and needs three more launches in a
-//   step that is host-bound.)
-// - dW: each block writes its shared-memory partial to its own row of the
-//   same scratch buffer.
-// - A second kernel (field_bwd_reduce) sums the blocks' rows in block
-//   order into the outputs. The grid depends only on N, the SM count and
-//   the occupancy, all fixed for one card and one shape.
-// Cost (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): K4 at the fine pass
-// 3.700 ms against 3.768 with the atomics, K5 at 65,536 points 0.389 ms
-// against 0.598; the reduce ≈ 0.03 ms a call.
+// Determinism: no atomics. Every sum runs in an order fixed by the inputs,
+// the SM count and the occupancy: within a tile in the mma's order, over a
+// block's tiles in tile order (one owner a scratch address), and over the
+// blocks in block order (field_bwd_reduce, a second launch). So the same
+// inputs give bit-equal dx, dsh, dlines and dW on every call.
 
-#include "field_common.cuh"
+#include "field_tile.cuh"
 
 namespace {
 
-constexpr int kT = 128;          // points per tile = threads per block
-constexpr int kTP = kT + 2;      // tile-buffer row stride (bf16): 65 words
-constexpr int kC = 2 * kT;       // (point, tap) contributions of an axis
-constexpr unsigned kNoRow = 0xffffffffu;   // sort key of a point past N
+constexpr int kTile = 16 * kWarps;   // points a tile: one m-tile a warp
+constexpr int kNG = 10;              // dlines n-tiles a pass (80 features)
+constexpr int kNoTap = -4;           // i0 of a point past n: no row matches
 
-// rows of the bf16 tile buffer and float offsets of the dW accumulators;
-// the encode backward's region (byte offsets) reuses the buffer's rows
-// once the dW phase has read them
-struct Layout {
-  int rP, rA0, rHC, rA2, rA3, rG, rD3, rD2, rD1, rD0, rows;
-  int aWs0, aWs1, aWc0, aWc1, aWc2, acc;
-  int dfs;                         // dfa row stride (bf16): [point][3F + 4]
-  int eWt, eKeys, eHeads, eNseg;   // tap weights [3][2][kT] f32, sort keys
-                                   // [3][kC] u32, run heads [3·kC] int, count
+// Element offsets (bf16) in shared memory of the tile buffers [kTile][stride]
+// after the weights; dfa [3][kTile][ps] reuses prod and what follows it
+// once phase 2 has read them. Byte offsets of the taps int4 [3][kTile]
+// {i0, w0, w1, 0} and the k-steps' tap ranges int2 [3][kWarps].
+struct BwdLayout {
+  int dh0, dh1, g, prod, a0, hc, a2, a3, dh3, dh2, ps, dfa, taps_b, range_b;
+  size_t bytes;
 };
 
-// the encode region after the dfa rows, and the rows that hold it all
-__host__ __device__ inline Layout finish_layout(Layout L, int feat) {
-  L.dfs = 3 * feat + 4;
-  L.eWt = kT * L.dfs * 2;
-  L.eKeys = L.eWt + 6 * kT * 4;
-  L.eHeads = L.eKeys + 3 * kC * 4;
-  L.eNseg = L.eHeads + 3 * kC * 4;
-  const int rows = (L.eNseg + 16 + kTP * 2 - 1) / (kTP * 2);
-  if (L.rows < rows) L.rows = rows;
-  return L;
-}
-
-__host__ __device__ inline Layout make_layout(int feat, bool sigma_only) {
-  Layout L{};
-  L.rP = 0;                      // bf16(prod)            [F]
-  L.rA0 = feat;                  // bf16(relu h0)         [64]
-  L.aWs0 = 0;                    // dws0 [F][64]
-  L.aWs1 = feat * 64;            // dws1 [64][16]
-  if (sigma_only) {
-    L.rD1 = feat + 64;           // bf16(dh1)             [16]
-    L.rD0 = feat + 80;           // bf16(dh0)             [64]
-    L.rows = feat + 144;
-    L.acc = feat * 64 + 1024;
-    return finish_layout(L, feat);
+__host__ __device__ inline BwdLayout bwd_layout(int feat, bool sigma_only) {
+  BwdLayout B{};
+  B.ps = row_stride(feat_pad(feat));
+  int o = weight_layout(feat, sigma_only).total;
+  B.dh0 = o;
+  o += kTile * kS64;
+  B.dh1 = o;
+  o += kTile * kS16;
+  if (!sigma_only) {
+    B.g = o;
+    o += kTile * kS8;
   }
-  L.rHC = feat + 64;             // hc (SH ⊕ geo), row 31 zero   [32]
-  L.rA2 = feat + 96;             // bf16(relu h2)         [64]
-  L.rA3 = feat + 160;            // bf16(relu h3)         [64]
-  L.rG = feat + 224;             // bf16(g_rgb), row 3 zero      [4]
-  L.rD3 = feat + 228;            // bf16(dh3)             [64]
-  L.rD2 = feat + 292;            // bf16(dh2)             [64]
-  L.rD1 = feat + 356;            // bf16(dh1)             [16]
-  L.rD0 = feat + 372;            // bf16(dh0)             [64]
-  L.rows = feat + 436;
-  L.aWc0 = L.aWs1 + 1024;        // dwc0 [32][64] (row 31 padding)
-  L.aWc1 = L.aWc0 + 2048;        // dwc1 [64][64]
-  L.aWc2 = L.aWc1 + 4096;        // dwc2 [64][4]  (column 3 padding)
-  L.acc = L.aWc2 + 256;
-  return finish_layout(L, feat);
-}
-
-__host__ __device__ inline size_t smem_bytes(const Layout& L) {
-  return (size_t)L.rows * kTP * sizeof(__nv_bfloat16)
-         + (size_t)L.acc * sizeof(float);
-}
-
-// One weight gradient: dW[i][o] = Σ_points A[i] · B[o], A and B rows of the
-// tile buffer; I × O padded to multiples of 4 in the accumulator, I_real ×
-// O_real in the output (Dense [in, out], at float offset `out`).
-struct Mat {
-  int a, I, b, O, acc, out, I_real, O_real;
-};
-
-__device__ __forceinline__ void put(__nv_bfloat16* S, int row, int t,
-                                    float v) {
-  S[row * kTP + t] = __float2bfloat16(v);   // v is bf16 already: exact
-}
-
-__device__ __forceinline__ float tie_sign(float d) {
-  // sign(d)·[|d| < 1]: the derivative of relu(1 − |d|) in u, 0 at d = 0
-  return fabsf(d) < 1.f ? (d > 0.f ? 1.f : (d < 0.f ? -1.f : 0.f)) : 0.f;
+  B.prod = o;
+  o += kTile * B.ps;
+  B.a0 = o;
+  o += kTile * kS64;
+  if (!sigma_only) {
+    B.hc = o;
+    o += kTile * kS32;
+    B.a2 = o;
+    B.a3 = B.a2 + kTile * kS64;
+    B.dh3 = B.a3 + kTile * kS64;
+    B.dh2 = B.dh3 + kTile * kS64;
+    o = B.dh2 + kTile * kS64;
+  }
+  B.dfa = B.prod;
+  if (o < B.dfa + 3 * kTile * B.ps) o = B.dfa + 3 * kTile * B.ps;
+  B.taps_b = o * 2;
+  B.range_b = B.taps_b + 3 * kTile * 16;
+  B.bytes = (size_t)B.range_b + 3 * kWarps * 8;
+  return B;
 }
 
 // floats of the dW outputs (the five weights, Dense [in, out], one after
@@ -158,449 +116,418 @@ __host__ __device__ inline int dw_size(int feat, bool sigma_only) {
                           + kColorWidth * 3;
 }
 
-// Add one tile's dlines to the block's slice, in a fixed order. keys[a][c]
-// holds (row << 8) | (tap << 7) | point for the tile's 2·kT contributions
-// to axis a (kNoRow for points past N); dfa [point][dfs] bf16 and the tap
-// weights wt[a][tap][point] hold their values. The keys are sorted, each
-// run of one row summed in key order, and each (axis, row, 4 features) of
-// the slice gets one read-add-write by one thread.
-__device__ void flush_dlines(unsigned* keys, int* heads, int* nseg,
-                             const float* wt, const __nv_bfloat16* dfa,
-                             int dfs, float* slice, int r_max, int feat) {
-  const int t = threadIdx.x;
-  // bitonic sort of the three axes' kC keys, ascending; kT threads each
-  // compare-exchange one pair of every axis per step
-  for (int k = 2; k <= kC; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int i = 2 * t - (t & (j - 1)), l = i + j;
-      const bool up = (i & k) == 0;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const unsigned u = keys[a * kC + i], v = keys[a * kC + l];
-        if ((u > v) == up) {
-          keys[a * kC + i] = v;
-          keys[a * kC + l] = u;
-        }
-      }
-      __syncthreads();
-    }
-  // the heads of the runs of equal rows, in order (one warp)
-  if (t < 32) {
-    int count = 0;
-    for (int grp = 0; grp < 3 * kC / 32; ++grp) {
-      const int a = grp / (kC / 32), i = (grp % (kC / 32)) * 32 + t;
-      const unsigned row = keys[a * kC + i] >> 8;
-      const bool head = row < (unsigned)r_max
-                        && (i == 0 || (keys[a * kC + i - 1] >> 8) != row);
-      const unsigned mask = __ballot_sync(0xffffffffu, head);
-      if (head) heads[count + __popc(mask & ((1u << t) - 1u))] = a * kC + i;
-      count += __popc(mask);
-    }
-    if (t == 0) *nseg = count;
-  }
-  __syncthreads();
-  const int f4 = feat / 4, n_items = *nseg * f4;
-  for (int b = t; b < n_items; b += 4 * kT) {
-    float4 add[4];
-    int off[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int it = b + u * kT;
-      off[u] = -1;
-      add[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (it < n_items) {
-        const int h = heads[it / f4], c = it % f4;
-        const int a = h / kC;
-        const unsigned row = keys[h] >> 8;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int i = h; i < (a + 1) * kC && (keys[i] >> 8) == row; ++i) {
-          const unsigned key = keys[i];
-          const int pt = key & (kT - 1), tap = (key >> 7) & 1;
-          const float w = wt[(2 * a + tap) * kT + pt];
-          float d[4];
-          unpack4(*reinterpret_cast<const uint2*>(dfa + pt * dfs + a * feat
-                                                  + 4 * c), d);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[q] = fmaf(d[q], w, acc[q]);
-        }
-        off[u] = (a * r_max + (int)row) * feat + 4 * c;
-        add[u] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      }
-    }
-    float4 old[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (off[u] >= 0) old[u] = *reinterpret_cast<const float4*>(slice + off[u]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (off[u] >= 0)
-        *reinterpret_cast<float4*>(slice + off[u]) =
-            make_float4(old[u].x + add[u].x, old[u].y + add[u].y,
-                        old[u].z + add[u].z, old[u].w + add[u].w);
+// One weight gradient: dW [in][out] += Σ_points act[p][in] · cot[p][out],
+// act and cot tile buffers (strides as, cs); in_t 16-input tiles, out_t
+// 8-output tiles; its output at float offset off of the dW row, rows × cols
+// (wc0's packed row 16 is its zero row: rows above it move up one).
+struct DwMat {
+  int act, as, cot, cs, in_t, out_t, off, rows, cols;
+  bool wc0;
+};
+
+// The weight gradients in order: ws0, ws1 (σ-only stops here), wc0, wc1,
+// wc2
+__device__ __forceinline__ DwMat dw_mat(int m, const BwdLayout& B, int feat) {
+  const int o = feat * 64 + 1024;
+  switch (m) {
+    case 0:
+      return {B.prod, B.ps, B.dh0, kS64, feat_pad(feat) / 16, 8, 0, feat, 64,
+              false};
+    case 1:
+      return {B.a0, kS64, B.dh1, kS16, 4, 2, feat * 64, 64, 16, false};
+    case 2:
+      return {B.hc, kS32, B.dh2, kS64, 2, 8, o, 32, 64, true};
+    case 3:
+      return {B.a2, kS64, B.dh3, kS64, 4, 8, o + 31 * 64, 64, 64, false};
+    default:
+      return {B.a3, kS64, B.g, kS8, 4, 1, o + 31 * 64 + 4096, 64, 3, false};
   }
 }
 
-template <bool kSigmaOnly>
-__global__ void __launch_bounds__(kT, 1)
-field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
-                 const float* __restrict__ g,
-                 const __nv_bfloat16* __restrict__ lines,
-                 const float* __restrict__ wpack, float* __restrict__ dx,
-                 float* __restrict__ dsh, float* __restrict__ scratch,
-                 int n, int r_max, int feat) {
-  extern __shared__ float4 smem4[];
-  const Layout L = make_layout(feat, kSigmaOnly);
-  __nv_bfloat16* S = reinterpret_cast<__nv_bfloat16*>(smem4);
-  char* base = reinterpret_cast<char*>(smem4);
-  float* acc = reinterpret_cast<float*>(base + (size_t)L.rows * kTP * 2);
-  // the encode region (after the dW phase): dfa [point][3F + 4] bf16, tap
-  // weights, sort keys, run heads
-  __nv_bfloat16* dfa = S;
-  float* wt = reinterpret_cast<float*>(base + L.eWt);
-  unsigned* keys = reinterpret_cast<unsigned*>(base + L.eKeys);
-  int* heads = reinterpret_cast<int*>(base + L.eHeads);
-  int* nseg = reinterpret_cast<int*>(base + L.eNseg);
-  const int t = threadIdx.x;
-  for (int i = t; i < L.acc; i += kT) acc[i] = 0.f;
-  // this block's rows of the scratch buffer: its dlines slice [3, R_max, F]
-  // (summed into, so zeroed here), then its dW partial
-  const int n_dl = 3 * r_max * feat;
-  float* slice = scratch + (size_t)blockIdx.x * (n_dl + dw_size(feat, kSigmaOnly));
-  for (int i = t; i < n_dl / 4; i += kT)
-    reinterpret_cast<float4*>(slice)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* ws0 = wpack;                     // [F][64]
-  const float* ws1 = wpack + feat * kSigmaWidth;  // [64][16]
-  const float* wc0 = ws1 + kOffWc0;             // [31][64]
-  const float* wc1t = ws1 + kOffWc1;            // [64 out][64 in]
-  const float4* wc2 = reinterpret_cast<const float4*>(ws1 + kOffWc2);
-
-  Mat mats[5];
-  mats[0] = {L.rP, feat, L.rD0, 64, L.aWs0, 0, feat, 64};
-  mats[1] = {L.rA0, 64, L.rD1, 16, L.aWs1, feat * 64, 64, 16};
-  const int n_mats = kSigmaOnly ? 2 : 5;
-  if (!kSigmaOnly) {
-    const int o = feat * 64 + 1024;
-    mats[2] = {L.rHC, 32, L.rD2, 64, L.aWc0, o, 31, 64};
-    mats[3] = {L.rA2, 64, L.rD3, 64, L.aWc1, o + 31 * 64, 64, 64};
-    mats[4] = {L.rA3, 64, L.rG, 4, L.aWc2, o + 31 * 64 + 4096, 64, 3};
+// Phase 2's units of weight gradient m: 16 inputs × 16 outputs each
+__device__ __forceinline__ int dw_units(int m, int feat) {
+  switch (m) {
+    case 0: return feat_pad(feat) / 16 * 4;
+    case 3: return 16;
+    case 2: return 8;
+    default: return 4;
   }
-  int n_jobs = 0;
-  for (int m = 0; m < n_mats; ++m) n_jobs += (mats[m].I / 4) * (mats[m].O / 4);
+}
 
-  const int tiles = (n + kT - 1) / kT;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int p = tile * kT + t;
-    const bool live = p < n;
-    if (!kSigmaOnly) {    // the padding rows (the encode region overlaps them)
-      put(S, L.rHC + 31, t, 0.f);
-      put(S, L.rG + 3, t, 0.f);
-    }
-    // A thread past the end computes on x = 0.5, sh = 0, g = 0: every
-    // cotangent row it writes is then 0, so its outer products add 0; it
-    // stores nothing and adds nothing to dlines.
-
-    // ---- forward recompute: encode taps as K1
-    float xa[3], w0[3], w1[3], s0[3], s1[3];
-    int i0[3];
-    const __nv_bfloat16* row0[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      xa[a] = live ? x[3 * p + a] : 0.5f;
-      const CpTap tap = cp_tap(xa[a], r_max);
-      w0[a] = tap.w0;
-      w1[a] = tap.w1;
-      s0[a] = tie_sign(tap.d0);
-      s1[a] = tie_sign(tap.d1);
-      i0[a] = tap.i0;
-      row0[a] = lines + ((size_t)a * r_max + tap.i0) * feat;
-    }
-
-    // ---- h0 = relu(bf16(prod) @ ws0); prod rows to the tile buffer
-    float h0[kSigmaWidth];
-#pragma unroll
-    for (int j = 0; j < kSigmaWidth; ++j) h0[j] = 0.f;
-    for (int f = 0; f < feat; f += 4) {
-      float e[4] = {1.f, 1.f, 1.f, 1.f};
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float l0[4], l1[4];
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + f)), l0);
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + feat + f)), l1);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) e[k] *= fmaf(w1[a], l1[k], w0[a] * l0[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float pb = bf16_round(e[k]);
-        put(S, L.rP + f + k, t, pb);
-        axpy64(h0, pb, ws0 + (f + k) * kSigmaWidth);
-      }
-    }
-
-    // ---- A0 = bf16(relu h0) and its mask; h1 = A0 @ ws1 (full field)
-    uint64_t m0 = 0;
-    float h1[kGeo];
-#pragma unroll
-    for (int j = 0; j < kGeo; ++j) h1[j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kSigmaWidth; ++j) {
-      m0 |= (uint64_t)(h0[j] > 0.f) << j;
-      const float a = bf16_round(fmaxf(h0[j], 0.f));
-      put(S, L.rA0 + j, t, a);
-      if (!kSigmaOnly) {
-        const float4* w4 = reinterpret_cast<const float4*>(ws1 + j * kGeo);
-#pragma unroll
-        for (int q = 0; q < kGeo / 4; ++q) {
-          const float4 v = w4[q];
-          h1[4 * q + 0] = fmaf(a, v.x, h1[4 * q + 0]);
-          h1[4 * q + 1] = fmaf(a, v.y, h1[4 * q + 1]);
-          h1[4 * q + 2] = fmaf(a, v.z, h1[4 * q + 2]);
-          h1[4 * q + 3] = fmaf(a, v.w, h1[4 * q + 3]);
-        }
-      }
-    }
-
-    const float4 gv = live ? reinterpret_cast<const float4*>(g)[p]
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    float db0[kSigmaWidth];       // bf16(dh0)
-    if (kSigmaOnly) {
-      // ---- K5 head backward: dh1 = [g_σ, 0…], dh0 = ws1[:, 0]·g_σ ⊙ mask
-      const float gb = bf16_round(gv.w);
-      put(S, L.rD1, t, gb);
-#pragma unroll
-      for (int o = 1; o < kGeo; ++o) put(S, L.rD1 + o, t, 0.f);
-#pragma unroll
-      for (int i = 0; i < kSigmaWidth; ++i) {
-        const float d = ((m0 >> i) & 1) ? ws1[i * kGeo] * gb : 0.f;
-        db0[i] = bf16_round(d);
-        put(S, L.rD0 + i, t, db0[i]);
-      }
+// Phase 2, one unit: 16 inputs × (up to) 16 outputs of one dW over the tile
+__device__ __forceinline__ void dw_unit(const bf16* S, const DwMat& M,
+                                        int it, int np, float* dw) {
+  const int l = lane_id(), g = l >> 2, c = 2 * (l & 3);
+  const bool pair = M.out_t > 1;
+  float acc[2][4];
+  zero<2>(acc);
+#pragma unroll 2
+  for (int ks = 0; ks < kTile / 16; ++ks) {
+    uint32_t a[4], b[4];
+    lda_t(a, S + M.act, M.as, it, ks);
+    if (pair) {
+      ldb_w(b, S + M.cot, M.cs, ks, 2 * np);
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
     } else {
-      // ---- hc = bf16(SH) ⊕ bf16(h1[1:]); h2 = relu(hc @ wc0)
-      float h2[kColorWidth];
+      ldm_x2_t(b, S + M.cot + (ks * 16 + (l & 7) + ((l >> 3) & 1) * 8) * M.cs);
+      mma_bf16(acc[0], a, b[0], b[1]);
+    }
+  }
 #pragma unroll
-      for (int j = 0; j < kColorWidth; ++j) h2[j] = 0.f;
-      const float4* sh4 = reinterpret_cast<const float4*>(sh + (size_t)p * kSh);
+  for (int j = 0; j < 2; ++j) {
+    if (j == 1 && !pair) break;
 #pragma unroll
-      for (int q = 0; q < kSh / 4; ++q) {
-        const float4 s4 = live ? __ldg(sh4 + q)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    for (int h = 0; h < 2; ++h) {
+      int row = it * 16 + g + 8 * h;
+      if (M.wc0) row = row < 16 ? row : (row == 16 ? -1 : row - 1);
+      if (row < 0 || row >= M.rows) continue;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float v = bf16_round(sv[k]);
-          put(S, L.rHC + 4 * q + k, t, v);
-          axpy64(h2, v, wc0 + (4 * q + k) * kColorWidth);
-        }
-      }
-#pragma unroll
-      for (int i = 1; i < kGeo; ++i) {
-        const float v = bf16_round(h1[i]);
-        put(S, L.rHC + kSh + i - 1, t, v);
-        axpy64(h2, v, wc0 + (kSh + i - 1) * kColorWidth);
-      }
-      uint64_t m2 = 0;
-#pragma unroll
-      for (int j = 0; j < kColorWidth; ++j) {
-        m2 |= (uint64_t)(h2[j] > 0.f) << j;
-        h2[j] = bf16_round(fmaxf(h2[j], 0.f));
-        put(S, L.rA2 + j, t, h2[j]);
-      }
-
-      // ---- h3 = relu(A2 @ wc1), one output at a time (K1's order)
-      uint64_t m3 = 0;
-#pragma unroll 2
-      for (int k = 0; k < kColorWidth; ++k) {
-        const float h3 = dot64(wc1t + k * kColorWidth, h2);
-        m3 |= (uint64_t)(h3 > 0.f) << k;
-        put(S, L.rA3 + k, t, bf16_round(fmaxf(h3, 0.f)));
-      }
-
-      // ---- head backward: dh3 = wc2·bf16(g_rgb) ⊙ mask, folded at once
-      // into dh2 += bf16(dh3_k)·wc1[:, k]
-      const float gr0 = bf16_round(gv.x), gr1 = bf16_round(gv.y),
-                  gr2 = bf16_round(gv.z);
-      put(S, L.rG + 0, t, gr0);
-      put(S, L.rG + 1, t, gr1);
-      put(S, L.rG + 2, t, gr2);
-      float dh2[kColorWidth];
-#pragma unroll
-      for (int j = 0; j < kColorWidth; ++j) dh2[j] = 0.f;
-#pragma unroll 2
-      for (int k = 0; k < kColorWidth; ++k) {
-        const float4 c = wc2[k];
-        float d = fmaf(c.z, gr2, fmaf(c.y, gr1, c.x * gr0));
-        d = ((m3 >> k) & 1) ? d : 0.f;
-        const float db = bf16_round(d);
-        put(S, L.rD3 + k, t, db);
-        axpy64(dh2, db, wc1t + k * kColorWidth);
-      }
-#pragma unroll
-      for (int i = 0; i < kColorWidth; ++i) {
-        dh2[i] = bf16_round(((m2 >> i) & 1) ? dh2[i] : 0.f);
-        put(S, L.rD2 + i, t, dh2[i]);
-      }
-
-      // ---- dhc = wc0·bf16(dh2): dsh = dhc[:16], dh1 = [g_σ, dhc[16:]]
-      float dh1[kGeo];
-      dh1[0] = bf16_round(gv.w);
-#pragma unroll
-      for (int q = 0; q < kSh / 4; ++q) {
-        float v[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          v[k] = dot64(wc0 + (4 * q + k) * kColorWidth, dh2);
-        if (dsh != nullptr && live)
-          reinterpret_cast<float4*>(dsh + (size_t)p * kSh)[q] =
-              make_float4(v[0], v[1], v[2], v[3]);
-      }
-#pragma unroll
-      for (int i = 1; i < kGeo; ++i)
-        dh1[i] = bf16_round(dot64(wc0 + (kSh + i - 1) * kColorWidth, dh2));
-#pragma unroll
-      for (int o = 0; o < kGeo; ++o) put(S, L.rD1 + o, t, dh1[o]);
-
-      // ---- dh0 = ws1·bf16(dh1) ⊙ mask
-#pragma unroll
-      for (int i = 0; i < kSigmaWidth; ++i) {
-        const float4* w4 = reinterpret_cast<const float4*>(ws1 + i * kGeo);
-        float d = 0.f;
-#pragma unroll
-        for (int q = 0; q < kGeo / 4; ++q) {
-          const float4 v = w4[q];
-          d = fmaf(v.x, dh1[4 * q + 0], d);
-          d = fmaf(v.y, dh1[4 * q + 1], d);
-          d = fmaf(v.z, dh1[4 * q + 2], d);
-          d = fmaf(v.w, dh1[4 * q + 3], d);
-        }
-        db0[i] = bf16_round(((m0 >> i) & 1) ? d : 0.f);
-        put(S, L.rD0 + i, t, db0[i]);
+      for (int e = 0; e < 2; ++e) {
+        const int col = (2 * np + j) * 8 + c + e;
+        if (col < M.cols) dw[M.off + row * M.cols + col] += acc[j][2 * h + e];
       }
     }
+  }
+}
 
-    __syncthreads();
+__device__ __forceinline__ float tap_val(int4 t, int r) {
+  return t.x == r ? __int_as_float(t.y)
+                  : (t.x + 1 == r ? __int_as_float(t.z) : 0.f);
+}
 
-    // ---- weight gradients: each thread owns fixed 4 × 4 output blocks and
-    // sums them over the tile's points; rows of a block are I/4 apart, so
-    // neighbouring threads read neighbouring rows (distinct banks)
-    for (int job = t; job < n_jobs; job += kT) {
-      int m = 0, jj = job;
-      while (jj >= (mats[m].I / 4) * (mats[m].O / 4)) {
-        jj -= (mats[m].I / 4) * (mats[m].O / 4);
-        ++m;
+// The A fragment of maskᵀ [rows ra … ra + 15 × the 16 points of tp]
+__device__ __forceinline__ void mask_frag(uint32_t a[4], const int4* tp,
+                                          int ra) {
+  const int c = 2 * (lane_id() & 3), rb = ra + 8;
+  const int4 t0 = tp[c], t1 = tp[c + 1], t8 = tp[c + 8], t9 = tp[c + 9];
+  a[0] = pack_bf16(tap_val(t0, ra), tap_val(t1, ra));
+  a[1] = pack_bf16(tap_val(t0, rb), tap_val(t1, rb));
+  a[2] = pack_bf16(tap_val(t8, ra), tap_val(t9, ra));
+  a[3] = pack_bf16(tap_val(t8, rb), tap_val(t9, rb));
+}
+
+template <bool kSigmaOnly>
+__global__ void __launch_bounds__(kBlock, 1)
+field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
+                 const float* __restrict__ g, const bf16* __restrict__ lines,
+                 const bf16* __restrict__ wpack, float* __restrict__ dx,
+                 float* __restrict__ dsh, float* __restrict__ scratch, int n,
+                 int r_max, int feat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WLayout W = weight_layout(feat, kSigmaOnly);
+  const BwdLayout B = bwd_layout(feat, kSigmaOnly);
+  bf16* S = reinterpret_cast<bf16*>(smem);
+  int4* taps = reinterpret_cast<int4*>(smem + B.taps_b);
+  int2* ranges = reinterpret_cast<int2*>(smem + B.range_b);
+  copy16(S, wpack, W.total);
+  // this block's row of the scratch buffer: its dlines slice [3, R_max, F]
+  // and its dW partial, both summed into, so zeroed here
+  const int n_dl = 3 * r_max * feat;
+  const int row = n_dl + dw_size(feat, kSigmaOnly);
+  float* slice = scratch + (size_t)blockIdx.x * row;
+  for (int i = threadIdx.x; i < row / 4; i += kBlock)
+    reinterpret_cast<float4*>(slice)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, l = lane_id(), gq = l >> 2, tig = l & 3;
+  const int kcs = feat_pad(feat) / 16, mts = (r_max + 15) / 16;
+  int n_units = 0;
+#pragma unroll
+  for (int m = 0; m < (kSigmaOnly ? 2 : 5); ++m) n_units += dw_units(m, feat);
+
+  const int tiles = (n + kTile - 1) / kTile;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p0 = tile * kTile + warp * 16;   // this warp's 16 points
+    const int r0 = warp * 16;                  // and their buffer rows
+
+    // ---- 1. forward recompute and head backward (registers → buffers)
+    {
+      LaneTaps t;
+      lane_taps(t, x, p0, n, r_max, feat);
+      float h1[2][4];
+      const uint32_t m0 = sigma_net<!kSigmaOnly, true>(
+          h1, t, lines, feat, feat, S, W, S + B.prod + r0 * B.ps, B.ps,
+          S + B.a0 + r0 * kS64);
+      float4 gv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + gq + 8 * h;
+        gv[h] = p < n ? reinterpret_cast<const float4*>(g)[p]
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      const Mat M = mats[m];
-      const int I4 = M.I / 4, O4 = M.O / 4;
-      const int ia = jj % I4, ob = jj / I4;
-      const __nv_bfloat162* ar[4];
-      const __nv_bfloat162* br[4];
+      uint32_t d1[1][4];
+      if (kSigmaOnly) {           // dh1 = [g_σ, 0…]
+        d1[0][0] = tig == 0 ? pack_bf16(gv[0].w, 0.f) : 0u;
+        d1[0][1] = tig == 0 ? pack_bf16(gv[1].w, 0.f) : 0u;
+        d1[0][2] = d1[0][3] = 0u;
+      } else {
+        uint32_t hc[2][4];
+        hc_frags(hc, h1, sh, p0, n);
+        st_a<2>(S + B.hc + r0 * kS32, kS32, hc);
+        float rgb[4];
+        uint32_t m2, m3;
+        color_net<false, true>(rgb, m2, m3, hc, S, W, S + B.hc + r0 * kS32,
+                               S + B.a2 + r0 * kS64, S + B.a3 + r0 * kS64);
+        // bf16(g_rgb) as the A fragment of an 8-deep step (columns 3–7 0)
+        uint32_t ga[2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ar[q] = reinterpret_cast<const __nv_bfloat162*>(
-            S + (M.a + ia + I4 * q) * kTP);
-        br[q] = reinterpret_cast<const __nv_bfloat162*>(
-            S + (M.b + ob + O4 * q) * kTP);
-      }
-      float c[16];
-#pragma unroll
-      for (int q = 0; q < 16; ++q) c[q] = 0.f;
-#pragma unroll 4
-      for (int pp = 0; pp < kT / 2; ++pp) {
-        float2 av[4], bv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          av[q] = __bfloat1622float2(ar[q][pp]);
-          bv[q] = __bfloat1622float2(br[q][pp]);
+        for (int h = 0; h < 2; ++h) {
+          ga[h] = tig == 0 ? pack_bf16(gv[h].x, gv[h].y)
+                           : (tig == 1 ? pack_bf16(gv[h].z, 0.f) : 0u);
+          *reinterpret_cast<uint32_t*>(S + B.g + (r0 + gq + 8 * h) * kS8
+                                       + 2 * tig) = ga[h];
         }
+        float c[8][4];
+        zero<8>(c);
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
+        for (int nt = 0; nt < 8; nt += 4) {   // wc2ᵀ: 4 n-tiles a load
+          uint32_t b[4];
+          ldm_x4(b, S + W.wc2 + ((nt + (l >> 3)) * 8 + (l & 7)) * kS8);
 #pragma unroll
-          for (int oo = 0; oo < 4; ++oo) {
-            c[4 * ii + oo] = fmaf(av[ii].x, bv[oo].x, c[4 * ii + oo]);
-            c[4 * ii + oo] = fmaf(av[ii].y, bv[oo].y, c[4 * ii + oo]);
+          for (int j = 0; j < 4; ++j) mma_bf16_k8(c[nt + j], ga, b[j]);
+        }
+        apply_mask<8>(c, m3);                      // dh3
+        uint32_t a[4][4];
+        c_to_a<8>(a, c);
+        st_a<4>(S + B.dh3 + r0 * kS64, kS64, a);
+        zero<8>(c);
+        mm_wt<4, 8>(c, a, S + W.wc1, kS64);
+        apply_mask<8>(c, m2);                      // dh2
+        c_to_a<8>(a, c);
+        st_a<4>(S + B.dh2 + r0 * kS64, kS64, a);
+        float dhc[4][4];
+        zero<4>(dhc);
+        mm_wt<4, 4>(dhc, a, S + W.wc0, kS64);
+        if (dsh != nullptr) {                      // dsh = dhc[:, :16]
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = p0 + gq + 8 * h;
+            if (p < n) {
+              float* d = dsh + (size_t)p * kSh + 2 * tig;
+              *reinterpret_cast<float2*>(d) =
+                  make_float2(dhc[0][2 * h], dhc[0][2 * h + 1]);
+              *reinterpret_cast<float2*>(d + 8) =
+                  make_float2(dhc[1][2 * h], dhc[1][2 * h + 1]);
+            }
           }
+        }
+        if (tig == 0) {           // column 16 (wc0's zero row) takes g_σ
+          dhc[2][0] = gv[0].w;
+          dhc[2][2] = gv[1].w;
+        }
+        d1[0][0] = pack_bf16(dhc[2][0], dhc[2][1]);
+        d1[0][1] = pack_bf16(dhc[2][2], dhc[2][3]);
+        d1[0][2] = pack_bf16(dhc[3][0], dhc[3][1]);
+        d1[0][3] = pack_bf16(dhc[3][2], dhc[3][3]);
       }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int oo = 0; oo < 4; ++oo)
-          acc[M.acc + (ia + I4 * ii) * M.O + ob + O4 * oo] += c[4 * ii + oo];
+      st_a<1>(S + B.dh1 + r0 * kS16, kS16, d1);
+      float c[8][4];
+      zero<8>(c);
+      mm_wt<1, 8>(c, d1, S + W.ws1, kS16);
+      apply_mask<8>(c, m0);                        // dh0
+      uint32_t a[4][4];
+      c_to_a<8>(a, c);
+      st_a<4>(S + B.dh0 + r0 * kS64, kS64, a);
     }
     __syncthreads();
 
-    // ---- encode backward, feature by feature: dprod_f = ws0[f]·bf16(dh0).
-    // Every thread takes its dh0 back from the tile buffer before the dfa
-    // rows overwrite it.
-#pragma unroll
-    for (int i = 0; i < kSigmaWidth; ++i)
-      db0[i] = __bfloat162float(S[(L.rD0 + i) * kTP + t]);
+    // ---- 2. weight gradients over the tile's points
+    for (int u = warp; u < n_units; u += kWarps) {
+      int m = 0, v = u;
+      while (v >= dw_units(m, feat)) v -= dw_units(m++, feat);
+      const DwMat M = dw_mat(m, B, feat);
+      const int pairs = (M.out_t + 1) / 2;
+      dw_unit(S, M, v / pairs, v % pairs, slice + n_dl);
+    }
     __syncthreads();
-    float dm0[3] = {0.f, 0.f, 0.f}, dm1[3] = {0.f, 0.f, 0.f};
-    for (int f = 0; f < feat; f += 4) {
-      float dp[4];
+
+    // ---- 3. encode backward (this warp's 16 points): dfa, du, dx; taps
+    {
+      uint32_t ad[4][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) dp[k] = dot64(ws0 + (f + k) * kSigmaWidth, db0);
-      float l0[3][4], l1[3][4], fa[3][4];
+      for (int kk = 0; kk < 4; ++kk)
+        ld_a(ad[kk], S + B.dh0 + r0 * kS64, kS64, kk);
+      CpTap ct[2][3];
+      float xa[2][3];
+      LaneTaps t;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + f)), l0[a]);
-        unpack4(__ldg(reinterpret_cast<const uint2*>(row0[a] + feat + f)), l1[a]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          fa[a][k] = fmaf(w1[a], l1[a][k], w0[a] * l0[a][k]);
-      }
-      float dfv[3][4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        dfv[0][k] = bf16_round((dp[k] * fa[1][k]) * fa[2][k]);
-        dfv[1][k] = bf16_round((dp[k] * fa[0][k]) * fa[2][k]);
-        dfv[2][k] = bf16_round((dp[k] * fa[0][k]) * fa[1][k]);
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + gq + 8 * h;
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          dm0[a] = fmaf(l0[a][k], dfv[a][k], dm0[a]);
-          dm1[a] = fmaf(l1[a][k], dfv[a][k], dm1[a]);
+          xa[h][a] = p < n ? x[3 * p + a] : 0.5f;
+          ct[h][a] = cp_tap(xa[h][a], r_max);
+          t.off[h][a] = (a * r_max + ct[h][a].i0) * feat;
+          t.w0[h][a] = ct[h][a].w0;
+          t.w1[h][a] = ct[h][a].w1;
         }
       }
+      float dm0[2][3], dm1[2][3];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {   // bf16 values already: exact
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(dfv[a][0], dfv[a][1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(dfv[a][2], dfv[a][3]);
-        uint2 raw;
-        raw.x = *reinterpret_cast<const unsigned*>(&lo);
-        raw.y = *reinterpret_cast<const unsigned*>(&hi);
-        *reinterpret_cast<uint2*>(dfa + t * L.dfs + a * feat + f) = raw;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) dm0[h][a] = dm1[h][a] = 0.f;
+      for (int kc = 0; kc < kcs; ++kc) {
+        float c[2][4];
+        zero<2>(c);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {       // dprod, 16 features
+          uint32_t b[4];
+          ldb_wt(b, S + W.ws0, kS64, kk, 2 * kc);
+          mma_bf16(c[0], ad[kk], b[0], b[1]);
+          mma_bf16(c[1], ad[kk], b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int f = kc * 16 + j * 8 + 2 * tig;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t d[3] = {0u, 0u, 0u};
+            if (f < feat) {
+              float l0[3][2], l1[3][2], fa[3][2];
+#pragma unroll
+              for (int a = 0; a < 3; ++a) {
+                const bf16* r = lines + t.off[h][a] + f;
+                const float2 v0 = ld_bf2(r), v1 = ld_bf2(r + feat);
+                l0[a][0] = v0.x; l0[a][1] = v0.y;
+                l1[a][0] = v1.x; l1[a][1] = v1.y;
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  fa[a][e] = fmaf(t.w1[h][a], l1[a][e], t.w0[h][a] * l0[a][e]);
+              }
+              float dv[3][2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float dp = c[j][2 * h + e];
+                dv[0][e] = bf16_round((dp * fa[1][e]) * fa[2][e]);
+                dv[1][e] = bf16_round((dp * fa[0][e]) * fa[2][e]);
+                dv[2][e] = bf16_round((dp * fa[0][e]) * fa[1][e]);
+#pragma unroll
+                for (int a = 0; a < 3; ++a) {
+                  dm0[h][a] = fmaf(l0[a][e], dv[a][e], dm0[h][a]);
+                  dm1[h][a] = fmaf(l1[a][e], dv[a][e], dm1[h][a]);
+                }
+              }
+#pragma unroll
+              for (int a = 0; a < 3; ++a) d[a] = pack_bf16(dv[a][0], dv[a][1]);
+            }
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+              *reinterpret_cast<uint32_t*>(
+                  S + B.dfa + (a * kTile + r0 + gq + 8 * h) * B.ps
+                  + kc * 16 + j * 8 + 2 * tig) = d[a];
+          }
+        }
       }
-    }
-    if (dx != nullptr && live) {
+      // each point's sums over its features: the quad's four lanes
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          dm0[h][a] += __shfl_xor_sync(0xffffffffu, dm0[h][a], 1);
+          dm0[h][a] += __shfl_xor_sync(0xffffffffu, dm0[h][a], 2);
+          dm1[h][a] += __shfl_xor_sync(0xffffffffu, dm1[h][a], 1);
+          dm1[h][a] += __shfl_xor_sync(0xffffffffu, dm1[h][a], 2);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + gq + 8 * h;
+        const bool live = p < n;
+        if (dx != nullptr && live && tig == h) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float du = dm0[h][a] * tie_sign(ct[h][a].d0)
+                             + dm1[h][a] * tie_sign(ct[h][a].d1);
+            const bool in01 = xa[h][a] > 0.f && xa[h][a] < 1.f;
+            dx[3 * p + a] = du * (in01 ? (float)(r_max - 1) : 0.f);
+          }
+        }
+        if (tig == 0) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            taps[a * kTile + r0 + gq + 8 * h] =
+                make_int4(live ? ct[h][a].i0 : kNoTap,
+                          __float_as_int(ct[h][a].w0),
+                          __float_as_int(ct[h][a].w1), 0);
+        }
+      }
+      // the rows this warp's points touch, per axis (a range: the skip
+      // test of phase 4)
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
-        const float du = dm0[a] * s0[a] + dm1[a] * s1[a];
-        const bool in01 = xa[a] > 0.f && xa[a] < 1.f;
-        dx[3 * p + a] = du * (in01 ? (float)(r_max - 1) : 0.f);
+        int lo = 0x7fffffff, hi = -0x7fffffff;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (p0 + gq + 8 * h < n) {
+            lo = min(lo, ct[h][a].i0);
+            hi = max(hi, ct[h][a].i0 + 1);
+          }
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        if (l == 0) ranges[a * kWarps + warp] = make_int2(lo, hi);
       }
     }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      wt[(2 * a) * kT + t] = w0[a];
-      wt[(2 * a + 1) * kT + t] = w1[a];
-      keys[a * kC + t] = live ? ((unsigned)i0[a] << 8) | t : kNoRow;
-      keys[a * kC + kT + t] = live ? ((unsigned)(i0[a] + 1) << 8) | kT | t
-                                   : kNoRow;
-    }
     __syncthreads();
-    flush_dlines(keys, heads, nseg, wt, dfa, L.dfs, slice, r_max, feat);
-    __syncthreads();
-  }
 
-  // ---- this block's dW partial → its scratch row, once
-  float* dw = slice + n_dl;
-  for (int m = 0; m < n_mats; ++m) {
-    const Mat M = mats[m];
-    for (int e = t; e < M.I * M.O; e += kT) {
-      const int i = e / M.O, o = e % M.O;
-      if (i < M.I_real && o < M.O_real)
-        dw[M.out + i * M.O_real + o] = acc[M.acc + e];
+    // ---- 4. dlines += maskᵀ · dfa, per axis and 16 rows
+    for (int u = warp; u < 3 * mts; u += kWarps) {
+      const int a = u / mts, rlo = (u % mts) * 16;
+      unsigned ks_mask = 0;
+#pragma unroll
+      for (int ks = 0; ks < kWarps; ++ks) {
+        const int2 rg = ranges[a * kWarps + ks];
+        if (rg.x <= rlo + 15 && rg.y >= rlo) ks_mask |= 1u << ks;
+      }
+      if (ks_mask == 0) continue;
+      const int4* tp = taps + a * kTile;
+      const bf16* dfa = S + B.dfa + a * kTile * B.ps;
+      float* dl = slice + (size_t)a * r_max * feat;
+      const int ra = rlo + gq, rb = ra + 8;
+      for (int nb = 0; nb < 2 * kcs; nb += kNG) {
+        float c[kNG][4];
+        zero<kNG>(c);
+        for (int ks = 0; ks < kWarps; ++ks) {
+          if (!((ks_mask >> ks) & 1u)) continue;
+          uint32_t am[4];
+          mask_frag(am, tp + ks * 16, ra);
+#pragma unroll
+          for (int j = 0; j < kNG; j += 2) {
+            if (nb + j < 2 * kcs) {
+              uint32_t b[4];
+              ldb_w(b, dfa, B.ps, ks, nb + j);
+              mma_bf16(c[j], am, b[0], b[1]);
+              mma_bf16(c[j + 1], am, b[2], b[3]);
+            }
+          }
+        }
+        float2 old[kNG][2];
+#pragma unroll
+        for (int j = 0; j < kNG; ++j) {
+          const int f = (nb + j) * 8 + 2 * tig;
+          const bool ok = nb + j < 2 * kcs && f < feat;
+          old[j][0] = ok && ra < r_max
+                          ? *reinterpret_cast<const float2*>(dl + ra * feat + f)
+                          : make_float2(0.f, 0.f);
+          old[j][1] = ok && rb < r_max
+                          ? *reinterpret_cast<const float2*>(dl + rb * feat + f)
+                          : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < kNG; ++j) {
+          const int f = (nb + j) * 8 + 2 * tig;
+          if (nb + j < 2 * kcs && f < feat) {
+            if (ra < r_max)
+              *reinterpret_cast<float2*>(dl + ra * feat + f) =
+                  make_float2(old[j][0].x + c[j][0], old[j][0].y + c[j][1]);
+            if (rb < r_max)
+              *reinterpret_cast<float2*>(dl + rb * feat + f) =
+                  make_float2(old[j][1].x + c[j][2], old[j][1].y + c[j][3]);
+          }
+        }
+      }
     }
+    __syncthreads();
   }
 }
 
@@ -621,39 +548,44 @@ field_bwd_reduce(const float4* __restrict__ src, float4* __restrict__ dst,
   dst[i] = s;
 }
 
+template <bool kSigmaOnly>
+const void* bwd_fn() {
+  return (const void*)field_bwd_kernel<kSigmaOnly>;
+}
+
 // The persistent grid for n points: every SM full, no more blocks than
 // tiles, at least one. Depends on n, the SM count and the occupancy only.
-template <bool kSigmaOnly>
-int bwd_grid(int n, int feat) {
-  const size_t smem = smem_bytes(make_layout(feat, kSigmaOnly));
+int bwd_grid(int n, int feat, bool sigma_only) {
+  const void* fn = sigma_only ? bwd_fn<true>() : bwd_fn<false>();
+  const size_t smem = bwd_layout(feat, sigma_only).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      field_bwd_kernel<kSigmaOnly>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, field_bwd_kernel<kSigmaOnly>, kT, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock,
+                                                      smem);
   if (err != cudaSuccess) return -(int)err;
-  const int tiles = (n + kT - 1) / kT;
-  const int cap = sm_count() * (per_sm > 0 ? per_sm : 1);
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  const int tiles = (n + kTile - 1) / kTile;
+  const int cap = sm_count() * per_sm;
   return tiles < 1 ? 1 : (tiles < cap ? tiles : cap);
 }
 
 template <bool kSigmaOnly>
 int launch_bwd(const float* x, const float* sh, const float* g,
-               const __nv_bfloat16* lines, const float* wpack, float* dx,
-               float* dsh, float* scratch, float* out, int n, int r_max,
-               int feat, int grid, cudaStream_t stream) {
+               const bf16* lines, const bf16* wpack, float* dx, float* dsh,
+               float* scratch, float* out, int n, int r_max, int feat,
+               int grid, cudaStream_t stream) {
   const int row = 3 * r_max * feat + dw_size(feat, kSigmaOnly);
   if (n == 0)
     return (int)cudaMemsetAsync(out, 0, (size_t)row * sizeof(float), stream);
   if (grid < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(make_layout(feat, kSigmaOnly));
+  const size_t smem = bwd_layout(feat, kSigmaOnly).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       field_bwd_kernel<kSigmaOnly>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_kernel<kSigmaOnly><<<grid, kT, smem, stream>>>(
+  field_bwd_kernel<kSigmaOnly><<<grid, kBlock, smem, stream>>>(
       x, sh, g, lines, wpack, dx, dsh, scratch, n, r_max, feat);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -669,18 +601,18 @@ int launch_bwd(const float* x, const float* sh, const float* g,
 // The number of persistent blocks K4 (K5 when sigma_only) runs for n points,
 // the first dimension of its scratch buffer; negative: -cudaError_t.
 extern "C" int gbnerf_field_fused_bwd_grid(int n, int feat, int sigma_only) {
-  return sigma_only ? bwd_grid<true>(n, feat) : bwd_grid<false>(n, feat);
+  return bwd_grid(n, feat, sigma_only != 0);
 }
 
 // x [n,3] f32, sh [n,16] f32 (unused when sigma_only), g [n,4] f32 (16-byte
-// aligned), lines [3,r_max,feat] bf16, wpack the packed bf16-rounded f32
-// weights (ops/field_fused.py::pack_weights). Outputs: dx [n,3] and dsh
-// [n,16] (each may be null: not stored), and out = dlines [3,r_max,feat] f32
-// followed by dw (the five weight gradients, Dense [in,out], one after the
-// other) f32, written whole. scratch: [grid, 3·r_max·feat + |dw|] f32,
-// uninitialised; grid: gbnerf_field_fused_bwd_grid(n, feat, sigma_only)
-// (any grid ≥ 1 gives a right result; the sums' order follows the grid).
-// feat % 4 == 0. Returns the cudaError_t of the launches (0 = success).
+// aligned), lines [3,r_max,feat] bf16, wpack the packed bf16 weights
+// (ops/field_fused.py::pack_weights). Outputs: dx [n,3] and dsh [n,16] (each
+// may be null: not stored), and out = dlines [3,r_max,feat] f32 followed by
+// dw (the five weight gradients, Dense [in,out], one after the other) f32,
+// written whole. scratch: [grid, 3·r_max·feat + |dw|] f32, uninitialised;
+// grid: gbnerf_field_fused_bwd_grid(n, feat, sigma_only) (any grid ≥ 1
+// gives a right result; the sums' order follows the grid). feat % 4 == 0.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int gbnerf_field_fused_bwd(const void* x, const void* sh,
                                       const void* g, const void* lines,
                                       const void* wpack, void* dx, void* dsh,
@@ -690,8 +622,8 @@ extern "C" int gbnerf_field_fused_bwd(const void* x, const void* sh,
   const auto* xl = static_cast<const float*>(x);
   const auto* sl = static_cast<const float*>(sh);
   const auto* gl = static_cast<const float*>(g);
-  const auto* ll = static_cast<const __nv_bfloat16*>(lines);
-  const auto* wl = static_cast<const float*>(wpack);
+  const auto* ll = static_cast<const bf16*>(lines);
+  const auto* wl = static_cast<const bf16*>(wpack);
   auto* dxl = static_cast<float*>(dx);
   auto* dsl = static_cast<float*>(dsh);
   auto* scl = static_cast<float*>(scratch);
@@ -702,4 +634,26 @@ extern "C" int gbnerf_field_fused_bwd(const void* x, const void* sh,
                                 r_max, feat, grid, st)
              : launch_bwd<false>(xl, sl, gl, ll, wl, dxl, dsl, scl, ol, n,
                                  r_max, feat, grid, st);
+}
+
+// Registers, local (spill) bytes a thread, dynamic shared memory and blocks
+// an SM of K4 (K5 when sigma_only) at this feature width → info[4].
+extern "C" int gbnerf_field_fused_bwd_info(int feat, int sigma_only,
+                                           int* info) {
+  const void* fn = sigma_only ? bwd_fn<true>() : bwd_fn<false>();
+  const size_t smem = bwd_layout(feat, sigma_only != 0).bytes;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock,
+                                                        smem);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  return (int)err;
 }

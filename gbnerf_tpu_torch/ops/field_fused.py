@@ -12,12 +12,17 @@ bf16 and accumulated in f32. It is differentiable in every operand.
   non-TPU path). The CPU tests hold both against the JAX package.
 - On a CUDA tensor the forward launches csrc/field_fused.cu (K1, or K2
   when ``sigma_only``) and the backward launches csrc/field_fused_bwd.cu
-  (K4, or K5 when ``sigma_only``), which recomputes the forward per point
-  and emits all the cotangents in one pass, as the TPU kernel does. Its
-  sums run in an order fixed by the inputs (per-block partials in a
-  scratch buffer, summed in block order by a second kernel), so the same
-  inputs give bit-equal cotangents on every call. Anything the kernels do
-  not take raises. There is no fallback.
+  (K4, or K5 when ``sigma_only``), which recomputes the forward and emits
+  all the cotangents in one pass, as the TPU kernel does. Both run the
+  heads on the tensor cores (csrc/field_tile.cuh); the backward's sums run
+  in an order fixed by the inputs (per-block partials in a scratch buffer,
+  summed in block order by a second kernel), so the same inputs give
+  bit-equal cotangents on every call. Anything the kernels do not take
+  raises. There is no fallback.
+- ``field_tiled_plain`` and ``field_bwd_tiled_plain`` are the kernels'
+  algorithms in plain PyTorch (2-tap encode, the packed colour input, dW
+  and dlines summed per tile, per block and in block order, dlines as the
+  dense bf16 triangle-mask contraction), for the CPU tests.
 
 On the layout: the TPU kernels work in [features, points], a Mosaic layout
 choice; the port keeps the public [points, features] layout throughout.
@@ -36,6 +41,12 @@ from .cp_pallas import check_points_and_lines, encode_plain
 # Ws dict keys, Dense-style [in, out] orientation (as in the JAX package).
 W_KEYS = ("ws0", "ws1", "wc0", "wc1", "wc2")
 SIGMA_WIDTH, GEO, SH_DIM, COLOR_WIDTH = 64, 16, 16, 64
+# The widest F the kernels take: K4's tile buffers and weights fill a
+# block's shared memory there (cp_rank 32 × 5 levels).
+MAX_FEAT = 160
+# Points a tile of K4/K5 (8 warps × 16), and the blocks
+# field_bwd_tiled_plain sums over by default
+BWD_TILE, PLAIN_GRID = 128, 4
 
 # Launches of each kernel since the last reset: chip_smoke.py zeroes them
 # before the main path and reads them after, to show that it ran here.
@@ -221,6 +232,9 @@ def check_field_args(x01, sh, ulines, Ws, *, sigma_only: bool) -> None:
         raise ValueError("cp_field_fused: operands lie on different devices")
     check_points_and_lines("cp_field_fused", x01, ulines)
     n, feat = x01.shape[0], ulines.shape[2]
+    if feat > MAX_FEAT:
+        raise ValueError(f"cp_field_fused: F = {feat} exceeds the kernels' "
+                         f"{MAX_FEAT} (their shared memory)")
     shapes = weight_shapes(feat, sigma_only=sigma_only)
     for k in shapes:
         if tuple(Ws[k].shape) != shapes[k]:
@@ -235,26 +249,71 @@ def check_field_args(x01, sh, ulines, Ws, *, sigma_only: bool) -> None:
                              "16-byte aligned (the kernel reads float4s)")
 
 
+def _row_stride(cols: int) -> int:
+    """csrc/mma_common.cuh::row_stride: an odd number of 16-byte chunks."""
+    return ((cols // 8) | 1) * 8
+
+
+def weight_layout(feat: int, *, sigma_only: bool) -> Dict[str, tuple]:
+    """csrc/field_tile.cuh::weight_layout: {key: (offset, rows, stride)} of
+    the packed bf16 weights, and "total". ws0 [Fp][72] (Fp = F rounded up
+    to 16), ws1 [64][24], wc0 [32][72] (rows SH 0–15, a zero row, geo
+    1–15), wc1 [64][72], wc2 [64][8]; σ-only stops after ws1."""
+    fp = -(-feat // 16) * 16
+    rows = {"ws0": fp, "ws1": SIGMA_WIDTH, "wc0": 32, "wc1": COLOR_WIDTH,
+            "wc2": COLOR_WIDTH}
+    cols = {"ws0": SIGMA_WIDTH, "ws1": GEO, "wc0": COLOR_WIDTH,
+            "wc1": COLOR_WIDTH, "wc2": 8}
+    out, off = {}, 0
+    for k in W_KEYS[:2 if sigma_only else 5]:
+        out[k] = (off, rows[k], _row_stride(cols[k]))
+        off += rows[k] * _row_stride(cols[k])
+    out["total"] = off
+    return out
+
+
 def pack_weights(Ws: Dict[str, torch.Tensor], *, sigma_only: bool
                  ) -> torch.Tensor:
-    """The kernel's weight buffer: bf16-rounded f32, rows of 4-float units.
+    """The kernels' weight buffer (csrc/field_tile.cuh): bf16, each weight
+    row-major [in][out] with padded rows (``weight_layout``), every padding
+    entry zero. wc0's rows go SH (0–15), a zero row, geo (17–31): the
+    kernels multiply it with h1 as it stands, σ column zeroed."""
+    feat = Ws["ws0"].shape[0]
+    lay = weight_layout(feat, sigma_only=sigma_only)
+    buf = torch.zeros(lay["total"], dtype=torch.bfloat16,
+                      device=Ws["ws0"].device)
+    for k in W_KEYS[:2 if sigma_only else 5]:
+        off, rows, stride = lay[k]
+        view = buf[off:off + rows * stride].view(rows, stride)
+        w = Ws[k].detach().to(torch.bfloat16)
+        if k == "wc0":
+            view[:SH_DIM, :COLOR_WIDTH] = w[:SH_DIM]
+            view[SH_DIM + 1:, :COLOR_WIDTH] = w[SH_DIM:]
+        else:
+            view[:w.shape[0], :w.shape[1]] = w
+    return buf
 
-    ws0 [F][64] | ws1 [64][16] | wc0 [31][64] | wc1ᵀ [64 out][64 in] |
-    wc2 [64][4] (column 3 zero); sigma_only stops after ws1.
-    """
-    parts = [_bf16(Ws["ws0"]), _bf16(Ws["ws1"])]
-    if not sigma_only:
-        parts += [_bf16(Ws["wc0"]), _bf16(Ws["wc1"]).t(),
-                  torch.nn.functional.pad(_bf16(Ws["wc2"]), (0, 1))]
-    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+
+def unpack_weights(buf: torch.Tensor, feat: int, *, sigma_only: bool
+                   ) -> Dict[str, torch.Tensor]:
+    """pack_weights' inverse: {key: bf16-rounded weight as f32}."""
+    lay = weight_layout(feat, sigma_only=sigma_only)
+    out = {}
+    for k, (a, b) in weight_shapes(feat, sigma_only=sigma_only).items():
+        off, rows, stride = lay[k]
+        view = buf[off:off + rows * stride].view(rows, stride).float()
+        if k == "wc0":
+            out[k] = torch.cat([view[:SH_DIM, :b], view[SH_DIM + 1:, :b]])
+        else:
+            out[k] = view[:a, :b].clone()
+    return out
 
 
 def _launch(x01, sh, ulines, Ws, *, sigma_only: bool) -> torch.Tensor:
     check_field_args(x01, sh, ulines, Ws, sigma_only=sigma_only)
     n, r_max, feat = x01.shape[0], ulines.shape[1], ulines.shape[2]
     lines = ulines.detach().to(torch.bfloat16).contiguous()
-    wpack = pack_weights({k: w.detach() for k, w in Ws.items()
-                          if w is not None}, sigma_only=sigma_only)
+    wpack = pack_weights(Ws, sigma_only=sigma_only)
     out = torch.empty((n, 4), dtype=torch.float32, device=x01.device)
     fn = kernel_function("gbnerf_field_fused", [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -308,8 +367,7 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
     if g.data_ptr() % 16:     # the kernel reads float4s
         g = g.clone()
     lines = ulines.detach().to(torch.bfloat16).contiguous()
-    wpack = pack_weights({k: w.detach() for k, w in Ws.items()
-                          if w is not None}, sigma_only=sigma_only)
+    wpack = pack_weights(Ws, sigma_only=sigma_only)
     shapes = weight_shapes(feat, sigma_only=sigma_only)
     n_dl = 3 * r_max * feat
     row = n_dl + sum(a * b for a, b in shapes.values())
@@ -341,4 +399,175 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
     for k, (a, b) in shapes.items():
         dWs[k] = dw[off:off + a * b].view(a, b)
         off += a * b
+    return dx, dsh, dlines, dWs
+
+
+def kernel_info(*, backward: bool, sigma_only: bool, r_max: int, feat: int
+                ) -> Dict[str, int]:
+    """Registers and local (spill) bytes a thread, dynamic shared memory a
+    block and blocks an SM of K1/K2 (K4/K5 when ``backward``) at this
+    shape, from the CUDA runtime (cudaFuncGetAttributes and the occupancy
+    query) on the current card."""
+    info = (ctypes.c_int * 4)()
+    if backward:
+        fn = kernel_function("gbnerf_field_fused_bwd_info",
+                             [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        err = fn(feat, int(sigma_only), ctypes.addressof(info))
+    else:
+        fn = kernel_function("gbnerf_field_fused_info",
+                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"field kernel info: CUDA error {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm"), list(info)))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' algorithms in plain PyTorch (the CPU tests' mirror of
+# csrc/field_tile.cuh, field_fused.cu and field_fused_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _taps(x01: torch.Tensor, r_max: int):
+    """field_common.cuh::cp_tap for every point and axis: i0 [N, 3] int64,
+    the signed distances d0, d1 and the bf16 tap weights w0, w1 [N, 3]."""
+    u = x01.clamp(0.0, 1.0) * (r_max - 1)
+    i0 = torch.clamp(torch.floor(u), max=r_max - 2)
+    d0, d1 = i0 - u, i0 + 1.0 - u
+    return (i0.long(), d0, d1, _bf16(1.0 - d0.abs()), _bf16(1.0 - d1.abs()))
+
+
+def _tie_sign(d: torch.Tensor) -> torch.Tensor:
+    """field_common.cuh::tie_sign: sign(d)·[|d| < 1], 0 at d = 0."""
+    return torch.sign(d) * (d.abs() < 1.0).float()
+
+
+def _lerps(x01, ulines):
+    """The 2-tap lerps fa [3, N, F], the tap rows l0, l1 [3, N, F] (bf16
+    values) and the taps, as the kernels gather them."""
+    r_max = ulines.shape[1]
+    lines = _bf16(ulines)
+    i0, d0, d1, w0, w1 = _taps(x01.float(), r_max)
+    l0 = torch.stack([lines[a][i0[:, a]] for a in range(3)])
+    l1 = torch.stack([lines[a][i0[:, a] + 1] for a in range(3)])
+    fa = torch.addcmul(w0.t()[..., None] * l0, w1.t()[..., None], l1)
+    return fa, l0, l1, (i0, d0, d1, w0, w1)
+
+
+def _wc0_packed(wc0: torch.Tensor) -> torch.Tensor:
+    """wc0 as the kernels pack it: rows SH, a zero row, geo (32 × 64)."""
+    zero = torch.zeros_like(wc0[:1])
+    return torch.cat([wc0[:SH_DIM], zero, wc0[SH_DIM:]])
+
+
+def _heads_tiled(prod, sh, Ws, sigma_only):
+    """The kernels' head chain: every product's operands bf16, sums f32,
+    relu masks kept. hc is [SH, 0, h1[1:]] against the packed wc0."""
+    dot = lambda a, w: _bf16(a) @ _bf16(w)            # noqa: E731
+    h0 = dot(prod, Ws["ws0"])
+    m0 = h0 > 0
+    a0 = torch.relu(h0)
+    h1 = dot(a0, Ws["ws1"])
+    acts = {"prod": _bf16(prod), "a0": _bf16(a0), "m0": m0, "h1": h1}
+    if sigma_only:
+        return acts
+    hc = torch.cat([sh.float(), torch.zeros_like(h1[:, :1]), h1[:, 1:]], 1)
+    h2 = dot(hc, _wc0_packed(Ws["wc0"]))
+    a2 = torch.relu(h2)
+    h3 = dot(a2, Ws["wc1"])
+    a3 = torch.relu(h3)
+    acts.update(hc=_bf16(hc), a2=_bf16(a2), m2=h2 > 0, a3=_bf16(a3),
+                m3=h3 > 0, rgb=dot(a3, Ws["wc2"]))
+    return acts
+
+
+def field_tiled_plain(x01, sh, ulines, Ws, *, sigma_only: bool = False):
+    """K1/K2's algorithm in plain PyTorch: the 2-tap encode straight into
+    bf16(enc), the head chain of csrc/field_tile.cuh. Returns raw [N, 4]."""
+    fa, _, _, _ = _lerps(x01, ulines)
+    acts = _heads_tiled((fa[0] * fa[1]) * fa[2], sh, Ws, sigma_only)
+    sigma = acts["h1"][:, :1]
+    rgb = (torch.zeros_like(sigma).expand(-1, 3) if sigma_only
+           else acts["rgb"])
+    return torch.cat([rgb, sigma], dim=1)
+
+
+def _block_sums(parts, grid: int):
+    """Σ over tiles as K4/K5 take it: tile t's part into block t % grid's
+    running sum (in tile order), then the blocks' sums in block order."""
+    blocks = [None] * grid
+    for t, part in enumerate(parts):
+        b = t % grid
+        blocks[b] = part.clone() if blocks[b] is None else blocks[b] + part
+    total = None
+    for s in blocks:
+        if s is not None:
+            total = s if total is None else total + s
+    return total
+
+
+def field_bwd_tiled_plain(x01, sh, ulines, Ws, g, *, sigma_only: bool,
+                          grid: int = PLAIN_GRID, tile: int = BWD_TILE):
+    """K4/K5's algorithm in plain PyTorch: every cotangent of
+    ``field_tiled_plain`` for the output cotangent g [N, 4].
+
+    The head backward with bf16 operands and f32 sums (dh1 = [g_σ,
+    dhc[16:]]); dW = Σ actᵀ·cot per tile of ``tile`` points, summed per
+    block (tile t to block t % grid) and in block order; dlines per tile
+    as the dense contraction maskᵀ [R_max, tile] · dfa [tile, F] of the
+    bf16 triangle mask with bf16 dfa, summed the same way; du from the
+    tap rows, dx = du·(R_max − 1)·[0 < x < 1]. Returns what
+    ``field_bwd_plain`` returns.
+    """
+    x = x01.float()
+    n, r_max, feat = x.shape[0], ulines.shape[1], ulines.shape[2]
+    fa, l0, l1, (i0, d0, d1, w0, w1) = _lerps(x, ulines)
+    acts = _heads_tiled((fa[0] * fa[1]) * fa[2], sh, Ws, sigma_only)
+    dot = lambda a, w: _bf16(a) @ _bf16(w)            # noqa: E731
+    g = g.float()
+    cots = {}
+    if sigma_only:
+        dh1 = torch.cat([g[:, 3:], torch.zeros_like(g[:, :1]).expand(-1, 15)],
+                        1)
+        dsh = None
+    else:
+        grgb = g[:, :3]
+        dh3 = torch.where(acts["m3"], dot(grgb, Ws["wc2"].t()), 0.0)
+        dh2 = torch.where(acts["m2"], dot(dh3, Ws["wc1"].t()), 0.0)
+        dhc = dot(dh2, _wc0_packed(Ws["wc0"]).t())           # [N, 32]
+        dsh = dhc[:, :SH_DIM]
+        dh1 = torch.cat([g[:, 3:], dhc[:, SH_DIM + 1:]], 1)
+        cots.update(g=_bf16(grgb), dh3=_bf16(dh3), dh2=_bf16(dh2))
+    dh0 = torch.where(acts["m0"], dot(dh1, Ws["ws1"].t()), 0.0)
+    cots.update(dh1=_bf16(dh1), dh0=_bf16(dh0))
+    dprod = dot(dh0, Ws["ws0"].t())                          # [N, F]
+    others = ((1, 2), (0, 2), (0, 1))
+    dfa = torch.stack([_bf16((dprod * fa[b]) * fa[c]) for b, c in others])
+    du = ((l0 * dfa).sum(-1) * _tie_sign(d0).t()
+          + (l1 * dfa).sum(-1) * _tie_sign(d1).t()).t()     # [N, 3]
+    in01 = (x > 0.0) & (x < 1.0)
+    dx = du * torch.where(in01, float(r_max - 1), 0.0)
+
+    pairs = [("ws0", "prod", "dh0"), ("ws1", "a0", "dh1")]
+    if not sigma_only:
+        pairs += [("wc0", "hc", "dh2"), ("wc1", "a2", "dh3"),
+                  ("wc2", "a3", "g")]
+    rows = torch.arange(r_max, device=x.device)
+    dw_parts, dl_parts = [], []
+    for t0 in range(0, n, tile):
+        sl = slice(t0, min(n, t0 + tile))
+        dw_parts.append([acts[a][sl].t() @ cots[c][sl] for _, a, c in pairs])
+        masks = [(rows[:, None] == i0[sl, a]) * w0[sl, a]
+                 + (rows[:, None] == i0[sl, a] + 1) * w1[sl, a]
+                 for a in range(3)]                          # [R, tile]
+        dl_parts.append(torch.stack([masks[a] @ dfa[a, sl]
+                                     for a in range(3)]))
+    dWs = {}
+    for j, (k, _, _) in enumerate(pairs):
+        s = _block_sums([p[j] for p in dw_parts], grid)
+        if k == "wc0":            # the packed zero row 16 carries no weight
+            s = torch.cat([s[:SH_DIM], s[SH_DIM + 1:]])
+        dWs[k] = s
+    dlines = _block_sums(dl_parts, grid)
     return dx, dsh, dlines, dWs

@@ -128,26 +128,78 @@ def test_heads_apply_matches_jax(rng):
     _close(got.numpy(), ref, "raw")
 
 
-def test_pack_weights_layout(rng):
-    _, _, _, Ws = _mats(rng, 4, 33, 24)
+@pytest.mark.parametrize("feat", [24, 80])
+def test_pack_weights_layout(rng, feat):
+    """The kernels' bf16 weight buffer: unpack(pack(W)) == bf16(W), each
+    weight where csrc/field_tile.cuh::weight_layout puts it, every padding
+    entry (wc0's row 16 included) zero."""
+    _, _, _, Ws = _mats(rng, 4, 33, feat)
     W = {k: torch.from_numpy(v) for k, v in Ws.items()}
-    full = tff.pack_weights(W, sigma_only=False)
-    sig = tff.pack_weights(W, sigma_only=True)
-    assert full.numel() == 24 * 64 + 7360 and sig.numel() == 24 * 64 + 1024
-    assert full.numel() % 4 == 0 and full.dtype == torch.float32
     b = lambda t: t.to(torch.bfloat16).float()   # noqa: E731
-    off = 24 * 64 + 64 * 16 + 31 * 64
-    np.testing.assert_array_equal(full[:24 * 64].numpy(),
-                                  b(W["ws0"]).reshape(-1).numpy())
-    np.testing.assert_array_equal(
-        full[off:off + 4096].reshape(64, 64).numpy(), b(W["wc1"]).t().numpy())
-    wc2 = full[off + 4096:].reshape(64, 4).numpy()
-    np.testing.assert_array_equal(wc2[:, :3], b(W["wc2"]).numpy())
-    assert np.all(wc2[:, 3] == 0.0)
+    for sigma_only in (False, True):
+        buf = tff.pack_weights(W, sigma_only=sigma_only)
+        lay = tff.weight_layout(feat, sigma_only=sigma_only)
+        fp = -(-feat // 16) * 16
+        assert buf.dtype == torch.bfloat16 and buf.numel() == lay["total"]
+        assert lay["total"] == fp * 72 + 64 * 24 + (
+            0 if sigma_only else 32 * 72 + 64 * 72 + 64 * 8)
+        assert lay["total"] % 8 == 0       # 16-byte copies
+        got = tff.unpack_weights(buf, feat, sigma_only=sigma_only)
+        assert list(got) == list(tff.weight_shapes(feat,
+                                                   sigma_only=sigma_only))
+        for k, v in got.items():
+            np.testing.assert_array_equal(v.numpy(), b(W[k]).numpy())
+        # the padding: zero everywhere the weights are not
+        mask = torch.zeros(lay["total"], dtype=torch.bool)
+        for k, (a, c) in tff.weight_shapes(feat,
+                                           sigma_only=sigma_only).items():
+            off, rows, stride = lay[k]
+            view = mask[off:off + rows * stride].view(rows, stride)
+            if k == "wc0":
+                view[:16, :c] = True
+                view[17:, :c] = True
+            else:
+                view[:a, :c] = True
+        assert bool((buf.float()[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("r_max,feat,n", [(17, 16, 300), (33, 80, 300),
+                                          (257, 80, 300)])
+def test_field_tiled_plain_matches_jax(rng, monkeypatch, r_max, feat, n,
+                                       sigma_only):
+    """K1/K2's algorithm in plain PyTorch (the 2-tap encode, the packed
+    colour input) against the JAX Pallas kernels in interpret mode and the
+    JAX oracle; and against the port's plain version, which rounds at the
+    same places."""
+    x01, sh, ulines, Ws = _mats(rng, n, r_max, feat)
+    monkeypatch.setattr(jff, "INTERPRET", True)
+    monkeypatch.setattr(jff, "TILE", 256)
+    jW = {k: jnp.asarray(v) for k, v in Ws.items()}
+    if sigma_only:
+        ref = jff._pallas_fwd_sigma(jnp.asarray(x01), jnp.asarray(ulines),
+                                    jW["ws0"], jW["ws1"])
+    else:
+        ref = jff._pallas_fwd(jnp.asarray(x01), jnp.asarray(sh),
+                              jnp.asarray(ulines), jW, sigma_only=False)
+    oracle = jff._oracle(jnp.asarray(x01), jnp.asarray(sh),
+                         jnp.asarray(ulines), jW, sigma_only=sigma_only)
+    t = torch.from_numpy
+    args = (t(x01), None if sigma_only else t(sh), t(ulines),
+            {k: t(v) for k, v in Ws.items()})
+    got = tff.field_tiled_plain(*args, sigma_only=sigma_only).numpy()
+    assert got.shape == (n, 4)
+    _close(got, ref, "raw vs pallas")
+    _close(got, oracle, "raw vs oracle")
+    _close(got, tff.field_plain(*args, sigma_only=sigma_only).numpy(),
+           "raw vs plain")
+    if sigma_only:
+        assert np.all(got[:, :3] == 0.0)
 
 
 @pytest.mark.parametrize("case", ["meta_device", "feat_not_4", "x_strided",
-                                  "ws0_shape", "sh_missing", "bad_cotangent"])
+                                  "ws0_shape", "sh_missing", "bad_cotangent",
+                                  "feat_too_wide"])
 def test_field_wrapper_refuses(rng, case):
     """Only a CPU tensor takes the plain version; the kernels' argument
     checks raise on what csrc/field_fused.cu and field_fused_bwd.cu do not
@@ -170,6 +222,9 @@ def test_field_wrapper_refuses(rng, case):
         W["ws0"] = W["ws0"][:, :32]
     elif case == "sh_missing":
         s = None
+    elif case == "feat_too_wide":    # past the kernels' shared memory
+        ul = torch.zeros(3, 33, tff.MAX_FEAT + 4)
+        W["ws0"] = torch.zeros(tff.MAX_FEAT + 4, 64)
     if case == "bad_cotangent":
         W["ws1"].requires_grad_(True)
         with pytest.raises(ValueError):

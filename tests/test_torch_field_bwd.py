@@ -256,6 +256,84 @@ def test_weight_shapes_are_the_dw_layout():
     assert list(tff.weight_shapes(80, sigma_only=True)) == ["ws0", "ws1"]
 
 
+def _tiled(x01, sh, ulines, Ws, g, sigma_only, grid=tff.PLAIN_GRID):
+    t = torch.from_numpy
+    keys = K[:2] if sigma_only else K
+    dx, dsh, dul, dWs = tff.field_bwd_tiled_plain(
+        t(x01), None if sigma_only else t(sh), t(ulines),
+        {k: t(Ws[k]) for k in keys}, t(g), sigma_only=sigma_only, grid=grid)
+    out = [dx, dul] if sigma_only else [dx, dsh, dul]
+    return [v.numpy() for v in out + [dWs[k] for k in keys]]
+
+
+# (r_max, F, n, σ-only, clipped points): both widths of the mirror's
+# feature chunks (F 16 one k-chunk, 80 five), ragged tiles of 128
+TILED_CASES = [(17, 16, 300, False, False), (33, 80, 300, False, True),
+               (33, 16, 256, True, False), (17, 80, 333, True, True)]
+
+
+@pytest.mark.parametrize("r_max,feat,n,sigma_only,clipped", TILED_CASES)
+def test_bwd_tiled_plain_matches_jax_pallas_kernel_and_oracle(
+        rng, r_max, feat, n, sigma_only, clipped):
+    """K4/K5's algorithm in plain PyTorch (per-tile dW and dense
+    triangle-mask dlines, summed per block and in block order) against the
+    JAX Pallas backward in interpret mode and jax.vjp of the oracle, at the
+    tolerances of tests/test_field_bwd.py."""
+    x01, sh, ulines, Ws, g = _mats(rng, n, r_max=r_max, feat=feat)
+    if clipped:
+        x01[:40, 0] = -0.5
+        x01[40:80, 2] = 1.5
+    if sigma_only:
+        g[:, :3] = 0.0
+    got = _tiled(x01, sh, ulines, Ws, g, sigma_only)
+    if clipped:
+        assert np.all(got[0][:40, 0] == 0.0)
+        assert np.all(got[0][40:80, 2] == 0.0)
+    if sigma_only:
+        names = ("dx", "dul", "ws0", "ws1")
+        pallas = jff._pallas_bwd_sigma(_j(x01), _j(ulines), _j(Ws["ws0"]),
+                                       _j(Ws["ws1"]), _j(g), interpret=True,
+                                       tile=TILE)
+
+        def oracle(x, ul, a, b):
+            dummy_sh = jnp.zeros((x.shape[0], 1), x.dtype)
+            return jff.heads_apply(jff.encode_oracle(x, ul), dummy_sh,
+                                   {"ws0": a, "ws1": b, "wc0": None,
+                                    "wc1": None, "wc2": None},
+                                   sigma_only=True)
+
+        ref = jax.jit(lambda g, *a: jax.vjp(oracle, *a)[1](g))(
+            _j(g), _j(x01), _j(ulines), _j(Ws["ws0"]), _j(Ws["ws1"]))
+    else:
+        names = ("dx", "dsh", "dul") + K
+        dx, dsh, dul, dWs = jff._pallas_bwd(
+            _j(x01), _j(sh), _j(ulines), {k: _j(v) for k, v in Ws.items()},
+            _j(g), sigma_only=False, interpret=True, tile=TILE)
+        pallas = [dx, dsh, dul] + [dWs[k] for k in K]
+        _, vjp = jax.vjp(
+            lambda x, s, ul, a, b, c, d, e: jff._oracle(
+                x, s, ul, dict(zip(K, (a, b, c, d, e))), sigma_only=False),
+            _j(x01), _j(sh), _j(ulines), *(_j(Ws[k]) for k in K))
+        ref = vjp(_j(g))
+    _close_all(got, pallas, names)
+    _close_all(got, ref, names)
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_bwd_tiled_plain_is_bit_equal_over_two_calls(rng, sigma_only):
+    """Its sums run in a fixed order: two calls give the same bits, and
+    another grid sums the same terms (within f32 rounding)."""
+    x01, sh, ulines, Ws, g = _mats(rng, 300, r_max=33, feat=16)
+    a = _tiled(x01, sh, ulines, Ws, g, sigma_only)
+    b = _tiled(x01, sh, ulines, Ws, g, sigma_only)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    one = _tiled(x01, sh, ulines, Ws, g, sigma_only, grid=1)
+    for u, v in zip(a, one):
+        np.testing.assert_allclose(u, v, rtol=1e-5,
+                                   atol=1e-6 * np.abs(v).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sigma_only,n", [(False, 131072), (False, 65536 - 29),
                                           (True, 65536)])

@@ -205,6 +205,15 @@ def test_card_only_timers_refuse_the_cpu(monkeypatch):
         prof_attention.main(["--reps", "2"])
 
 
+def test_prof_field_kernels_refuses_the_cpu(monkeypatch):
+    """The field kernels' timer (K1/K2/K4/K5) needs a card and says so."""
+    from gbnerf_tpu_torch.tools import prof_field_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="card"):
+        prof_field_kernels.main(["--reps", "2"])
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     from gbnerf_tpu_torch.config import Config
     from gbnerf_tpu_torch.train import loop
