@@ -33,14 +33,19 @@
 //   fragments turned into the next one's bf16 A fragments in registers;
 //   nothing but the output leaves the registers.
 // - The encode is computed straight into the A fragments of bf16(enc): a
-//   lane's entries are its two points × the k-chunk's features 2·tig,
-//   2·tig + 1, +8, +9, each a product of three 2-tap lerps.
+//   lane's entries of a k-chunk are its two points × four neighbouring
+//   features (the chunk order of field_tile.cuh; ws0's rows are packed to
+//   match), each a product of three 2-tap lerps, one 8-byte load a tap row.
+//   The encode's gathers are about half of the kernel's time (PERF.md).
 // - The weights (≈ 29 KB bf16 at F 80) and, when they fit, the unified
 //   lines (3 × 257 × 88 bf16 = 136 KB, rows padded to 4·odd words for the
-//   banks) are staged in shared memory once per persistent block of 8
-//   warps; where the lines do not fit, they are read through L1/L2.
-// Registers, spills and shared memory per block: chip_smoke.py prints them
-// ("kernel info" lines), and PERF.md keeps them.
+//   banks) are staged in shared memory once per persistent block of 16
+//   warps (≈ 100 registers a thread, no spills; 165,136 bytes of shared
+//   memory, one block an SM); where the lines do not fit, they are read
+//   through L1/L2. Each warp's chain of products waits on the one before,
+//   so the SM needs many warps: 16 took 0.422 ms where 8 took 0.553.
+// K1's forward is not made exact at the relu boundaries as K4's recompute
+// is (field_tile.cuh::seq_fixup): its output is continuous there.
 
 #include "field_tile.cuh"
 

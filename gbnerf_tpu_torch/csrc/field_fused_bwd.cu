@@ -33,23 +33,34 @@
 // 1. Heads (each warp its 16 points): the forward and the head backward
 //    as mma.sync chains in registers; each layer's bf16 operands (the
 //    activations and the cotangents) go to tile buffers [point][column] in
-//    shared memory, as the weight gradients need them.
+//    shared memory, as the weight gradients need them. Where the order of
+//    a forward sum could decide a relu mask or a bf16 rounding (its value
+//    within 2^-17·Σ|a·w| of a boundary), the sum is taken again in
+//    sequential f32 order from those buffers (field_tile.cuh::seq_fixup):
+//    a flipped mask moves a point's cotangents by a whole term, and the
+//    masks must be the plain version's (≈ 0.09 ms at the fine pass).
 // 2. dW on the tensor cores: dW = Actᵀ·Cot with the tile's 128 points as
 //    the k dimension, both operands by ldmatrix.trans from the buffers.
 //    Each (matrix, 16 inputs, 16 outputs) unit belongs to one warp for
-//    good; it adds its tile sum to the block's dW row of the scratch buffer.
+//    good; it adds its tile sum to the block's dW row of the scratch buffer
+//    (all its loads, then all its stores: one round trip to L2).
 // 3. Encode backward (each warp its 16 points): dprod = dh0·ws0ᵀ one
 //    k-chunk of features at a time, dfa, du and dx; dfa goes to shared
-//    memory [axis][point][feature], over the buffers phase 2 has read.
+//    memory [axis][point][feature], over the buffers phase 2 has read. A
+//    lane's entries of a k-chunk are four neighbouring features (the
+//    chunk order of field_tile.cuh), so each tap row is one 8-byte load.
 // 4. dlines as the TPU computes it: per axis, maskᵀ [R_max × 128] · dfa
 //    [128 × F] on the tensor cores. The A fragments of the mask are made
 //    in registers from the tile's taps (each entry w0, w1 or 0); a 16-row
 //    block of rows that no point of a 16-point k-step touches is skipped
 //    (the test reads the k-step's range of taps: the inputs alone decide
 //    it). Each (axis, 16 rows) unit belongs to one warp for good and adds
-//    its 16 × F sum to the block's dlines slice of the scratch buffer.
-// Shared memory: the weights (29 KB at F 80) and the tile buffers (152 KB)
-// and taps; registers and spills: chip_smoke.py's "kernel info" lines.
+//    its 16 × F sum to the block's dlines slice of the scratch buffer,
+//    float4 read-add-writes. Points along rays touch few rows a k-step;
+//    independent uniform points touch them all (0.31 of 0.74 ms).
+// Shared memory 187,328 bytes a block at F 80 (the weights 29 KB, the
+// tile buffers 152 KB, the taps); ≈ 210 registers, no spills (K5: 113,088
+// bytes, ≈ 160 registers); chip_smoke.py's "kernel info" lines print them.
 //
 // Determinism: no atomics. Every sum runs in an order fixed by the inputs,
 // the SM count and the occupancy: within a tile in the mma's order, over a
@@ -122,7 +133,7 @@ __host__ __device__ inline int dw_size(int feat, bool sigma_only) {
 // (wc0's packed row 16 is its zero row: rows above it move up one).
 struct DwMat {
   int act, as, cot, cs, in_t, out_t, off, rows, cols;
-  bool wc0;
+  bool wc0, perm;       // wc0's zero row; ws0's k-chunk feature order
 };
 
 // The weight gradients in order: ws0, ws1 (σ-only stops here), wc0, wc1,
@@ -132,15 +143,15 @@ __device__ __forceinline__ DwMat dw_mat(int m, const BwdLayout& B, int feat) {
   switch (m) {
     case 0:
       return {B.prod, B.ps, B.dh0, kS64, feat_pad(feat) / 16, 8, 0, feat, 64,
-              false};
+              false, true};
     case 1:
-      return {B.a0, kS64, B.dh1, kS16, 4, 2, feat * 64, 64, 16, false};
+      return {B.a0, kS64, B.dh1, kS16, 4, 2, feat * 64, 64, 16, false, false};
     case 2:
-      return {B.hc, kS32, B.dh2, kS64, 2, 8, o, 32, 64, true};
+      return {B.hc, kS32, B.dh2, kS64, 2, 8, o, 32, 64, true, false};
     case 3:
-      return {B.a2, kS64, B.dh3, kS64, 4, 8, o + 31 * 64, 64, 64, false};
+      return {B.a2, kS64, B.dh3, kS64, 4, 8, o + 31 * 64, 64, 64, false, false};
     default:
-      return {B.a3, kS64, B.g, kS8, 4, 1, o + 31 * 64 + 4096, 64, 3, false};
+      return {B.a3, kS64, B.g, kS8, 4, 1, o + 31 * 64 + 4096, 64, 3, false, false};
   }
 }
 
@@ -174,21 +185,34 @@ __device__ __forceinline__ void dw_unit(const bf16* S, const DwMat& M,
       mma_bf16(acc[0], a, b[0], b[1]);
     }
   }
+  // add to the block's dW row: every load first, then the stores (one
+  // round trip to L2, not one an entry)
+  int at[2][2][2];
+  float old[2][2][2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (j == 1 && !pair) break;
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int row = it * 16 + g + 8 * h;
       if (M.wc0) row = row < 16 ? row : (row == 16 ? -1 : row - 1);
-      if (row < 0 || row >= M.rows) continue;
+      if (M.perm)     // position g + 8h of the chunk holds this feature
+        row = it * 16 + 4 * (g >> 1) + 2 * h + (g & 1);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = (2 * np + j) * 8 + c + e;
-        if (col < M.cols) dw[M.off + row * M.cols + col] += acc[j][2 * h + e];
+        const bool ok = (j == 0 || pair) && row >= 0 && row < M.rows
+                        && col < M.cols;
+        at[j][h][e] = ok ? M.off + row * M.cols + col : -1;
+        old[j][h][e] = ok ? dw[at[j][h][e]] : 0.f;
       }
     }
-  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (at[j][h][e] >= 0) dw[at[j][h][e]] = old[j][h][e] + acc[j][2 * h + e];
 }
 
 __device__ __forceinline__ float tap_val(int4 t, int r) {
@@ -378,45 +402,41 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
           mma_bf16(c[0], ad[kk], b[0], b[1]);
           mma_bf16(c[1], ad[kk], b[2], b[3]);
         }
+        // lane tig's features 16kc + 4tig … + 3: C entries (j, e) of its
+        // two n-tiles are feature 4tig + 2j + e (field_tile.cuh's order)
+        const int f = kc * 16 + 4 * tig;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int f = kc * 16 + j * 8 + 2 * tig;
+        for (int h = 0; h < 2; ++h) {
+          uint32_t d[3][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}};
+          if (f < feat) {
+            float fa[3][4], l0[3][4], l1[3][4];
+            lerp3x4(fa, l0, l1, t, h, lines, feat, f);
+            float dv[3][4];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            uint32_t d[3] = {0u, 0u, 0u};
-            if (f < feat) {
-              float l0[3][2], l1[3][2], fa[3][2];
+            for (int q = 0; q < 4; ++q) {
+              const float dp = c[q >> 1][2 * h + (q & 1)];
+              dv[0][q] = bf16_round((dp * fa[1][q]) * fa[2][q]);
+              dv[1][q] = bf16_round((dp * fa[0][q]) * fa[2][q]);
+              dv[2][q] = bf16_round((dp * fa[0][q]) * fa[1][q]);
 #pragma unroll
               for (int a = 0; a < 3; ++a) {
-                const bf16* r = lines + t.off[h][a] + f;
-                const float2 v0 = ld_bf2(r), v1 = ld_bf2(r + feat);
-                l0[a][0] = v0.x; l0[a][1] = v0.y;
-                l1[a][0] = v1.x; l1[a][1] = v1.y;
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                  fa[a][e] = fmaf(t.w1[h][a], l1[a][e], t.w0[h][a] * l0[a][e]);
+                dm0[h][a] = fmaf(l0[a][q], dv[a][q], dm0[h][a]);
+                dm1[h][a] = fmaf(l1[a][q], dv[a][q], dm1[h][a]);
               }
-              float dv[3][2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float dp = c[j][2 * h + e];
-                dv[0][e] = bf16_round((dp * fa[1][e]) * fa[2][e]);
-                dv[1][e] = bf16_round((dp * fa[0][e]) * fa[2][e]);
-                dv[2][e] = bf16_round((dp * fa[0][e]) * fa[1][e]);
-#pragma unroll
-                for (int a = 0; a < 3; ++a) {
-                  dm0[h][a] = fmaf(l0[a][e], dv[a][e], dm0[h][a]);
-                  dm1[h][a] = fmaf(l1[a][e], dv[a][e], dm1[h][a]);
-                }
-              }
-#pragma unroll
-              for (int a = 0; a < 3; ++a) d[a] = pack_bf16(dv[a][0], dv[a][1]);
             }
 #pragma unroll
-            for (int a = 0; a < 3; ++a)
-              *reinterpret_cast<uint32_t*>(
-                  S + B.dfa + (a * kTile + r0 + gq + 8 * h) * B.ps
-                  + kc * 16 + j * 8 + 2 * tig) = d[a];
+            for (int a = 0; a < 3; ++a) {
+              d[a][0] = pack_bf16(dv[a][0], dv[a][1]);
+              d[a][1] = pack_bf16(dv[a][2], dv[a][3]);
+            }
+          }
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {   // positions 2tig (+1) and 8 + 2tig
+            uint32_t* r = reinterpret_cast<uint32_t*>(
+                S + B.dfa + (a * kTile + r0 + gq + 8 * h) * B.ps + kc * 16
+                + 2 * tig);
+            r[0] = d[a][0];
+            r[4] = d[a][1];
           }
         }
       }
@@ -501,28 +521,33 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
             }
           }
         }
-        float2 old[kNG][2];
+        // n-tiles (nb + j, nb + j + 1) are k-chunk (nb + j) / 2: lane tig's
+        // entries there are features 4tig … 4tig + 3, one float4 a row
+        float4 old[kNG / 2][2];
 #pragma unroll
-        for (int j = 0; j < kNG; ++j) {
-          const int f = (nb + j) * 8 + 2 * tig;
+        for (int j = 0; j < kNG; j += 2) {
+          const int f = (nb + j) / 2 * 16 + 4 * tig;
           const bool ok = nb + j < 2 * kcs && f < feat;
-          old[j][0] = ok && ra < r_max
-                          ? *reinterpret_cast<const float2*>(dl + ra * feat + f)
-                          : make_float2(0.f, 0.f);
-          old[j][1] = ok && rb < r_max
-                          ? *reinterpret_cast<const float2*>(dl + rb * feat + f)
-                          : make_float2(0.f, 0.f);
+          old[j / 2][0] = ok && ra < r_max
+                              ? *reinterpret_cast<const float4*>(dl + ra * feat + f)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          old[j / 2][1] = ok && rb < r_max
+                              ? *reinterpret_cast<const float4*>(dl + rb * feat + f)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
-        for (int j = 0; j < kNG; ++j) {
-          const int f = (nb + j) * 8 + 2 * tig;
+        for (int j = 0; j < kNG; j += 2) {
+          const int f = (nb + j) / 2 * 16 + 4 * tig;
           if (nb + j < 2 * kcs && f < feat) {
+            const float4 o0 = old[j / 2][0], o1 = old[j / 2][1];
             if (ra < r_max)
-              *reinterpret_cast<float2*>(dl + ra * feat + f) =
-                  make_float2(old[j][0].x + c[j][0], old[j][0].y + c[j][1]);
+              *reinterpret_cast<float4*>(dl + ra * feat + f) =
+                  make_float4(o0.x + c[j][0], o0.y + c[j][1],
+                              o0.z + c[j + 1][0], o0.w + c[j + 1][1]);
             if (rb < r_max)
-              *reinterpret_cast<float2*>(dl + rb * feat + f) =
-                  make_float2(old[j][1].x + c[j][2], old[j][1].y + c[j][3]);
+              *reinterpret_cast<float4*>(dl + rb * feat + f) =
+                  make_float4(o1.x + c[j][2], o1.y + c[j][3],
+                              o1.z + c[j + 1][2], o1.w + c[j + 1][3]);
           }
         }
       }

@@ -95,42 +95,55 @@ __device__ __forceinline__ void lane_taps(LaneTaps& t, const float* x, int p0,
   }
 }
 
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// The feature order of a 16-deep k-chunk: position k holds feature
+// 4·((k & 7) >> 1) + 2·(k >> 3) + (k & 1) of the chunk, so that the four A
+// (and C) entries of lane tig, k = 2tig, 2tig + 1, 2tig + 8, 2tig + 9, are
+// its features 4tig … 4tig + 3: one 8-byte load a tap row. ws0's rows are
+// packed in this order (ops/field_fused.py::pack_weights); feat_pos maps a
+// feature back to its position.
+__host__ __device__ inline int feat_pos(int f) {
+  const int r = f & 15;
+  return (f & ~15) + 2 * (r >> 2) + (r & 1) + 8 * ((r >> 1) & 1);
 }
 
-// The three axes' 2-tap lerps fa_a at features f, f + 1 of point half h
-__device__ __forceinline__ void lerp3(float fa[3][2], const LaneTaps& t, int h,
-                                      const bf16* lines, int ls, int f) {
+// The three axes' 2-tap lerps fa_a at features f … f + 3 of point half h
+// (f a multiple of 4), and the tap rows' values l0, l1
+__device__ __forceinline__ void lerp3x4(float fa[3][4], float l0[3][4],
+                                        float l1[3][4], const LaneTaps& t,
+                                        int h, const bf16* lines, int ls,
+                                        int f) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     const bf16* r = lines + t.off[h][a] + f;
-    const float2 l0 = ld_bf2(r), l1 = ld_bf2(r + ls);
-    fa[a][0] = fmaf(t.w1[h][a], l1.x, t.w0[h][a] * l0.x);
-    fa[a][1] = fmaf(t.w1[h][a], l1.y, t.w0[h][a] * l0.y);
+    unpack4(*reinterpret_cast<const uint2*>(r), l0[a]);
+    unpack4(*reinterpret_cast<const uint2*>(r + ls), l1[a]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      fa[a][q] = fmaf(t.w1[h][a], l1[a][q], t.w0[h][a] * l0[a][q]);
   }
 }
 
-// enc = fa_0 · fa_1 · fa_2 at features f, f + 1 (0 past F)
-__device__ __forceinline__ uint32_t enc_pair(const LaneTaps& t, int h,
-                                             const bf16* lines, int ls,
-                                             int feat, int f) {
-  if (f >= feat) return 0u;
-  float fa[3][2];
-  lerp3(fa, t, h, lines, ls, f);
-  return pack_bf16((fa[0][0] * fa[1][0]) * fa[2][0],
-                   (fa[0][1] * fa[1][1]) * fa[2][1]);
-}
-
-// The A fragment of bf16(enc) [16 points × 16 features] at k-chunk kc
+// The A fragment of bf16(enc) [16 points × 16 features] at k-chunk kc:
+// enc = fa_0 · fa_1 · fa_2 of lane tig's features 16kc + 4tig … + 3
+// (0 past F; F is a multiple of 4)
 __device__ __forceinline__ void enc_frag(uint32_t a[4], const LaneTaps& t,
                                          const bf16* lines, int ls, int feat,
                                          int kc) {
-  const int f = kc * 16 + 2 * (lane_id() & 3);
-  a[0] = enc_pair(t, 0, lines, ls, feat, f);
-  a[1] = enc_pair(t, 1, lines, ls, feat, f);
-  a[2] = enc_pair(t, 0, lines, ls, feat, f + 8);
-  a[3] = enc_pair(t, 1, lines, ls, feat, f + 8);
+  const int f = kc * 16 + 4 * (lane_id() & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (f >= feat) {
+      a[h] = a[2 + h] = 0u;
+      continue;
+    }
+    float fa[3][4], l0[3][4], l1[3][4];
+    lerp3x4(fa, l0, l1, t, h, lines, ls, f);
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e[q] = (fa[0][q] * fa[1][q]) * fa[2][q];
+    a[h] = pack_bf16(e[0], e[1]);
+    a[2 + h] = pack_bf16(e[2], e[3]);
+  }
 }
 
 // B fragments of n-tiles nt, nt + 1 at k-chunk kc of W [K][N] (stride s),
@@ -289,10 +302,11 @@ constexpr float kSeqTol = 1.0f / (1 << 17);
 // s: their Σ|x·w|. An entry whose bf16 rounding (after relu when kRelu,
 // which also decides the relu mask) could change within ±kSeqTol·s is
 // recomputed as Σ_k x_k·w_k in k order with f32 FMAs, skipping row `skip`
-// of W (wc0's zero row): the sum an f32 matrix product takes, so that the
-// backward's masks and bf16 activations are those of the plain version.
+// of W (wc0's zero row), over the features in their own order where the k
+// positions are kPerm's (h0): the sum an f32 matrix product takes, so that
+// the backward's masks and bf16 activations are those of the plain version.
 // Elsewhere the two sums round alike.
-template <int NT, bool kRelu>
+template <int NT, bool kRelu, bool kPerm = false>
 __device__ __forceinline__ void seq_fixup(float c[NT][4], const float s[NT][4],
                                           const bf16* x, int sx, int K,
                                           const bf16* w, int sw, int skip) {
@@ -321,10 +335,12 @@ __device__ __forceinline__ void seq_fixup(float c[NT][4], const float s[NT][4],
     const bf16* xr = x + (g + 8 * (i >> 1)) * sx;
     const bf16* wc = w + nt * 8 + c2 + (i & 1);
     float acc = 0.f;
-    for (int k = 0; k < K; ++k)
+    for (int f = 0; f < K; ++f) {
+      const int k = kPerm ? feat_pos(f) : f;
       if (k != skip)
         acc = fmaf(__bfloat162float(xr[k]), __bfloat162float(wc[k * sw]),
                    acc);
+    }
     if (live) {
 #pragma unroll
       for (int n2 = 0; n2 < NT; ++n2)
@@ -375,7 +391,7 @@ __device__ __forceinline__ uint32_t sigma_net(
   }
   if (kExact) {
     __syncwarp();
-    seq_fixup<8, true>(c, sa, prod, ps, feat, sw + W.ws0, kS64, -1);
+    seq_fixup<8, true, true>(c, sa, prod, ps, feat, sw + W.ws0, kS64, -1);
   }
   const uint32_t m0 = relu_mask<8>(c);
   uint32_t a0[4][4];

@@ -254,11 +254,25 @@ def _row_stride(cols: int) -> int:
     return ((cols // 8) | 1) * 8
 
 
+def _chunk_order(w: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """Rows [Fp, …] (Fp a multiple of 16) from feature order into the
+    kernels' k-chunk order (csrc/field_tile.cuh::feat_pos), or back:
+    feature 16c + 4t + 2j + e sits at row 16c + 8j + 2t + e, so that the
+    four A entries of lane t (rows 2t, 2t + 1, 2t + 8, 2t + 9) are four
+    neighbouring features. A view and one copy on the tensor's device
+    (nothing copied from the host, so it also runs in a CUDA graph's
+    capture)."""
+    n, rest = w.shape[0], w.shape[1:]
+    shape = (n // 16, 4, 2, 2) if not inverse else (n // 16, 2, 4, 2)
+    return w.reshape(*shape, *rest).transpose(1, 2).reshape(n, *rest)
+
+
 def weight_layout(feat: int, *, sigma_only: bool) -> Dict[str, tuple]:
     """csrc/field_tile.cuh::weight_layout: {key: (offset, rows, stride)} of
     the packed bf16 weights, and "total". ws0 [Fp][72] (Fp = F rounded up
-    to 16), ws1 [64][24], wc0 [32][72] (rows SH 0–15, a zero row, geo
-    1–15), wc1 [64][72], wc2 [64][8]; σ-only stops after ws1."""
+    to 16; rows in ``_chunk_order``), ws1 [64][24], wc0 [32][72]
+    (rows SH 0–15, a zero row, geo 1–15), wc1 [64][72], wc2 [64][8];
+    σ-only stops after ws1."""
     fp = -(-feat // 16) * 16
     rows = {"ws0": fp, "ws1": SIGMA_WIDTH, "wc0": 32, "wc1": COLOR_WIDTH,
             "wc2": COLOR_WIDTH}
@@ -276,8 +290,9 @@ def pack_weights(Ws: Dict[str, torch.Tensor], *, sigma_only: bool
                  ) -> torch.Tensor:
     """The kernels' weight buffer (csrc/field_tile.cuh): bf16, each weight
     row-major [in][out] with padded rows (``weight_layout``), every padding
-    entry zero. wc0's rows go SH (0–15), a zero row, geo (17–31): the
-    kernels multiply it with h1 as it stands, σ column zeroed."""
+    entry zero. ws0's rows follow ``_chunk_order``; wc0's go SH (0–15), a
+    zero row, geo (17–31): the kernels multiply it with h1 as it stands,
+    σ column zeroed."""
     feat = Ws["ws0"].shape[0]
     lay = weight_layout(feat, sigma_only=sigma_only)
     buf = torch.zeros(lay["total"], dtype=torch.bfloat16,
@@ -289,6 +304,9 @@ def pack_weights(Ws: Dict[str, torch.Tensor], *, sigma_only: bool
         if k == "wc0":
             view[:SH_DIM, :COLOR_WIDTH] = w[:SH_DIM]
             view[SH_DIM + 1:, :COLOR_WIDTH] = w[SH_DIM:]
+        elif k == "ws0":
+            view[:, :SIGMA_WIDTH] = _chunk_order(
+                torch.nn.functional.pad(w, (0, 0, 0, rows - feat)))
         else:
             view[:w.shape[0], :w.shape[1]] = w
     return buf
@@ -304,6 +322,8 @@ def unpack_weights(buf: torch.Tensor, feat: int, *, sigma_only: bool
         view = buf[off:off + rows * stride].view(rows, stride).float()
         if k == "wc0":
             out[k] = torch.cat([view[:SH_DIM, :b], view[SH_DIM + 1:, :b]])
+        elif k == "ws0":
+            out[k] = _chunk_order(view[:, :b], inverse=True)[:a]
         else:
             out[k] = view[:a, :b].clone()
     return out

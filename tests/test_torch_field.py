@@ -131,8 +131,9 @@ def test_heads_apply_matches_jax(rng):
 @pytest.mark.parametrize("feat", [24, 80])
 def test_pack_weights_layout(rng, feat):
     """The kernels' bf16 weight buffer: unpack(pack(W)) == bf16(W), each
-    weight where csrc/field_tile.cuh::weight_layout puts it, every padding
-    entry (wc0's row 16 included) zero."""
+    weight where csrc/field_tile.cuh::weight_layout puts it (ws0's rows in
+    each k-chunk's feature order), every padding entry (wc0's row 16
+    included) zero."""
     _, _, _, Ws = _mats(rng, 4, 33, feat)
     W = {k: torch.from_numpy(v) for k, v in Ws.items()}
     b = lambda t: t.to(torch.bfloat16).float()   # noqa: E731
@@ -158,9 +159,21 @@ def test_pack_weights_layout(rng, feat):
             if k == "wc0":
                 view[:16, :c] = True
                 view[17:, :c] = True
+            elif k == "ws0":
+                view[:, :c] = tff._chunk_order(
+                    (torch.arange(view.shape[0]) < a)[:, None]).expand(-1, c)
             else:
                 view[:a, :c] = True
         assert bool((buf.float()[~mask] == 0).all())
+    # a lane's four A entries of a k-chunk (positions 2t, 2t+1, 2t+8, 2t+9)
+    # are features 4t … 4t + 3
+    at = tff._chunk_order(torch.arange(32))        # the feature at a row
+    for t in range(4):
+        for c in (0, 16):
+            assert [int(at[c + r]) for r in (2 * t, 2 * t + 1, 2 * t + 8,
+                                             2 * t + 9)] == [
+                c + 4 * t + q for q in range(4)]
+    assert torch.equal(tff._chunk_order(at, inverse=True), torch.arange(32))
 
 
 @pytest.mark.parametrize("sigma_only", [False, True])
