@@ -8,7 +8,9 @@
 
 1. Requires CUDA (exits nonzero without it) and prints the card's name and
    power limit.
-2. Builds the CUDA kernels from gbnerf_tpu_torch/csrc (ops/_build.py).
+2. Builds the CUDA kernels from gbnerf_tpu_torch/csrc (ops/_build.py) and
+   prints the field kernels' registers, spill bytes, shared memory a block
+   and blocks an SM ("kernel info" lines, from the CUDA runtime).
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (and once at a ragged size), and times
    both with CUDA events: K1/K2 (field forward), K3 (z-merge, and its
@@ -63,7 +65,7 @@
    (the full-size SD stack in bf16) at a few reps.
 12. Times a library call beside K3 (torch.sort of the [16384, 128] rows)
    and K7 (scaled_dot_product_attention), which the port never calls, and
-   computes each kernel's bound on the H100 from its shapes. K3, K4/K5, K7
+   computes each kernel's bound on the H100 from its shapes. K1–K5, K7
    and SDPA are also timed with the host out of the loop (graph_ms: the
    calls replayed from a CUDA graph).
 

@@ -13,7 +13,10 @@ events over ``--reps`` back-to-back calls after one warm-up; ``graph_ms``:
 the same calls replayed from one CUDA graph), its largest error against
 the plain version and the count outside chip_smoke.py's tolerances,
 whether two backward calls are bit-equal, and the kernel's registers,
-spill bytes, shared memory a block and blocks an SM.
+spill bytes, shared memory a block and blocks an SM. The points are not
+kept off the grid nodes (chip_smoke.py's checks are), so a few dx entries
+next to a node, where the kernel's and autograd's subgradient conventions
+differ, may count outside the tolerance.
 
     python -m gbnerf_tpu_torch.tools.prof_field_kernels [--reps 20]
 """
