@@ -15,7 +15,8 @@
    shapes the main paths give it (and once at a ragged size), and times
    both with CUDA events: K1/K2 (field forward), K3 (z-merge, and its
    gradient against the CPU's, ties included), K4/K5 (field backward,
-   every cotangent; two calls on the same inputs must be bit-equal).
+   every cotangent; two calls on the same inputs must be bit-equal); and
+   K1/K2/K4/K5 at other widths (F 16, 24 and the widest they take, 160).
 4. Drives the eval render path at the full width of configs/spinnerf_scene.txt
    (CP fields 17…257 at rank 16, 64 + 64 samples, lindisp, white background)
    with seeded random weights: bench.py's workload, 16384 rays, for rays/s,
@@ -405,6 +406,59 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
                     f"rtol {FIELD_RTOL}, atol {FIELD_ATOL_FRAC}·max|plain|")
             results.setdefault(name, []).append(r)
     return results
+
+
+def check_field_widths(dev, np_rng) -> None:
+    """K1/K2 and K4/K5 at widths off the main path: the proposal field's
+    (R_max 65, F 24, less than a 16-deep k-chunk), the narrowest (F 16) and
+    the widest the kernels take (F 160, MAX_FEAT: K4's shared memory), at
+    ragged sizes with tie-free points and random weights, against the plain
+    versions at the check tolerances; two backward calls bit-equal."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+
+    for r_max, feat, n in ((65, 24, 4099), (33, 16, 1000),
+                           (129, ff.MAX_FEAT, 3001)):
+        x = (0.03 + 0.94 * np_rng.random((n, 3))).astype(np.float32)
+        u = x * (r_max - 1)
+        x += ((np.abs(u - np.round(u)) < 1e-3) * 2e-3).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        ul, sh, g = (torch.from_numpy(np_rng.standard_normal(shape).astype(
+            np.float32) * scale).to(dev) for shape, scale in (
+            ((3, r_max, feat), 0.5), ((n, 16), 0.5), ((n, 4), 1.0)))
+        for sigma_only in (False, True):
+            Ws = {k: torch.from_numpy(np_rng.standard_normal(shape).astype(
+                np.float32) * 0.2).to(dev) for k, shape in
+                ff.weight_shapes(feat, sigma_only=sigma_only).items()}
+            s_ = None if sigma_only else sh
+            gg = g.clone()
+            if sigma_only:
+                gg[:, :3] = 0.0
+            with torch.no_grad():
+                r = {"raw": compare_field(
+                    ff.cp_field_fused(x, s_, ul, Ws, sigma_only=sigma_only),
+                    ff.field_plain(x, s_, ul, Ws, sigma_only=sigma_only))}
+            runs = [ff.field_fused_bwd(x, s_, ul, Ws, gg,
+                                       sigma_only=sigma_only)
+                    for _ in range(2)]
+            ref = ff.field_bwd_plain(x, s_, ul, Ws, gg, sigma_only=sigma_only)
+            flat = [[t for t in run[:3] if t is not None]
+                    + [run[3][k] for k in Ws] for run in runs + [ref]]
+            names = ["dx"] + ([] if sigma_only else ["dsh"]) + [
+                "dulines"] + ["d" + k for k in Ws]
+            for name, a, b in zip(names, flat[0], flat[2]):
+                r[name] = (compare_field(a, b, rtol=5e-2, atol_frac=8e-3)
+                           if name == "dx" else compare_field(a, b))
+            det = all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+            bad = {k: v["n_out_of_tol"] for k, v in r.items()
+                   if v["n_out_of_tol"]}
+            print(f"check field widths [R_max {r_max}, F {feat}, {n} points"
+                  f"{', sigma only' if sigma_only else ''}] deterministic "
+                  f"{det}, max_abs_err "
+                  f"{json.dumps({k: v['max_abs_err'] for k, v in r.items()})}")
+            if bad or not det:
+                raise AssertionError(f"field kernels at F {feat}: outside "
+                                     f"tolerance {bad}, or two backward "
+                                     "calls differ")
 
 
 def field_kernel_info(fine, coarse, proposal) -> None:
@@ -1334,6 +1388,7 @@ def main() -> None:
         field_res = check_fields(dev, fine, coarse, proposal, np_rng)
         merge_res = check_merge(dev, np_rng)
     field_res.update(check_field_bwd(dev, fine, coarse, np_rng))
+    check_field_widths(dev, np_rng)
     attn_res = check_attention(dev)
     cp_res = check_cp_encode(dev, np_rng)
 
