@@ -28,10 +28,11 @@
    (first_stage, N_rand 1024 for each of the three ray streams, Adam at
    lrate 3e-3, raw_noise_std 1, perturb on) on an in-memory scene of
    SPIn-NeRF size: 60 views at 189 × 252 with masks, inpainted depths and
-   COLMAP-style depth rays, rendered by tools/make_synthetic_scene.py. About
-   300 steps, one checkpoint save and restore, one eval render. It checks
-   finite metrics, a falling img_loss, and that the steps launched K1, K3,
-   K4 and K5 and the eval K2; it prints ms per step.
+   COLMAP-style depth rays, rendered by the port's twin of
+   tools/make_synthetic_scene.py. About 300 steps, one checkpoint save and
+   restore, one eval render. It checks finite metrics, a falling
+   img_loss, and that the steps launched K1, K3, K4 and K5 and the eval
+   K2; it prints ms per step.
 6. Holds one stage-1 step on the card against the same step on the CPU
    plain path: same weights, injected batch indices, 64 rays per stream;
    and runs one full-width stage-1 step twice from the same state and
@@ -69,6 +70,17 @@
    computes each kernel's bound on the H100 from its shapes. K1–K5, K7
    and SDPA are also timed with the host out of the loop (graph_ms: the
    calls replayed from a CUDA graph).
+13. The disk phase: writes the round-5 ablation scene (252 × 189, 16 + 3
+   views, sparse COLMAP, seed 0) with the port's synthetic-scene twin and
+   reads it back through load_scene with imageio and cv2 blocked (the
+   PNG codec; the arrays must equal those written), then trains the
+   ablation twin's s1 config for DISK_S1_STEPS steps and its nog config
+   (the LPIPS patch loss with random VGG weights, no guidance) for
+   DISK_NOG_STEPS more from s1's checkpoint, both through train() from
+   the files; prints the decode time, ms per step, launches and the eval
+   PSNRs, and checks that the eval PNGs decode to to8b of the maps.
+   Then LPIPS on the card against the CPU (distance and input gradient on
+   4 × 32 × 32 patches). With --profile, one nog step is traced too.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -80,7 +92,6 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
-import importlib.util
 import json
 import subprocess
 import sys
@@ -182,6 +193,19 @@ CP_ATOL_FRAC = 1e-6
 # are rounded to bf16 after f32 sums in another order, one bf16 step
 # (2^-7 relative) and 5e-3·max where the three axes' terms cancel
 CP_GRAD_POINTS, CP_GRAD_RTOL, CP_GRAD_ATOL_FRAC = 65536 - 29, 2.0 ** -7, 5e-3
+# the disk phase: the round-5 ablation scene written to disk by the
+# synthetic-scene twin (252 × 189, 16 + 3 views, sparse COLMAP, seed 0),
+# loaded by load_scene, then the ablation twin's s1 and nog configs through
+# train(): stage-1 steps, then nog steps (LPIPS patches, random VGG, no
+# guidance) from s1's checkpoint
+DISK_VIEWS, DISK_S1_STEPS, DISK_NOG_STEPS = (16, 3), 300, 100
+DISK_S1_PRINT, DISK_NOG_PRINT = 50, 20
+# LPIPS on the card against the CPU on 4 × 32 × 32 patches (random VGG,
+# TF32 off): cuDNN picks its own f32 algorithm for each of the 13 convs
+# (Winograd, FFT or implicit GEMM), which rounds otherwise than the CPU's
+# direct convolution: distance to rtol 1e-3, input gradient to atol
+# 2e-3·max|cpu|
+LPIPS_SHAPE, LPIPS_RTOL, LPIPS_GRAD_ATOL_FRAC = (4, 32, 32, 3), 1e-3, 2e-3
 # the profiling entry points' reps in this script
 PROF_FIELD_REPS, PROF_TRAIN_REPS, PROF_GUIDANCE_REPS = 5, 5, 3
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16
@@ -576,12 +600,10 @@ def profile_once(fn, label: str, outdir: Path, untraced_ms: float) -> None:
 
 
 def synthetic_tool():
-    """tools/make_synthetic_scene.py as a module (it imports only numpy)."""
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_scene", ROOT / "tools" / "make_synthetic_scene.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """The port's synthetic-scene twin (numpy only)."""
+    from gbnerf_tpu_torch.tools import make_synthetic_scene
+
+    return make_synthetic_scene
 
 
 def spinnerf_scene(n_train: int, H: int, W: int, n_test: int = 2,
@@ -1285,6 +1307,209 @@ def check_cp_encode(dev, np_rng):
     return results
 
 
+def check_lpips(dev) -> dict:
+    """LPIPS (random VGG, the same seeded weights) on the card against the
+    CPU: the distance and its input gradient on LPIPS_SHAPE patches."""
+    from gbnerf_tpu_torch.utils.lpips import LPIPS
+
+    gen = torch.Generator().manual_seed(21)
+    a, b = (torch.rand(LPIPS_SHAPE, generator=gen) for _ in range(2))
+    res = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        fn = LPIPS(torch.Generator().manual_seed(3), device=device)
+        ta = a.to(device).requires_grad_(True)
+        tb = b.to(device)
+        d = fn(ta, tb)
+        (g,) = torch.autograd.grad(d.sum(), ta)
+        res[where] = (d.detach().cpu().double(), g.cpu().double())
+        if where == "card":
+            def fwd_bwd():
+                torch.autograd.grad(fn(ta, tb).sum(), ta)
+
+            ms = cuda_ms(fwd_bwd, reps=10)
+    (d_card, g_card), (d_cpu, g_cpu) = res["card"], res["cpu"]
+    r = {"patches": list(LPIPS_SHAPE),
+         "distance_max_rel_err": float(((d_card - d_cpu).abs()
+                                        / d_cpu.abs()).max()),
+         "grad_max_abs_err": float((g_card - g_cpu).abs().max()),
+         "grad_atol": LPIPS_GRAD_ATOL_FRAC * float(g_cpu.abs().max()),
+         "distance_rtol": LPIPS_RTOL, "fwd_bwd_ms": ms,
+         "distance": [float(x) for x in d_cpu]}
+    print(f"check lpips (card vs cpu) {json.dumps(r)}")
+    if (r["distance_max_rel_err"] > LPIPS_RTOL
+            or r["grad_max_abs_err"] > r["grad_atol"]
+            or not torch.isfinite(g_card).all()):
+        raise AssertionError("LPIPS on the card differs from the CPU")
+    return r
+
+
+def _disk_train(cfg, dev, label: str, total: int, every: int):
+    """train() on cfg (the scene loaded from disk by train itself), its
+    own launch counts → (out, ms per step, launches)."""
+    from gbnerf_tpu_torch.train.loop import train
+
+    group_ms = []
+
+    def log_fn(i, m):
+        print(f"disk {label}: [{i}/{total}] " + " ".join(
+            f"{k}={v:.5g}" for k, v in m.items()))
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {label} metrics at {i}: {bad}")
+        group_ms.append(1e3 / m["iters_per_sec"])
+
+    # ---- the disk phase's main path: launches counted from here ...
+    zero_launches()
+    out = train(cfg, device=dev, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    # ... to here
+    if out["state"].step != total or not group_ms:
+        raise AssertionError(f"disk {label} stopped at {out['state'].step}")
+    return out, float(np.median(group_ms)), group_ms, launches
+
+
+def disk_phase(dev, workdir: Path) -> dict:
+    """The round-5 ablation scene written to disk by the synthetic-scene
+    twin at full size, read back by load_scene with imageio and cv2
+    blocked (the PNG codec), then s1 and nog from the ablation twin's
+    configs through train(), which loads the scene itself."""
+    import argparse as ap_
+    import shutil
+
+    from gbnerf_tpu_torch.config import load_reference_config
+    from gbnerf_tpu_torch.tools import make_synthetic_scene, run_ablation
+    from gbnerf_tpu_torch.train.loop import load_scene
+    from gbnerf_tpu_torch.utils.metrics import to8b
+    from gbnerf_tpu_torch.utils.png import read_png
+
+    n_train, n_test = DISK_VIEWS
+    blocked = {m: sys.modules.get(m) for m in ("imageio", "cv2")}
+    sys.modules.update({m: None for m in blocked})   # the card's machine
+    try:
+        t0 = time.perf_counter()
+        written = make_synthetic_scene.main([
+            str(workdir / "scene"), "--task", "inpaint", "--H", str(VIEW_H),
+            "--W", str(VIEW_W), "--n_train", str(n_train), "--n_test",
+            str(n_test), "--seed", "0", "--colmap_sparse"])
+        write_s = time.perf_counter() - t0
+        paths = run_ablation.write_configs(str(workdir), ap_.Namespace(
+            smoke=False, iters1=DISK_S1_STEPS, iters2=DISK_NOG_STEPS,
+            n_test=n_test))
+        never = 10 ** 9
+
+        def cfg_of(arm, every):
+            cfg = load_reference_config(paths[arm])
+            return cfg.replace(train=dataclasses.replace(
+                cfg.train, i_print=every, i_weights=never))
+
+        s1_cfg = cfg_of("s1", DISK_S1_PRINT)
+        nog_cfg = cfg_of("nog", DISK_NOG_PRINT)
+        t0 = time.perf_counter()
+        scene = load_scene(s1_cfg)
+        decode_s = time.perf_counter() - t0
+
+        def stack(fmt, ks):
+            return np.stack([written[f"images_4/{fmt.format(k)}"]
+                             for k in ks]).astype(np.float32) / 255.0
+
+        train_ks = range(n_test, n_test + n_train)
+        same = {
+            "images": np.array_equal(
+                scene.images, stack("RGB_inpainted/img_{:03d}.png",
+                                    train_ks)),
+            "masks": np.array_equal(
+                scene.masks, stack("label/img_{:03d}.png", train_ks)),
+            "images_test": np.array_equal(
+                scene.images_test, stack("test_gt/img_{:03d}.png",
+                                         range(n_test))),
+            "masks_test": np.array_equal(
+                scene.masks_test, stack("test_gt/mask_{:03d}.png",
+                                        range(n_test)))}
+        n_px = sum(a.shape[0] * a.shape[1] for a in written.values())
+        print(f"disk: scene of {n_train} + {n_test} views at {VIEW_H}x"
+              f"{VIEW_W} written in {write_s:.3f} s ({len(written)} PNGs); "
+              f"load_scene (PNG codec, imageio and cv2 blocked) "
+              f"{decode_s:.3f} s for {n_px} pixels; equal to the arrays "
+              f"written: {json.dumps(same)}")
+        if not all(same.values()):
+            raise AssertionError(f"the scene read back differs: {same}")
+
+        s1, s1_ms, s1_groups, s1_launches = _disk_train(
+            s1_cfg, dev, "s1", DISK_S1_STEPS, DISK_S1_PRINT)
+        s1_eval = s1["last_eval"]
+        nog_dir = workdir / "logs" / "nog"
+        nog_dir.mkdir(parents=True)
+        shutil.copytree(workdir / "logs" / "s1" / "ckpt", nog_dir / "ckpt")
+        total = DISK_S1_STEPS + DISK_NOG_STEPS
+        nog, nog_ms, nog_groups, nog_launches = _disk_train(
+            nog_cfg, dev, "nog", total, DISK_NOG_PRINT)
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    nog_eval = nog["last_eval"]
+    hist = [m for _, m in nog["history"]]
+    if not all(m["lpips_loss"] > 0 and m["sds_loss"] == 0 for m in hist):
+        raise AssertionError(f"nog: lpips_loss / sds_loss {hist}")
+    for label, launches in (("s1", s1_launches), ("nog", nog_launches)):
+        for k in ("field_fused", "field_fused_sigma", "merge128",
+                  "field_fused_bwd"):
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by disk "
+                                     f"{label}")
+    evdir = nog_dir / f"eval_images_{total}"
+    rgb = np.load(evdir / "rgb.npy")
+    pngs = sorted((evdir / "rgb").glob("*.png"))
+    if len(pngs) != n_test or not all(
+            np.array_equal(read_png(str(p)), to8b(rgb[k]))
+            for k, p in enumerate(pngs)):
+        raise AssertionError(f"eval PNGs under {evdir} differ from the maps")
+    for label, ev in (("s1", s1_eval), ("nog", nog_eval)):
+        if not (ev and all(np.isfinite(ev[f"eval_{k}"]) for k in
+                           ("psnr", "psnr_masked", "psnr_unmasked"))):
+            raise AssertionError(f"disk {label}: eval {ev}")
+    print(f"disk s1: {DISK_S1_STEPS} steps from the disk scene: {s1_ms:.3f} "
+          f"ms per step (median of {len(s1_groups)} groups of "
+          f"{DISK_S1_PRINT}); launches {json.dumps(s1_launches)}; eval "
+          f"{json.dumps(s1_eval)}")
+    print(f"disk nog: {DISK_NOG_STEPS} steps from s1's checkpoint (LPIPS "
+          f"patches {nog_cfg.train.n_patches} x {nog_cfg.train.patch_len}², "
+          f"random VGG, gradient_clip {nog_cfg.train.gradient_clip}, no "
+          f"guidance): {nog_ms:.3f} ms per step (median of "
+          f"{len(nog_groups)} groups of {DISK_NOG_PRINT}: "
+          f"{', '.join(f'{g:.3f}' for g in nog_groups)}); launches "
+          f"{json.dumps(nog_launches)}; eval {json.dumps(nog_eval)}; "
+          f"{len(pngs)} eval PNGs equal to8b of the maps")
+    launches = {k: s1_launches[k] + nog_launches[k] for k in s1_launches}
+    return {"launches": launches, "nog": nog, "nog_cfg": nog_cfg,
+            "nog_ms": nog_ms, "datadir": str(workdir / "scene")}
+
+
+def profile_nog(dev, disk: dict, outdir: Path) -> None:
+    """--profile: one traced nog step on the disk phase's trained state."""
+    from gbnerf_tpu_torch.data.llff import load_colmap_depth
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.train.loop import banks_to_device, scene_to_device
+    from gbnerf_tpu_torch.train.step import make_train_step_stage2
+
+    out, cfg = disk["nog"], disk["nog_cfg"]
+    state, scene = out["state"], out["scene"]
+    depth_gts = load_colmap_depth(disk["datadir"], cfg.data.factor,
+                                  skip_first=cfg.data.test_split_count)
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2], depth_gts)
+    scene_dev = scene_to_device(scene, banks, dev)
+    banks_dev = banks_to_device(banks, dev)
+    step = make_train_step_stage2(cfg, state.coarse, state.fine, scene.near,
+                                  scene.far, scene.hwf, lpips_fn=out["lpips"])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    profile_once(lambda: step(state, scene_dev, banks_dev, gen), "nog_step",
+                 outdir, disk["nog_ms"])
+
+
 def profile_paths(workdir: Path) -> dict:
     """The profiling entry points in-process, each with its own launch
     counts → {path: launches}. prof_field at its full workload is K6's
@@ -1490,6 +1715,10 @@ def main() -> None:
             cfg, dev, scene, depth_gts, Path(workdir), TRAIN_STEPS)
     state = out["state"]
     sds_gradient_check(cfg2, dev, out2, scene)
+    # ---- 13. the disk phase: scene to disk and back, s1 → nog (own counts)
+    disk_dir = tempfile.TemporaryDirectory()
+    disk = disk_phase(dev, Path(disk_dir.name))
+    check_lpips(dev)
 
     # ---- 6. one step on the card vs the same step on the CPU plain path,
     # and one full-width step twice from one state (bit-equal)
@@ -1517,9 +1746,11 @@ def main() -> None:
         profile_once(lambda: step(state, banks, gen), "train_step",
                      args.profile, step_ms)
         profile_stage2(cfg2, dev, out2, scene, args.profile, step2_ms)
+        profile_nog(dev, disk, args.profile)
+    disk_dir.cleanup()
 
     paths = [render_launches, step_launches, eval_launches, stage2_launches,
-             *prof_launches.values()]
+             disk["launches"], *prof_launches.values()]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",

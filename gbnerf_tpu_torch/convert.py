@@ -18,7 +18,8 @@ per-parameter ``step``.
 
 The SD guidance stack carries across with ``sd_params_from_jax``: the flax
 module names (``down_0_resnets_1``, ``to_out_0``, ``net_0``) map to the
-port's diffusers names, and the leaves to torch's layouts.
+port's diffusers names, and the leaves to torch's layouts. LPIPS's VGG16
+carries across with ``lpips_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -197,3 +198,21 @@ def sd_params_from_jax(unet_tree: Mapping, vae_tree: Mapping,
     CLIPTextEncoder, in that order."""
     return (flax_to_state_dict(unet_tree), flax_to_state_dict(vae_tree),
             flax_to_state_dict(text_tree, _TEXT_RULES))
+
+
+def lpips_params_from_jax(tree: Mapping):
+    """LPIPS weights in the JAX package's layout (utils/lpips.py there, or
+    tools/convert_vgg.py's npz through ``load_vgg16_npz``) → (the port's
+    ``VGG16Features`` state dict, the five ``lin_k`` stage vectors or None).
+    Conv kernels go from flax's HWIO to torch's OIHW."""
+    sd, lins = {}, {}
+    for name, v in tree.items():
+        if isinstance(v, Mapping):                       # conv_{i}
+            sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(v["kernel"], np.float32).transpose(3, 2, 0, 1)))
+            sd[f"{name}.bias"] = torch.from_numpy(
+                np.array(v["bias"], np.float32))
+        else:                                            # lin_{k}
+            lins[name] = torch.from_numpy(np.array(v, np.float32))
+    stages = [lins.get(f"lin_{k}") for k in range(5)]
+    return sd, (stages if all(l is not None for l in stages) else None)

@@ -23,10 +23,12 @@ path at load_llff.py:420-422. We do not reproduce it. ``spherify=True``
 All host-side numpy; the training path uploads the resulting arrays once.
 
 The port's copy of gbnerf_tpu/data/llff.py (``LLFFScene``, the pose
-helpers, ``load_poses_bounds``, ``load_llff_data``, ``load_colmap_depth``),
-with ``imageio`` and ``cv2`` imported only inside the functions that decode
-or resize images: a process that merely imports this module needs neither.
-The NeRD and sensor-depth loaders are not ported yet.
+helpers, ``load_poses_bounds``, ``load_llff_data``, ``load_colmap_depth``)
+that needs neither imageio nor cv2: PNG files are read and written by the
+port's own codec (utils/png.py), and the two resizes are numpy
+(``resize_nearest`` equals cv2's INTER_NEAREST, ``resize_area`` its
+INTER_AREA within one level). Other image formats go through imageio where
+it is installed. The NeRD and sensor-depth loaders are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,15 +39,62 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils.png import read_png, write_png
 from .colmap import qvec2rotmat, read_images_binary, read_points3d_binary
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".JPEG", ".PNG")
 
 
 def _imread(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
+    """PNG through the port's codec always (the tests run the code the card
+    runs); other formats through imageio where it imports."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        raise RuntimeError(f"{path}: without imageio only PNG images are "
+                           "read") from None
     return np.asarray(imageio.imread(path))
+
+
+def resize_nearest(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """[h, w, ...] → [H, W, ...] by cv2.INTER_NEAREST's rule: destination
+    pixel x takes source pixel min(floor(x · (1 / (W / w))), w − 1), the
+    scale inverted in double precision as cv2 does."""
+    def taps(n_src, n_dst):
+        inv = 1.0 / (n_dst / n_src)
+        return np.minimum(np.floor(np.arange(n_dst) * inv).astype(np.int64),
+                          n_src - 1)
+
+    return img[taps(img.shape[0], H)][:, taps(img.shape[1], W)]
+
+
+def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """[n_dst, n_src] weights of cv2.INTER_AREA's downsampling along one
+    axis: destination pixel i averages the source interval [i·s, (i+1)·s),
+    s = n_src / n_dst, each source pixel weighted by its overlap."""
+    s = n_src / n_dst
+    lo = np.arange(n_dst)[:, None] * s
+    k = np.arange(n_src)[None, :]
+    overlap = np.clip(np.minimum(k + 1, lo + s) - np.maximum(k, lo), 0, None)
+    return overlap / overlap.sum(1, keepdims=True)
+
+
+def resize_area(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """[h, w, ...] → [H, W, ...] (H ≤ h, W ≤ w) by area averaging, as
+    cv2.INTER_AREA downsamples: at an integer factor that divides h and w
+    the box mean, otherwise fractional overlap weights. Integer images
+    are rounded to the nearest level (cv2 may differ by one level where
+    its single-precision sums round the other way)."""
+    wy = _area_weights(img.shape[0], H)
+    wx = _area_weights(img.shape[1], W)
+    out = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))
+    out = np.moveaxis(np.tensordot(wx, out, axes=(1, 1)), 0, 1)
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
+    return out.astype(img.dtype)
 
 
 def _list_images(d: str) -> List[str]:
@@ -200,9 +249,7 @@ def _load_mask_like(path: str, shape, normalize_max: bool) -> np.ndarray:
     if m.ndim > 2:
         m = m[..., 0]
     if m.shape != shape:
-        import cv2
-
-        m = cv2.resize(m, (shape[1], shape[0]), interpolation=cv2.INTER_NEAREST)
+        m = resize_nearest(m, shape[0], shape[1])
     return m
 
 
@@ -210,13 +257,13 @@ def _minify(basedir: str, factor: int, *, origin: bool = True) -> None:
     """Generate images_{factor}/ from full-res assets (pure-Python _minify).
 
     Parity: the reference DS_NeRF/load_llff.py:14-66 (`_minify`), minus
-    the ImageMagick `mogrify` shell-out — cv2.resize INTER_AREA is the same
+    the ImageMagick `mogrify` shell-out — ``resize_area`` is the same
     area-average downsampling. Mirrors whichever of the SPIn-NeRF subdirs
     (RGB_inpainted / label / Depth_inpainted) exist at full res; a plain
-    images/ dir (origin=False layouts) is downsampled flat.
+    images/ dir (origin=False layouts) is downsampled flat. Each image is
+    written as PNG under its stem (as mogrify's ``-format png`` does; the
+    JAX package keeps the source's name and format).
     """
-    import cv2
-
     src_base = os.path.join(basedir, "images")
     dst_base = os.path.join(basedir, f"images_{factor}")
     subdirs = [d for d in ("RGB_inpainted", "label", "Depth_inpainted")
@@ -225,16 +272,14 @@ def _minify(basedir: str, factor: int, *, origin: bool = True) -> None:
               for d in subdirs] if subdirs else [(src_base, dst_base)])
     if not os.path.isdir(src_base):
         return
-    import imageio.v2 as imageio
-
     for src, dst in pairs:
         os.makedirs(dst, exist_ok=True)
         for f in _list_images(src):
-            img = np.asarray(imageio.imread(f))
+            img = _imread(f)
             H, W = img.shape[:2]
-            small = cv2.resize(img, (W // factor, H // factor),
-                               interpolation=cv2.INTER_AREA)
-            imageio.imwrite(os.path.join(dst, os.path.basename(f)), small)
+            small = resize_area(img, H // factor, W // factor)
+            stem = os.path.splitext(os.path.basename(f))[0]
+            write_png(os.path.join(dst, stem + ".png"), small)
 
 
 def load_llff_data(
@@ -255,7 +300,8 @@ def load_llff_data(
     subdir when ``origin=True``). When the factor dir is absent but a
     full-res ``images/`` exists, it is generated on the fly by ``_minify``
     — the reference shells out to ImageMagick mogrify (load_llff.py:52-59);
-    ours is pure cv2 INTER_AREA with the same on-disk cache layout.
+    ours is ``resize_area`` (cv2's INTER_AREA) with the same on-disk cache
+    layout.
     """
     all_poses, bds = load_poses_bounds(basedir)
 

@@ -154,16 +154,17 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
         latent_size=latent_size, text_model=text, tokenizer=tok)
 
 
-def _resize(img: torch.Tensor, size: int, method: str = "bilinear"
+def _resize(img: torch.Tensor, size, method: str = "bilinear"
             ) -> torch.Tensor:
-    """[B, H, W, C] → [B, size, size, C], as jax.image.resize (see the
-    module note)."""
+    """[B, H, W, C] → [B, h, w, C] with (h, w) = size (an int: square), as
+    jax.image.resize (see the module note)."""
+    h, w = (size, size) if isinstance(size, int) else size
     x = img.permute(0, 3, 1, 2)
     if method == "nearest":
-        x = F.interpolate(x, size=(size, size), mode="nearest-exact")
+        x = F.interpolate(x, size=(h, w), mode="nearest-exact")
     else:
-        down = size < img.shape[1] or size < img.shape[2]
-        x = F.interpolate(x, size=(size, size), mode="bilinear",
+        down = h < img.shape[1] or w < img.shape[2]
+        x = F.interpolate(x, size=(h, w), mode="bilinear",
                           align_corners=False, antialias=down)
     return x.permute(0, 2, 3, 1)
 

@@ -1,10 +1,12 @@
-"""Eval rendering: pose-path renders, their map dumps and held-out metrics.
+"""Eval rendering: pose-path renders, their image and map dumps and the
+held-out metrics.
 
-Port of gbnerf_tpu/train/eval.py (``render_pose_path``, the metrics of
-``dump_eval_images`` as ``eval_summary``). Maps are written as .npy
-(``save_maps``), the raw-array dumps of the JAX package's render_only; the
-PNG and video writers (imageio) are not ported, so the port needs no image
-codec to train or render.
+Port of gbnerf_tpu/train/eval.py: ``render_pose_path``,
+``dump_eval_images`` (rgb/disp PNGs through the port's codec, utils/png.py,
+and the metrics, with LPIPS when an LPIPS function is given) with its
+metric core ``eval_summary``, and ``save_maps`` (each map as .npy, the
+raw-array dumps of the JAX package's render_only). The video writer is
+not ported: spiral renders stay .npy maps.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.metrics import to8b
+from ..utils.png import write_png
 from .step import _full_view_rays, make_image_renderer
 
 
@@ -59,8 +63,7 @@ def eval_summary(maps: Dict[str, np.ndarray], gt: Optional[np.ndarray] = None,
     """Held-out metrics of a pose-path render, as the JAX package's
     dump_eval_images computes them: mean PSNR over the ground-truth views,
     and where a view has an inpaint-region mask (1 = inpainted) the PSNR
-    inside it and outside it. Entries are None when not computable (LPIPS
-    is not ported)."""
+    inside it and outside it. Entries are None when not computable."""
     psnrs, m_psnrs, u_psnrs = [], [], []
     if gt is not None:
         for k in range(len(maps["rgb"])):
@@ -76,3 +79,38 @@ def eval_summary(maps: Dict[str, np.ndarray], gt: Optional[np.ndarray] = None,
 
     return {"psnr": mean(psnrs), "psnr_masked": mean(m_psnrs),
             "psnr_unmasked": mean(u_psnrs)}
+
+
+def dump_eval_images(maps: Dict[str, np.ndarray], outdir: str, *,
+                     gt: Optional[np.ndarray] = None, lpips_fn=None,
+                     gt_masks: Optional[np.ndarray] = None
+                     ) -> Dict[str, Optional[float]]:
+    """Per-frame ``rgb/NNN.png`` and ``disp/NNN.png`` (disparity over its
+    maximum) under ``outdir`` — the reference's eval_images_{i}/ layout —
+    and the metrics {psnr, lpips, psnr_masked, psnr_unmasked}: means over
+    the ground-truth views (``eval_summary``), None where not computable.
+    lpips_fn: an optional utils/lpips.py ``LPIPS``, run on its device;
+    gt_masks: optional [N, H, W] inpaint-region test masks (1 = inpainted).
+    """
+    for sub in ("rgb", "disp"):
+        os.makedirs(os.path.join(outdir, sub), exist_ok=True)
+    lpipss = []
+    for k in range(len(maps["rgb"])):
+        write_png(os.path.join(outdir, "rgb", f"{k:03d}.png"),
+                  to8b(maps["rgb"][k]))
+        disp = maps["disp"][k]
+        write_png(os.path.join(outdir, "disp", f"{k:03d}.png"),
+                  to8b(disp / max(disp.max(), 1e-8)))
+        if gt is not None and lpips_fn is not None:
+            def dev(x):
+                return torch.as_tensor(np.asarray(x, np.float32)[None],
+                                       device=lpips_fn.device)
+
+            with torch.no_grad():
+                lpipss.append(float(torch.mean(lpips_fn(dev(maps["rgb"][k]),
+                                                        dev(gt[k])))))
+    em = eval_summary(maps, gt=gt, gt_masks=gt_masks)
+    return {"psnr": em["psnr"],
+            "lpips": float(np.mean(lpipss)) if lpipss else None,
+            "psnr_masked": em["psnr_masked"],
+            "psnr_unmasked": em["psnr_unmasked"]}

@@ -1,9 +1,11 @@
-"""Training losses of stage 1: the CP-line regulariser and the DS-NeRF
-σ-likelihood (port of the stage-1 half of gbnerf_tpu/train/losses.py).
+"""Training losses (port of gbnerf_tpu/train/losses.py): the CP-line
+regulariser, the DS-NeRF σ-likelihood, the per-pixel gradient clip
+(``pwclip``), the least-squares depth alignment, the masked image-gradient
+loss, and the masked patch sampling of the LPIPS patch loss.
 
-Random draws (the σ-loss jitter uniforms and σ noise) come from a
-``torch.Generator`` or are injected as tensors, so tests can hand both
-packages the same numbers.
+Random draws (the σ-loss jitter uniforms and σ noise, the patch centres)
+come from a ``torch.Generator`` or are injected as tensors, so tests can
+hand both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -75,3 +77,99 @@ def sigma_loss(field_fn, rays_o, rays_d, viewdirs, near, depths, *,
     m = torch.amax(sig, dim=1, keepdim=True).detach()
     e = torch.exp(sig - m)
     return -e[:, -1] / (torch.sum(e, dim=1) + torch.exp(-m[:, 0]))
+
+
+class _PWClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, clip_value):
+        ctx.clip_value = clip_value
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ratio = torch.clamp(ctx.clip_value / g.abs().clamp_min(1e-12),
+                            max=1.0)
+        return g * torch.amin(ratio, dim=-1, keepdim=True), None
+
+
+def pwclip(x: torch.Tensor, clip_value: float = 1.0) -> torch.Tensor:
+    """Identity forward; the backward clips the incoming gradient per pixel
+    (the reference's _hook, suppress_type 0): each row of the last axis is
+    scaled by the smallest of its channels' min(1, clip / |g|), so no
+    channel passes ±clip and the direction is kept."""
+    return _PWClip.apply(x, clip_value)
+
+
+def compute_scale_and_shift(prediction, target, mask):
+    """Per-image least-squares (s, t) minimising ‖s·pred + t − target‖² over
+    the mask (sums over the last two axes); (0, 0) where singular."""
+    a00 = torch.sum(mask * prediction * prediction, dim=(-2, -1))
+    a01 = torch.sum(mask * prediction, dim=(-2, -1))
+    a11 = torch.sum(mask, dim=(-2, -1))
+    b0 = torch.sum(mask * prediction * target, dim=(-2, -1))
+    b1 = torch.sum(mask * target, dim=(-2, -1))
+    det = a00 * a11 - a01 * a01
+    valid = det > 0
+    safe = torch.where(valid, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    scale = torch.where(valid, (a11 * b0 - a01 * b1) / safe, zero)
+    shift = torch.where(valid, (-a01 * b0 + a00 * b1) / safe, zero)
+    return scale, shift
+
+
+def gradient_loss(prediction, target, mask):
+    """Masked image-gradient consistency: the absolute x and y differences
+    of the masked residual, where both pixels are masked, over the mask's
+    size."""
+    diff = (prediction - target) * mask
+    gx = torch.abs(diff[..., :, 1:] - diff[..., :, :-1])
+    mx = mask[..., :, 1:] * mask[..., :, :-1]
+    gy = torch.abs(diff[..., 1:, :] - diff[..., :-1, :])
+    my = mask[..., 1:, :] * mask[..., :-1, :]
+    denom = torch.sum(mask, dim=(-2, -1)).clamp_min(1.0)
+    return (torch.sum(gx * mx, dim=(-2, -1)) / denom
+            + torch.sum(gy * my, dim=(-2, -1)) / denom)
+
+
+def _mask_coords(mask: torch.Tensor):
+    """The (y, x) of the nonzero mask pixels in row-major order, first in
+    an [H·W] table (the other pixels follow): ``jnp.nonzero(mask,
+    size=H*W, fill_value=0)``'s table wherever ``extract_patches`` reads
+    it. A stable sort, so that the card need not wait for the count (a
+    nonzero() would)."""
+    H, W = mask.shape
+    flat = (mask != 0).reshape(-1)
+    order = torch.sort((~flat).to(torch.uint8), stable=True).indices
+    return order // W, order % W
+
+
+def draw_patch_idx(mask: torch.Tensor, n_patches: int,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """n_patches uniform draws from [0, count of mask pixels > 0) (from
+    [0, 1) when the mask is empty): the positions in the mask's pixel table
+    of the patch centres."""
+    count = torch.sum(mask > 0).clamp_min(1)
+    u = torch.rand(n_patches, generator=generator, device=mask.device)
+    return torch.minimum((u * count).long(), count - 1)
+
+
+def extract_patches(img: torch.Tensor, mask: torch.Tensor, patch_len: int,
+                    n_patches: int,
+                    generator: Optional[torch.Generator] = None,
+                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Square patches [n, pl, pl, C] of img [H, W, C] centred on mask pixels
+    (the LPIPS patch loss's sampling), pl = min(patch_len, H, W): centre k
+    is pixel idx[k] of the mask's row-major pixel table, moved inside the
+    image. idx: injected draws [n_patches], else ``draw_patch_idx``."""
+    H, W = img.shape[:2]
+    pl = min(patch_len, H, W)
+    ys, xs = _mask_coords(mask)
+    if idx is None:
+        idx = draw_patch_idx(mask, n_patches, generator)
+    idx = torch.as_tensor(idx, device=img.device).long()
+    sy = torch.clamp(ys[idx] - pl // 2, 0, H - pl)
+    sx = torch.clamp(xs[idx] - pl // 2, 0, W - pl)
+    r = torch.arange(pl, device=img.device)
+    rows, cols = sy[:, None] + r, sx[:, None] + r
+    return img[rows[:, :, None], cols[:, None, :]]

@@ -4,10 +4,10 @@ Port of gbnerf_tpu/train/step.py: ``make_render_fn`` (with its NDC and
 non-NDC branches), ``make_image_renderer``, ``_full_view_rays``,
 ``_sigma_depth_loss``, ``make_train_step_stage1``, and stage 2:
 ``Stage2Batch``, ``select_stage2_view``, ``_masked_rays`` and
-``make_train_step_stage2``. Not ported yet: the frozen-σ field
-(``alpha=``), the data mesh (``mesh=``), and in stage 2 the LPIPS patch
-loss (``lpips_fn``), ``gradient_clip`` (pwclip) and the collaborative
-neighbour views.
+``make_train_step_stage2`` with the LPIPS patch loss (``lpips_fn``) and
+``gradient_clip`` (pwclip). Not ported yet: the frozen-σ field
+(``alpha=``), the data mesh (``mesh=``), and in stage 2 the
+collaborative neighbour views.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from ..core.rays import ndc_rays
 from ..core.render import RenderOutputs, render_rays, render_rays_blocked
 from ..data.rays_bank import sample_batch
 from ..utils.metrics import img2mse, mse2psnr, weighted_mse
-from .losses import cp_tv_loss, sigma_loss
+from .losses import (cp_tv_loss, draw_patch_idx, extract_patches, pwclip,
+                     sigma_loss)
 from .state import TrainState, adam_step, lr_schedule
 
 
@@ -298,13 +299,20 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
     step(state, scene_dev, banks, generator=None, idx=None, draws=None) →
     (state, metrics): a random view (``idx["img"]`` may inject it, and
     ``idx["clf"|"inp"|"depth"]`` the stream draws), the unmasked RGB,
-    inpainted-disparity and COLMAP-depth terms, and with ``guidance_fn``
-    the masked rays rendered and composited into the GT view, the normal
-    map of a 1/normalmap_render_factor full view from the rendered depth,
-    and the score-distillation term at weight sds_loss_weight; one
-    backward and one Adam step at lr_schedule(state.step).
+    inpainted-disparity and COLMAP-depth terms; with ``guidance_fn``, or
+    with ``lpips_fn`` and train.lpips, the masked rays rendered (through
+    pwclip with gradient_clip) and composited into the GT view; with
+    ``guidance_fn`` the normal map of a 1/normalmap_render_factor full
+    view from the rendered depth and the score-distillation term at
+    weight sds_loss_weight; with ``lpips_fn`` (a [B,h,w,3]×2 → [B]
+    distance, utils/lpips.py) the perceptual distance of n_patches
+    patches cut at the same masked positions from the composite and the
+    GT view, at weight lpips_weight; one backward and one Adam step at
+    lr_schedule(state.step).
     ``step.loss_fn(batch, step_i, generator=None, draws=None)`` → (loss,
-    metrics) is exposed for the loss tests; ``draws`` goes to guidance_fn.
+    metrics) is exposed for the loss tests; ``draws`` goes to guidance_fn,
+    and ``draws["patches"]`` [n_patches] may inject the patch positions
+    (``extract_patches``'s idx).
     hwf: (H, W, focal) of the training views.
 
     Divergence kept from the JAX package: the reference's shipped stage-2
@@ -316,12 +324,7 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
     if mesh is not None:
         raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
                                   "the port trains on one device")
-    if lpips_fn is not None:
-        raise NotImplementedError("the LPIPS patch loss (lpips_fn) is not "
-                                  "ported yet")
     t, d, g = cfg.train, cfg.data, cfg.guidance
-    if t.gradient_clip:
-        raise NotImplementedError("gradient_clip (pwclip) is not ported yet")
     if guidance_fn is not None and g.is_colla_guidance:
         raise NotImplementedError("collaborative guidance (is_colla_guidance)"
                                   " is not ported yet")
@@ -361,33 +364,49 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                                              dep, near, generator)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
-        sds_loss = zero
-        if guidance_fn is not None:
+        sds_loss = lpips_loss = zero
+        use_lpips = lpips_fn is not None and t.lpips
+        if guidance_fn is not None or use_lpips:
             # render the masked pixels and composite them into the GT view
             ro, rd = _masked_rays(H, W, focal, batch.pose, batch.coords)
             out_m = render(ro, rd, generator, train=True)
-            combin = _composite(batch.image, batch.coords, batch.valid,
-                                out_m.rgb)
+            rgb_m = pwclip(out_m.rgb) if t.gradient_clip else out_m.rgb
+            combin = _composite(batch.image, batch.coords, batch.valid, rgb_m)
             normal_map = None
-            if g.is_normal_guidance:
+            if g.is_normal_guidance and guidance_fn is not None:
                 ro_n, rd_n = _full_view_rays(H_r, W_r, focal_r, batch.pose)
                 out_n = render(ro_n.reshape(-1, 3), rd_n.reshape(-1, 3),
                                generator, train=True)
                 depth_n = out_n.depth.reshape(H_r, W_r)
                 pts = depth2xyz(depth_n, torch.tensor(K_r, device=dev))
                 normal_map = (depth2normal_geo(pts) + 1.0) / 2.0
-            sds_loss = guidance_fn(step_i, combin, normal_map, batch.mask,
-                                   generator,
-                                   masked_latents=batch.masked_latents,
-                                   draws=draws)
-            loss = loss + g.sds_loss_weight * sds_loss
+                if t.gradient_clip:
+                    normal_map = pwclip(normal_map)
+            if use_lpips:
+                # masked-region perceptual patches: the composite against
+                # the GT view, cut at the same positions
+                pidx = (draws or {}).get("patches")
+                if pidx is None:
+                    pidx = draw_patch_idx(batch.mask, t.n_patches, generator)
+                pr = extract_patches(combin, batch.mask, t.patch_len,
+                                     t.n_patches, idx=pidx)
+                pg = extract_patches(batch.image, batch.mask, t.patch_len,
+                                     t.n_patches, idx=pidx)
+                lpips_loss = torch.mean(lpips_fn(pr, pg))
+                loss = loss + t.lpips_weight * lpips_loss
+            if guidance_fn is not None:
+                sds_loss = guidance_fn(step_i, combin, normal_map,
+                                       batch.mask, generator,
+                                       masked_latents=batch.masked_latents,
+                                       draws=draws)
+                loss = loss + g.sds_loss_weight * sds_loss
 
         if t.tv_loss_weight > 0:
             loss = loss + t.tv_loss_weight * cp_tv_loss(fields)
 
         return loss, {"img_loss": img_loss, "depth_loss": depth_loss,
                       "sds_loss": sds_loss, "sigma_loss": sig_loss,
-                      "psnr": mse2psnr(img_loss)}
+                      "lpips_loss": lpips_loss, "psnr": mse2psnr(img_loss)}
 
     def step(state: TrainState, scene_dev, banks, generator=None, idx=None,
              draws=None):

@@ -3,7 +3,9 @@ sampling and the image losses.
 
 The loaders and ``build_ray_banks`` are numpy on both sides and must give
 equal arrays, on a scene written by tools/make_synthetic_scene.py (with a
-synthetic COLMAP sparse model). ``sample_batch`` is held to the JAX draw by
+synthetic COLMAP sparse model), and on one written by the port's twin of
+that tool, with the port's loader also run where imageio and cv2 cannot
+be imported. ``sample_batch`` is held to the JAX draw by
 injecting the indices JAX drew.
 """
 import os
@@ -24,6 +26,7 @@ from gbnerf_tpu.utils import metrics as jmetrics
 from gbnerf_tpu_torch.data import colmap as tcolmap
 from gbnerf_tpu_torch.data import llff as tllff
 from gbnerf_tpu_torch.data import rays_bank as tbank
+from gbnerf_tpu_torch.utils.png import read_png, write_png
 from gbnerf_tpu_torch.utils import metrics as tmetrics
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -164,6 +167,107 @@ def test_llff_module_imports_without_image_codecs():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=ROOT, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def twin_scene_dir(tmp_path_factory):
+    """The same scene written by the port's twin of the tool."""
+    out = tmp_path_factory.mktemp("twin") / "scene"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-m",
+                    "gbnerf_tpu_torch.tools.make_synthetic_scene", str(out),
+                    "--task", "inpaint", "--colmap_sparse", "--n_sparse",
+                    "30", "--n_train", str(N_TRAIN), "--n_test", str(N_TEST),
+                    "--H", "24", "--W", "32"], check=True, env=env, cwd=ROOT,
+                   capture_output=True, timeout=120)
+    return str(out)
+
+
+def test_load_llff_data_of_the_twins_scene_matches_jax(twin_scene_dir):
+    """Both packages' loaders on a scene the port's twin wrote (PNGs of the
+    port's codec): equal arrays (atol 1e-6: the same uint8 / 255)."""
+    got = tllff.load_llff_data(twin_scene_dir, 4, test_split_count=N_TEST)
+    ref = jllff.load_llff_data(twin_scene_dir, 4, test_split_count=N_TEST)
+    for field in got.__dataclass_fields__:
+        g, r = getattr(got, field), getattr(ref, field)
+        if isinstance(g, np.ndarray):
+            np.testing.assert_allclose(g, r, rtol=0, atol=1e-6,
+                                       err_msg=field)
+        else:
+            assert tuple(np.atleast_1d(g)) == tuple(np.atleast_1d(r)), field
+    assert got.masks_test is not None and got.masks.max() == 1.0
+
+
+_BLOCKED_LOAD = """
+import sys
+sys.modules["imageio"] = None
+sys.modules["cv2"] = None
+import numpy as np
+from gbnerf_tpu_torch.data import llff
+scene = llff.load_llff_data(sys.argv[1], 4, test_split_count=int(sys.argv[3]))
+depth = llff.load_colmap_depth(sys.argv[1], 4, skip_first=int(sys.argv[3]))
+np.savez(sys.argv[2], images=scene.images, masks=scene.masks,
+         depths=scene.inpainted_depths, images_test=scene.images_test,
+         masks_test=scene.masks_test, poses=scene.poses,
+         d0=depth[0]["depth"])
+"""
+
+
+def test_port_loader_runs_without_imageio_and_cv2(twin_scene_dir, tmp_path):
+    """The card's machine has neither module: with both blocked the port
+    loads the scene (and minifies a full-resolution one) to the arrays the
+    JAX package loads with them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = tmp_path / "blocked.npz"
+    subprocess.run([sys.executable, "-c", _BLOCKED_LOAD, twin_scene_dir,
+                    str(out), str(N_TEST)], check=True, env=env, cwd=ROOT,
+                   timeout=120)
+    ref = jllff.load_llff_data(twin_scene_dir, 4, test_split_count=N_TEST)
+    depth = jllff.load_colmap_depth(twin_scene_dir, 4, skip_first=N_TEST)
+    with np.load(out) as got:
+        for k, r in (("images", ref.images), ("masks", ref.masks),
+                     ("depths", ref.inpainted_depths),
+                     ("images_test", ref.images_test),
+                     ("masks_test", ref.masks_test), ("poses", ref.poses),
+                     ("d0", depth[0]["depth"])):
+            np.testing.assert_allclose(got[k], r, rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_minify_without_imageio_and_cv2_within_one_level_of_jax(
+        twin_scene_dir, tmp_path):
+    """A scene shipped at full resolution only (images/, no images_4/):
+    the port's _minify (area resize, PNG) against the JAX package's
+    (cv2.INTER_AREA, imageio): within one level (1/255) of each other."""
+    import shutil
+
+    full = tmp_path / "full"
+    shutil.copytree(twin_scene_dir, full)
+    shutil.move(str(full / "images_4"), str(full / "images_small"))
+    src = tllff.load_llff_data(twin_scene_dir, 4, test_split_count=N_TEST)
+    # the full-resolution assets: each image ×4 by pixel repetition
+    for sub in ("RGB_inpainted", "label", "Depth_inpainted"):
+        os.makedirs(full / "images" / sub)
+        for f in sorted(os.listdir(full / "images_small" / sub)):
+            img = read_png(str(full / "images_small" / sub / f))
+            big = np.repeat(np.repeat(img, 4, 0), 4, 1)
+            big[1::4, 2::4] = big[1::4, 2::4] // 2     # not a flat box
+            write_png(str(full / "images" / sub / f), big)
+    jdir = tmp_path / "jfull"
+    shutil.copytree(full, jdir)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = tmp_path / "blocked.npz"
+    subprocess.run([sys.executable, "-c", _BLOCKED_LOAD, str(full),
+                    str(out), str(N_TEST)], check=True, env=env, cwd=ROOT,
+                   timeout=120)
+    ref = jllff.load_llff_data(str(jdir), 4, test_split_count=N_TEST)
+    with np.load(out) as got:
+        for k, r in (("images", ref.images), ("masks", ref.masks),
+                     ("depths", ref.inpainted_depths)):
+            assert got[k].shape == r.shape == getattr(
+                src, {"depths": "inpainted_depths"}.get(k, k)).shape
+            np.testing.assert_allclose(got[k], r, rtol=0,
+                                       atol=1 / 255 + 1e-6, err_msg=k)
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,9 @@
 the whole ``step.loss_fn`` on a hand-built ``Stage2Batch`` with the tiny
 SD stack (loss, every term, every field gradient), and a few ``train()``
 steps of stage 2 on the CPU (``sd_tiny``, warm-started from a stage-1
-checkpoint), with the refusals of what is not ported yet.
+checkpoint), with the refusals of what is not ported yet; and the nog
+configuration of tools/run_ablation.py (no guidance, the LPIPS patch loss
+on the composite, gradient_clip) against the JAX package's loss.
 
 The scene is chip_smoke.py's in-memory SPIn-NeRF-like scene at a small
 size (intruder-sphere masks, inpainted disparities, COLMAP-style depth
@@ -32,12 +34,14 @@ from gbnerf_tpu.config import (Config, DataConfig, FieldConfig,
 from gbnerf_tpu.guidance import stable as jst
 from gbnerf_tpu.train import state as jstate
 from gbnerf_tpu.train import step as jstep
+from gbnerf_tpu.utils import lpips as jlpips
 from gbnerf_tpu_torch import convert
 from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
 from gbnerf_tpu_torch.guidance import stable as tst
 from gbnerf_tpu_torch.train import loop as tloop
 from gbnerf_tpu_torch.train import state as tstate
 from gbnerf_tpu_torch.train import step as tstep
+from gbnerf_tpu_torch.utils import lpips as tlpips
 
 from _sd_pair import guidance_draws, make_stack
 
@@ -234,14 +238,120 @@ def test_stage2_unported_options_raise(scene):
     cfg = _cfg()
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
     args = (cfg, tc, tf, scene.near, scene.far, scene.hwf)
-    for kw in ({"lpips_fn": object()}, {"alpha": (tc, None)},
-               {"mesh": object()}):
+    for kw in ({"alpha": (tc, None)}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tstep.make_train_step_stage2(*args, **kw)
-    for c in (cfg.replace(train=dataclasses.replace(cfg.train,
-                                                    gradient_clip=True)),
-              cfg.replace(guidance=dataclasses.replace(
-                  cfg.guidance, is_colla_guidance=True))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tstep.make_train_step_stage2(c, *args[1:],
-                                         guidance_fn=lambda *a, **k: 0.0)
+    c = cfg.replace(guidance=dataclasses.replace(cfg.guidance,
+                                                 is_colla_guidance=True))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tstep.make_train_step_stage2(c, *args[1:],
+                                     guidance_fn=lambda *a, **k: 0.0)
+
+
+def _nog_cfg(**train):
+    """tools/run_ablation.py's nog arm: no guidance, the LPIPS patch loss
+    (32-pixel patches, 4 a step) and gradient_clip; lpips_weight 50 here so
+    that the LPIPS term weighs as much as the image term."""
+    cfg = _cfg(is_rgb_guidance=False)
+    kw = dict(lpips=True, gradient_clip=True, patch_len=32, n_patches=4,
+              lpips_weight=50.0)
+    kw.update(train)
+    return cfg.replace(train=dataclasses.replace(cfg.train, **kw))
+
+
+@pytest.fixture(scope="module")
+def lpips_pair():
+    j = jlpips.LPIPS(jax.random.PRNGKey(9))
+    return j, tlpips.LPIPS(weights=jax.tree_util.tree_map(np.asarray,
+                                                          j.params))
+
+
+def test_stage2_nog_loss_fn_matches_jax(scene, rng, lpips_pair):
+    """The nog arm's loss: no guidance_fn, lpips_fn on (both packages on one
+    set of VGG weights), gradient_clip on; the port handed the JAX draw of
+    the patch centres (randint(fold_in(k_g, 7), …))."""
+    scene, depth_gts = scene
+    cfg = _nog_cfg()
+    jl, tl = lpips_pair
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2], depth_gts)
+    b = _batch(scene, banks, rng)
+    st, tc, tf = tstate.create_train_state(cfg, torch.Generator().manual_seed(
+        3))
+    params = jax.tree_util.tree_map(jnp.asarray, convert.params_to_jax(
+        {"coarse": tc.state_dict(), "fine": tf.state_dict()}))
+    jc, jf = jstate.build_field(cfg, fine=False), jstate.build_field(
+        cfg, fine=True)
+    step_i, key = 7, jax.random.PRNGKey(4)
+    jsf = jstep.make_train_step_stage2(cfg, jc, jf, scene.near, scene.far,
+                                       scene.hwf, lpips_fn=jl)
+    jb = jstep.Stage2Batch(**jax.tree_util.tree_map(jnp.asarray, b))
+    (ref, jmet), jg = jax.jit(jax.value_and_grad(jsf.loss_fn, has_aux=True))(
+        params, jb, step_i, key)
+    k_g = jax.random.split(key, 6)[5]
+    count = max(int((b["mask"] > 0).sum()), 1)
+    pidx = np.asarray(jax.random.randint(jax.random.fold_in(k_g, 7),
+                                         (cfg.train.n_patches,), 0, count))
+
+    tsf = tstep.make_train_step_stage2(cfg, tc, tf, scene.near, scene.far,
+                                       scene.hwf, lpips_fn=tl)
+    loss, m = tsf.loss_fn(tstep.Stage2Batch(**_to_torch(b)), step_i,
+                          draws={"patches": torch.from_numpy(pidx.copy())})
+    loss.backward()
+    # the LPIPS term is a real share of the loss, and no guidance ran
+    assert 0.2 < cfg.train.lpips_weight * m["lpips_loss"].item() / loss.item()
+    assert m["sds_loss"].item() == 0.0 == float(jmet["sds_loss"])
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-3)
+    for k in ("img_loss", "depth_loss", "sigma_loss"):
+        np.testing.assert_allclose(m[k].item(), float(jmet[k]), rtol=1e-3,
+                                   err_msg=k)
+    got = convert.params_to_jax({
+        name: {k: p.grad for k, p in mod.named_parameters()}
+        for name, mod in (("coarse", tc), ("fine", tf))})
+    for path, r in jax.tree_util.tree_leaves_with_path(jg):
+        g = got
+        for part in path:
+            g = g[part.key]
+        r = np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=3e-2,
+                                   atol=5e-3 * max(np.abs(r).max(), 1e-30),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_stage2_lpips_patches_hold_the_render_at_a_masked_corner(scene, rng,
+                                                                 lpips_pair):
+    """A view whose pixel (0, 0) is masked: the patch cut there from the
+    composite holds the render of that pixel (the port sends the padded
+    entries of the masked-pixel table to a spare slot; the JAX package
+    writes them back onto (0, 0), which collides with the render there),
+    and the GT patch holds the GT view."""
+    scene, depth_gts = scene
+    scene = dataclasses.replace(scene, masks=scene.masks.copy())
+    scene.masks[1, :3, :4] = 1.0
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2], depth_gts)
+    assert not banks.mask_valid[1].all()           # the table is padded
+    cfg = _nog_cfg(patch_len=8)
+    st, tc, tf = tstate.create_train_state(cfg, torch.Generator().manual_seed(
+        5))
+    seen = []
+
+    def spy(a, b):
+        seen.append((a.detach(), b))
+        return tlpips_pair_fn(a, b)
+
+    tlpips_pair_fn = lpips_pair[1]
+    b = tstep.Stage2Batch(**_to_torch(_batch(scene, banks, rng)))
+    step = tstep.make_train_step_stage2(cfg, tc, tf, scene.near, scene.far,
+                                        scene.hwf, lpips_fn=spy)
+    step.loss_fn(b, 0, draws={"patches": torch.zeros(4, dtype=torch.long)})
+    (pr, pg), = seen
+    render = tstep.make_render_fn(cfg, tc, tf, scene.near, scene.far,
+                                  hwf=scene.hwf)
+    ro, rd = tstep._masked_rays(H, W, scene.hwf[2], b.pose, b.coords[:1])
+    with torch.no_grad():
+        corner = render(ro, rd, train=True).rgb[0]
+    assert tuple(b.coords[0].tolist()) == (0, 0)
+    torch.testing.assert_close(pr[0, 0, 0], corner, rtol=1e-5, atol=1e-6)
+    assert torch.equal(pg[0], b.image[:8, :8])
+    assert not torch.allclose(pr[0, 0, 0], pg[0, 0, 0])

@@ -49,6 +49,9 @@ from gbnerf_tpu_torch.train import losses as tlosses
 from gbnerf_tpu_torch.train import state as tstate
 from gbnerf_tpu_torch.train import step as tstep
 from gbnerf_tpu_torch.train.checkpoint import CheckpointManager
+from gbnerf_tpu_torch.train import eval as teval
+from gbnerf_tpu_torch.utils.metrics import to8b
+from gbnerf_tpu_torch.utils.png import read_png
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -465,6 +468,14 @@ def test_train_lowers_img_loss_checkpoints_evaluates_and_resumes(tmp_path):
                 for k in ("rgb", "disp", "depth", "acc")}
         assert maps["rgb"].shape[1:] == (24, 32, 3), d
         assert all(np.isfinite(v).all() for v in maps.values()), d
+    # the eval's PNGs are to8b of its maps
+    maps = {k: np.load(exp / "eval_images_40" / f"{k}.npy")
+            for k in ("rgb", "disp")}
+    np.testing.assert_array_equal(
+        read_png(str(exp / "eval_images_40" / "rgb" / "000.png")),
+        to8b(maps["rgb"][0]))
+    assert read_png(str(exp / "eval_images_40" / "disp" / "000.png")
+                    ).shape == (24, 32)
     # resume: the same config with more iterations continues at 40
     cfg2 = cfg.replace(train=dataclasses.replace(cfg.train, N_iters=50))
     out2 = tloop.train(cfg2, scene=scene, device="cpu",
@@ -532,13 +543,9 @@ def test_train_nan_restarts_then_aborts(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Stage 2 trains now (tests/test_torch_stage2.py); LPIPS, the
+    """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py); the
     other loaders and the frozen-σ field and mesh of the step do not."""
     cfg = _loop_cfg(tmp_path)
-    with pytest.raises(NotImplementedError):
-        tloop.train(cfg.replace(train=dataclasses.replace(
-            cfg.train, first_stage=False, lpips=True)),
-            scene=_scene(2, 8, 8), device="cpu")
     with pytest.raises(NotImplementedError):
         tloop.load_scene(cfg.replace(data=dataclasses.replace(
             cfg.data, dataset_type="blender")))
@@ -585,3 +592,140 @@ def test_cli_trains_then_renders_only(tmp_path):
     assert (exp / "renderonly_000006" / "path" / "depth.npy").is_file()
     with pytest.raises(SystemExit, match="unknown config key"):
         trun.main(["--config", str(cfg), "--set", "train.nope=1"])
+
+
+def _tool(args, cwd, module=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = ([sys.executable, "-m", module] if module else
+           [sys.executable, str(ROOT / "tools" / "make_synthetic_scene.py")])
+    return subprocess.run(cmd + args, cwd=cwd, env=env, check=True,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("family", ["spheres", "hard"])
+def test_synthetic_scene_twin_writes_the_originals_scene(tmp_path, family):
+    """gbnerf_tpu_torch.tools.make_synthetic_scene against
+    tools/make_synthetic_scene.py with the same arguments: every image
+    decodes to the same array (read by imageio, which the original wrote
+    with), poses_bounds.npy is equal and the sparse/0 model reads back to
+    the same records."""
+    import imageio.v2 as imageio
+
+    from gbnerf_tpu.data import colmap as jcolmap
+
+    args = ["--task", "inpaint", "--colmap_sparse", "--n_sparse", "25",
+            "--n_train", "3", "--n_test", "2", "--H", "20", "--W", "28",
+            "--family", family, "--seed", "3"]
+    _tool([str(tmp_path / "orig")] + args, ROOT)
+    _tool([str(tmp_path / "twin")] + args, ROOT,
+          "gbnerf_tpu_torch.tools.make_synthetic_scene")
+    files = sorted(p.relative_to(tmp_path / "orig")
+                   for p in (tmp_path / "orig").rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "twin")
+                           for p in (tmp_path / "twin").rglob("*")
+                           if p.is_file())
+    pngs = [f for f in files if f.suffix == ".png"]
+    assert len(pngs) == 3 * 3 + 2 * 2
+    for f in pngs:
+        np.testing.assert_array_equal(
+            imageio.imread(tmp_path / "twin" / f),
+            imageio.imread(tmp_path / "orig" / f), err_msg=str(f))
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "twin" / "poses_bounds.npy"),
+        np.load(tmp_path / "orig" / "poses_bounds.npy"))
+    twin = jcolmap.read_model(str(tmp_path / "twin" / "sparse" / "0"))
+    orig = jcolmap.read_model(str(tmp_path / "orig" / "sparse" / "0"))
+    for t, o in zip(twin, orig):
+        assert t.keys() == o.keys()
+        for k in t:
+            for field in t[k].__dataclass_fields__:
+                np.testing.assert_array_equal(getattr(t[k], field),
+                                              getattr(o[k], field))
+
+
+def test_dump_eval_images_matches_jax(tmp_path):
+    """PNGs and metrics of the port's dump_eval_images against the JAX
+    package's on the same maps, ground truth, masks and LPIPS weights:
+    the PNGs decode equal, the PSNRs to rtol 1e-6, LPIPS to rtol 1e-4
+    (tests/test_torch_lpips.py)."""
+    from gbnerf_tpu.train import eval as jeval
+    from gbnerf_tpu.utils import lpips as jlpips
+    from gbnerf_tpu_torch.utils import lpips as tlpips
+
+    rng = np.random.default_rng(0)
+    n, H, W = 3, 34, 40
+    maps = {"rgb": rng.random((n, H, W, 3)).astype(np.float32) * 1.1 - 0.05,
+            "disp": rng.random((n, H, W)).astype(np.float32) * 3}
+    gt = np.clip(maps["rgb"] + rng.normal(0, 0.05, maps["rgb"].shape), 0,
+                 1).astype(np.float32)
+    masks = np.zeros((n, H, W), np.float32)
+    masks[0, 5:20, 8:30] = 1.0
+    masks[2, :4, :] = 1.0                    # view 1 has no mask
+    jl = jlpips.LPIPS(jax.random.PRNGKey(2))
+    tl = tlpips.LPIPS(weights=jax.tree_util.tree_map(np.asarray, jl.params))
+    ref = jeval.dump_eval_images(maps, str(tmp_path / "j"), gt=gt,
+                                 lpips_fn=jl, gt_masks=masks)
+    got = teval.dump_eval_images(maps, str(tmp_path / "t"), gt=gt,
+                                 lpips_fn=tl, gt_masks=masks)
+    assert list(got) == list(ref)
+    for k in ("psnr", "psnr_masked", "psnr_unmasked"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got["lpips"], ref["lpips"], rtol=1e-4)
+    for sub in ("rgb", "disp"):
+        for k in range(n):
+            f = f"{sub}/{k:03d}.png"
+            np.testing.assert_array_equal(read_png(str(tmp_path / "t" / f)),
+                                          read_png(str(tmp_path / "j" / f)))
+    bare = teval.dump_eval_images(maps, str(tmp_path / "b"))
+    assert bare == {"psnr": None, "lpips": None, "psnr_masked": None,
+                    "psnr_unmasked": None}
+
+
+def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
+    """The twin's configs against tools/run_ablation.py's at --production
+    --colmap --lindisp --combine sds --arms s1,nog, paths aside; other arms
+    are refused."""
+    _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
+           "--combine", "sds", "--arms", "s1,nog", "--check"], ROOT,
+          "tools.run_ablation")
+    _tool([str(tmp_path / "twin"), "--check"], ROOT,
+          "gbnerf_tpu_torch.tools.run_ablation")
+    for arm in ("s1", "nog"):
+        o = (tmp_path / "orig" / f"cfg_{arm}.txt").read_text().replace(
+            str(tmp_path / "orig"), "OUT")
+        t = (tmp_path / "twin" / f"cfg_{arm}.txt").read_text().replace(
+            str(tmp_path / "twin"), "OUT")
+        assert t == o, arm
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-m",
+                        "gbnerf_tpu_torch.tools.run_ablation",
+                        str(tmp_path / "x"), "--arms", "s1,priorNL"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 1 and "A4/A5" in r.stderr
+
+
+def test_run_ablation_twin_s1_then_nog_on_the_cpu(tmp_path):
+    """s1 → nog through the CLI at tiny widths (the original's small-MLP
+    field, 24 × 32 views, 4 + 4 steps): both arms evaluate, nog resumes
+    from s1's checkpoint with random LPIPS, and the eval PNGs decode to
+    to8b of the eval maps."""
+    out = tmp_path / "abl"
+    r = _tool([str(out), "--smoke", "--iters1", "4", "--iters2", "4",
+               "--H", "24", "--W", "32", "--n_train", "4", "--n_test", "2",
+               "--device", "cpu"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
+    assert "| nog |" in r.stdout
+    res = json.loads((out / "ablation.json").read_text())
+    for arm, it in (("s1", 4), ("nog", 8)):
+        assert res[arm]["iter"] == it
+        for k in ("eval_psnr", "eval_psnr_masked", "eval_psnr_unmasked"):
+            assert np.isfinite(res[arm][k]), (arm, k)
+    log = (out / "nog.log").read_text()
+    assert "resumed at iter 4" in log and "[lpips] WARNING" in log
+    ev = out / "logs" / "nog" / "eval_images_8"
+    rgb = np.load(ev / "rgb.npy")
+    for k in range(2):
+        np.testing.assert_array_equal(read_png(str(ev / "rgb" /
+                                                   f"{k:03d}.png")),
+                                      to8b(rgb[k]))
+    assert (out / "logs" / "nog" / "ckpt" / "8.pt").is_file()
