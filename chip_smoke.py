@@ -81,6 +81,21 @@
    PSNRs, and checks that the eval PNGs decode to to8b of the maps.
    Then LPIPS on the card against the CPU (distance and input gradient on
    4 × 32 × 32 patches). With --profile, one nog step is traced too.
+14. The guided arms on the disk scene: a tiny prior from the tiny-prior
+   CLI (a few steps at latent 256), the scene LoRA from the LoRA CLI on
+   it, then the ablation twin's priorNL-sds config through train() from
+   s1's checkpoint (the prior loaded, the adapters merged, RGB and
+   normal-map SDS with the LPIPS patch loss); ms per step, K7 launched at
+   the tiny stack's shapes. With --profile, one priorNL-sds step is traced.
+15. The LoRA phase: LoRA training of the full-size SD1.5-inpainting UNet
+   (bf16, random weights) at the reference's shape (rank/α 32, batch 4,
+   512², AdamW lr 1e-4) on the disk scene's images and label masks:
+   warm-up and timed steps, peak memory, the adapter count (13,565,952
+   on 192 kernels), K7's re-linearised backward's share of a step; a
+   full-size DDIM inpaint (ms a step); the merged UNet against the
+   functional path; one tiny LoRA step on the card against the CPU; a
+   prior written and read back through utils/msgpack.py. With --profile,
+   one LoRA step is traced.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -142,7 +157,16 @@ ATTN_RTOL, ATTN_ATOL_FRAC = 1e-2, 1e-2
 # heads in the UNet, one head in the VAE; and a ragged N
 ATTN_SHAPES = (("unet 64x64", 16, 4096, 40), ("unet 32x32", 16, 1024, 80),
                ("vae mid", 1, 4096, 512), ("ragged", 3, 4000, 40),
-               ("ragged vae", 1, 4000, 512))
+               ("ragged vae", 1, 4000, 512),
+               # the LoRA step at batch 4 (8 heads), its VAE encode; the
+               # tiny prior's UNet top level and VAE mid block at latent
+               # 256 (32² = 1024 tokens) in prior training at batch 16
+               ("lora unet 64x64", 32, 4096, 40),
+               ("lora unet 32x32", 32, 1024, 80), ("lora vae", 4, 4096, 512),
+               ("prior unet", 32, 1024, 16), ("prior vae", 16, 1024, 32))
+# the shapes timed (the stage-2 path's first, the main-path shape)
+ATTN_TIMED = ("unet 64x64", "unet 32x32", "vae mid", "lora unet 64x64",
+              "lora unet 32x32", "lora vae", "prior unet", "prior vae")
 # the same check with an f32 q (the kernel scales q as it loads it and
 # writes q's dtype): the UNet's head dim, and the VAE's with a ragged N
 ATTN_F32_SHAPES = (("f32 q", 4, 4096, 40), ("f32 q vae", 1, 4000, 512))
@@ -206,6 +230,28 @@ DISK_S1_PRINT, DISK_NOG_PRINT = 50, 20
 # direct convolution: distance to rtol 1e-3, input gradient to atol
 # 2e-3·max|cpu|
 LPIPS_SHAPE, LPIPS_RTOL, LPIPS_GRAD_ATOL_FRAC = (4, 32, 32, 3), 1e-3, 2e-3
+# the guided arms on the disk scene (the ablation twin's priorNL-sds from
+# s1's checkpoint): a tiny prior trained for a few steps by the tiny-prior
+# CLI at latent 256 on PRIOR_DOMAIN domain images, the scene LoRA by the
+# LoRA CLI on it, then priorNL-sds steps through train()
+PRIOR_DOMAIN, PRIOR_STEPS, LORA_TINY_STEPS = 16, 40, 10
+PRIOR_NL_STEPS, PRIOR_NL_PRINT = 60, 20
+# the LoRA phase: the full-size SD1.5-inpainting UNet (bf16, random) at the
+# reference's shape, rank/α 32, batch 4 at 512², AdamW lr 1e-4: warm-up
+# and timed steps; the adapters the JAX package selects on that UNet
+# (jax.eval_shape of its UNet); a full-size DDIM inpaint at DDIM_STEPS
+LORA_BATCH, LORA_WARM, LORA_STEPS, LORA_RANK = 4, 5, 10, 32
+LORA_ADAPTERS, LORA_KERNELS = 13_565_952, 192
+DDIM_STEPS = 10
+# the merged UNet (merge_lora_strict) against the functional path
+# (apply_lora + functional_call): both round W + (α/r)·A@B to bf16 once,
+# so equal up to the order of nothing: ε cosine 0.999
+LORA_MERGE_COS = 0.999
+# one tiny LoRA step (f32 stack at 512², so K7 runs in the UNet and the
+# VAE) on the card against the CPU: the card's K7 rounds q, k, v and p to
+# bf16 where the CPU does not, which moves ε by ≈ 1e-3 relative: the loss
+# to 1e-3 relative, every adapter's gradient to cosine 0.999
+LORA_TINY_LOSS_RTOL, LORA_TINY_GRAD_COS = 1e-3, 0.999
 # the profiling entry points' reps in this script
 PROF_FIELD_REPS, PROF_TRAIN_REPS, PROF_GUIDANCE_REPS = 5, 5, 3
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16
@@ -707,7 +753,7 @@ def check_attention(dev):
                  plan=at.kernel_plan(bh, n, d, dev),
                  kernels_a_call=kernels,
                  finite=bool(torch.isfinite(got).all()))
-        if (label, bh, n, d) in ATTN_SHAPES[:3]:
+        if label in ATTN_TIMED and dtype == torch.bfloat16:
             r["ms"] = cuda_ms(lambda: at.flash_fwd(q, k, v, scale), reps=20)
             r["plain_ms"] = cuda_ms(
                 lambda: at.attention_plain(q, k, v, scale), reps=5)
@@ -724,7 +770,7 @@ def check_attention(dev):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, scale=scale), reps=20)
             r.update(kernel_bound("attention", r))
-            r["prev_ms"] = PREV_MS[("attention", label)]
+            r["prev_ms"] = PREV_MS.get(("attention", label))
         print(f"check attention [{label}] {json.dumps(r)}")
         if (r["n_out_of_tol"] or not r["finite"]
                 or got.dtype != q.dtype or kernels not in (1, 2)):
@@ -1395,7 +1441,8 @@ def disk_phase(dev, workdir: Path) -> dict:
         write_s = time.perf_counter() - t0
         paths = run_ablation.write_configs(str(workdir), ap_.Namespace(
             smoke=False, iters1=DISK_S1_STEPS, iters2=DISK_NOG_STEPS,
-            n_test=n_test))
+            n_test=n_test, combine="sds", latent=256,
+            lora_steps=LORA_TINY_STEPS))
         never = 10 ** 9
 
         def cfg_of(arm, every):
@@ -1508,6 +1555,387 @@ def profile_nog(dev, disk: dict, outdir: Path) -> None:
     gen = torch.Generator(device=dev).manual_seed(13)
     profile_once(lambda: step(state, scene_dev, banks_dev, gen), "nog_step",
                  outdir, disk["nog_ms"])
+
+
+def guided_phase(dev, workdir: Path) -> dict:
+    """The ablation's guided arms on the disk phase's scene: a tiny prior
+    from the tiny-prior CLI (PRIOR_STEPS VAE and UNet steps at latent 256),
+    the scene LoRA from the LoRA CLI on it (LORA_TINY_STEPS steps, batch
+    4, the label masks out of the loss), then the twin's priorNL-sds
+    config for PRIOR_NL_STEPS steps through train() from s1's checkpoint
+    (the prior loaded, the adapters merged, RGB and normal-map SDS from the
+    first step). Each with its own launch counts."""
+    import argparse as ap_
+    import shutil
+
+    from gbnerf_tpu_torch import train_lora
+    from gbnerf_tpu_torch.config import load_reference_config
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.tools import run_ablation, train_tiny_prior
+
+    smi = nvidia_smi_line()
+    prior = workdir / "prior.msgpack"
+    launches = {}
+    # ---- the prior trainer: launches counted from here ...
+    zero_launches()
+    t0 = time.perf_counter()
+    train_tiny_prior.main([
+        str(prior), "--res", "256", "--n_domain", str(PRIOR_DOMAIN),
+        "--steps_vae", str(PRIOR_STEPS), "--steps_unet", str(PRIOR_STEPS),
+        "--chunk", str(PRIOR_STEPS), "--device", DEVICE])
+    torch.cuda.synchronize()
+    prior_s = time.perf_counter() - t0
+    launches["prior"] = all_launches()
+    prior_shapes = dict(at.LAUNCHES_BY_SHAPE)
+    shapes = {f"{n}x{d}": c for (n, d), c in prior_shapes.items()}
+    # ... to here; the LoRA trainer: launches counted from here ...
+    zero_launches()
+    scene = workdir / "scene" / "images_4"
+    t0 = time.perf_counter()
+    train_lora.main([
+        "--tiny", "--sd_prior_ckpt", str(prior), "--latent_size", "256",
+        "--instance_data_dir", str(scene / "RGB_inpainted"),
+        "--instance_mask_dir", str(scene / "label"),
+        "--output_dir", str(workdir / "lora"),
+        "--max_train_steps", str(LORA_TINY_STEPS), "--train_batch_size",
+        "4", "--checkpointing_steps", str(LORA_TINY_STEPS),
+        "--device", DEVICE])
+    torch.cuda.synchronize()
+    lora_s = time.perf_counter() - t0
+    launches["lora"] = all_launches()
+    # ... to here
+    print(f"guided: tiny prior ({PRIOR_DOMAIN} domain images at 256², "
+          f"{PRIOR_STEPS} + {PRIOR_STEPS} steps) in {prior_s:.3f} s, K7 by "
+          f"(N, D) {json.dumps(shapes)}"
+          f"; scene LoRA ({LORA_TINY_STEPS} steps) in {lora_s:.3f} s | "
+          f"{smi}")
+    n_test = DISK_VIEWS[1]
+    paths = run_ablation.write_configs(str(workdir), ap_.Namespace(
+        smoke=False, iters1=DISK_S1_STEPS, iters2=PRIOR_NL_STEPS,
+        n_test=n_test, combine="sds", latent=256,
+        lora_steps=LORA_TINY_STEPS), arms=("s1", "priorNL"))
+    cfg = load_reference_config(paths["priorNL"])
+    never = 10 ** 9
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, i_print=PRIOR_NL_PRINT, i_weights=never))
+    expdir = workdir / "logs" / "priorNL-sds"
+    expdir.mkdir(parents=True)
+    shutil.copytree(workdir / "logs" / "s1" / "ckpt", expdir / "ckpt")
+    total = DISK_S1_STEPS + PRIOR_NL_STEPS
+    out, ms, groups, launches["priorNL"] = _disk_train(
+        cfg, dev, "priorNL-sds", total, PRIOR_NL_PRINT)
+    hist = [m for _, m in out["history"]]
+    if not all(m["sds_loss"] != 0 and m["lpips_loss"] > 0 for m in hist):
+        raise AssertionError(f"priorNL-sds: sds_loss / lpips_loss {hist}")
+    for label, want in (("prior", ("attention",)),
+                        ("lora", ("attention",)),
+                        ("priorNL", ("field_fused", "merge128",
+                                     "field_fused_bwd", "attention"))):
+        for k in want:
+            if launches[label][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by "
+                                     f"{label}")
+    if not {(1024, 16), (1024, 32)} <= set(prior_shapes):
+        raise AssertionError(f"the prior's K7 shapes: {prior_shapes}")
+    ev = out["last_eval"]
+    if not (ev and all(np.isfinite(ev[f"eval_{k}"]) for k in
+                       ("psnr", "psnr_masked", "psnr_unmasked"))):
+        raise AssertionError(f"priorNL-sds: eval {ev}")
+    print(f"guided priorNL-sds: {PRIOR_NL_STEPS} steps from s1's checkpoint "
+          f"(tiny prior + scene LoRA at 256², RGB and normal SDS, LPIPS): "
+          f"{ms:.3f} ms per step (median of {len(groups)} groups of "
+          f"{PRIOR_NL_PRINT}: {', '.join(f'{g:.3f}' for g in groups)}); "
+          f"launches {json.dumps(launches)}; eval {json.dumps(ev)} | {smi}")
+    total_launches = {k: sum(v[k] for v in launches.values())
+                      for k in launches["prior"]}
+    return {"launches": total_launches, "out": out, "cfg": cfg, "ms": ms}
+
+
+def profile_prior_nl(dev, guided: dict, outdir: Path) -> None:
+    """--profile: one traced priorNL-sds step on the guided phase's state."""
+    from gbnerf_tpu_torch.data.llff import load_colmap_depth
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.train.loop import (banks_to_device, build_guidance,
+                                             scene_to_device)
+    from gbnerf_tpu_torch.train.step import make_train_step_stage2
+
+    out, cfg = guided["out"], guided["cfg"]
+    state, scene = out["state"], out["scene"]
+    depth_gts = load_colmap_depth(cfg.data.datadir, cfg.data.factor,
+                                  skip_first=cfg.data.test_split_count)
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2], depth_gts)
+    scene_dev = scene_to_device(scene, banks, dev)
+    guidance_fn, _, _ = build_guidance(cfg, scene_dev, dev, 1)
+    step = make_train_step_stage2(cfg, state.coarse, state.fine, scene.near,
+                                  scene.far, scene.hwf,
+                                  guidance_fn=guidance_fn,
+                                  lpips_fn=out["lpips"])
+    banks_dev = banks_to_device(banks, dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    profile_once(lambda: step(state, scene_dev, banks_dev, gen),
+                 "prior_nl_step", outdir, guided["ms"])
+
+
+def _lora_batch(ds, host_rng, mods, batch: int, dev) -> dict:
+    imgs, masks, captions, imasks = ds.batch(host_rng, batch)
+    with torch.no_grad():
+        embeds = mods.text_model(mods.tokenizer(captions))
+    return {"image": torch.as_tensor(imgs, device=dev),
+            "mask": torch.as_tensor(masks, device=dev),
+            "instance_mask": torch.as_tensor(imasks, device=dev),
+            "embeds": embeds}
+
+
+def _tiny_lora_vs_cpu(dev) -> dict:
+    """One tiny LoRA step's loss and adapter gradients, card against CPU:
+    the same weights (the CPU's init, copied), adapters (B drawn), batch
+    and draws; latent 512, so K7 runs in the UNet and the VAE."""
+    from gbnerf_tpu_torch.config import GuidanceConfig
+    from gbnerf_tpu_torch.guidance import lora
+    from gbnerf_tpu_torch.guidance.stable import build_sd_modules
+    from gbnerf_tpu_torch.guidance.text import CLIPTextConfig
+    from gbnerf_tpu_torch.guidance.unet import UNetConfig
+    from gbnerf_tpu_torch.guidance.vae import VAEConfig
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.train import lora_trainer as lt
+
+    S, B = 512, 2
+    cpu = build_sd_modules(
+        GuidanceConfig(prompt="a photo"), torch.Generator().manual_seed(0),
+        unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
+        text_config=CLIPTextConfig(vocab_size=49408, width=32, layers=2,
+                                   heads=2), latent_size=S,
+        dtype=torch.float32)
+    card = dataclasses.replace(cpu, unet=copy.deepcopy(cpu.unet).to(dev),
+                               vae=copy.deepcopy(cpu.vae).to(dev))
+    gen = torch.Generator().manual_seed(1)
+    ad = lora.init_lora(cpu.unet, rank=4, generator=gen)
+    ad = {k: (v if k.endswith("lora_A") else
+              0.05 * torch.randn(v.shape, generator=gen))
+          for k, v in ad.items()}
+    rng = np.random.default_rng(2)
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (B, S, S, 3),
+                                                    dtype=np.uint8)),
+             "mask": torch.from_numpy(np.stack([
+                 lt.random_mask(rng, S, S) for _ in range(B)]).astype(
+                     np.uint8)),
+             "instance_mask": None,
+             "embeds": cpu.embeds_rgb[[1, 2]].clone()}
+    draws = lt.draw_step(torch.Generator().manual_seed(3), B, S // 8, "cpu")
+    res = {}
+    for name, mods, d in (("cpu", cpu, torch.device("cpu")),
+                          ("card", card, dev)):
+        _, step = lt.make_lora_train_step(mods, rank=4)
+        a = {k: v.detach().clone().to(d).requires_grad_(True)
+             for k, v in ad.items()}
+        b = {k: (v.to(d) if v is not None else None)
+             for k, v in batch.items()}
+        before = at.LAUNCHES["attention"]
+        loss = step.loss_fn(a, b, {k: v.to(d) for k, v in draws.items()})
+        loss.backward()
+        res[name] = (loss.item(), {k: v.grad.detach().cpu()
+                                   for k, v in a.items()},
+                     at.LAUNCHES["attention"] - before)
+    (l_cpu, g_cpu, _), (l_card, g_card, k7) = res["cpu"], res["card"]
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        g_card[k].flatten().double(), g_cpu[k].flatten().double(), dim=0))
+        for k in g_cpu}
+    worst = min(cos, key=cos.get)
+    r = {"loss_card": l_card, "loss_cpu": l_cpu,
+         "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+         "grad_cos_min": cos[worst], "worst": worst, "k7_calls": k7,
+         "adapters": len(cos)}
+    print(f"lora tiny step vs cpu: {json.dumps(r)}")
+    if (r["loss_rel_err"] > LORA_TINY_LOSS_RTOL
+            or r["grad_cos_min"] < LORA_TINY_GRAD_COS or k7 <= 0):
+        raise AssertionError(f"tiny LoRA step, card vs CPU: {r}")
+    return r
+
+
+def lora_phase(dev, datadir: str, outdir=None) -> dict:
+    """The full-size LoRA fine-tune (train/lora_trainer.py) and DDIM inpaint
+    (guidance/pipeline.py) on the card, with their launch counts; then the
+    card-vs-CPU tiny step and a prior written and read back through
+    utils/msgpack.py. See LORA_* above."""
+    from gbnerf_tpu_torch.config import GuidanceConfig
+    from gbnerf_tpu_torch.guidance import lora, weights
+    from gbnerf_tpu_torch.guidance.pipeline import inpaint
+    from gbnerf_tpu_torch.guidance.stable import build_sd_modules
+    from gbnerf_tpu_torch.guidance.text import CLIPTextConfig
+    from gbnerf_tpu_torch.guidance.unet import UNetConfig
+    from gbnerf_tpu_torch.guidance.vae import VAEConfig
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.train import lora_trainer as lt
+
+    smi = nvidia_smi_line()
+    # ---- the LoRA and inpaint main path: launches counted from here ...
+    zero_launches()
+    gcfg = GuidanceConfig(prompt="a photo of a scene",
+                          negative_prompt="blurry")
+    t0 = time.perf_counter()
+    mods = build_sd_modules(gcfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_base = sum(p.numel() for p in mods.unet.parameters())
+    ds = lt.DreamBoothInpaintDataset(
+        str(Path(datadir) / "images_4" / "RGB_inpainted"),
+        mask_dir=str(Path(datadir) / "images_4" / "label"), resolution=512,
+        default_caption="a photo of a scene")
+    host_rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch_size, oom = LORA_BATCH, None
+    while True:
+        init_fn, step = lt.make_lora_train_step(mods, rank=LORA_RANK,
+                                                lr=1e-4, masked_loss=True)
+        adapters, opt = init_fn(torch.Generator(device=dev).manual_seed(2))
+        n_ad = lora.lora_param_count(adapters)
+        t0 = time.perf_counter()
+        batches = [_lora_batch(ds, host_rng, mods, batch_size, dev)
+                   for _ in range(LORA_WARM + LORA_STEPS)]
+        batch_s = (time.perf_counter() - t0) / len(batches)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            losses = [float(step(adapters, opt, b, gen)["loss"])
+                      for b in batches[:LORA_WARM]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches[LORA_WARM:]:
+                m = step(adapters, opt, b, gen)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / LORA_STEPS
+            losses.append(float(m["loss"]))
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch_size == 2:
+                raise
+            oom = {"batch": batch_size, "peak_gib":
+                   torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   "error": str(e).splitlines()[0]}
+            print(f"lora: batch {batch_size} does not fit: {json.dumps(oom)}"
+                  " — running batch 2")
+            del adapters, opt, batches
+            torch.cuda.empty_cache()
+            batch_size = 2
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # K7's re-linearised backward: its share of a step (CUDA events around
+    # each call of _Attend.backward over two more steps)
+    spans, orig = [], at._Attend.backward
+
+    def timed(ctx, g):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        r = orig(ctx, g)
+        b.record()
+        spans.append((a, b))
+        return r
+
+    at._Attend.backward = staticmethod(timed)
+    try:
+        for b in batches[:2]:
+            step(adapters, opt, b, gen)
+        torch.cuda.synchronize()
+    finally:
+        at._Attend.backward = staticmethod(orig)
+    attn_bwd_ms = sum(a.elapsed_time(b) for a, b in spans) / 2
+    # the DDIM inpaint at full size: DDIM_STEPS and 2 steps, the
+    # difference a step (the VAE encode and decode cancel)
+    img = torch.as_tensor(ds.image(0), device=dev).float() / 255.0
+    mask = torch.as_tensor(lt.random_mask(np.random.default_rng(5), 512, 512),
+                           device=dev)
+    g2 = torch.Generator(device=dev).manual_seed(6)
+    inpaint(mods, mods.embeds_rgb, img, mask, g2, num_inference_steps=2)
+    times = {}
+    for n in (DDIM_STEPS, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_img = inpaint(mods, mods.embeds_rgb, img, mask, g2,
+                          num_inference_steps=n)
+        torch.cuda.synchronize()
+        times[n] = (time.perf_counter() - t0) * 1e3
+        if n == DDIM_STEPS:
+            out_img = gen_img
+    ddim_ms = (times[DDIM_STEPS] - times[2]) / (DDIM_STEPS - 2)
+    launches, by_shape = all_launches(), dict(at.LAUNCHES_BY_SHAPE)
+    # ... to here
+    if not (out_img.shape == (512, 512, 3) and bool(torch.isfinite(
+            out_img).all()) and 0 <= float(out_img.min())
+            and float(out_img.max()) <= 1):
+        raise AssertionError(f"inpaint: {out_img.shape}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"LoRA losses {losses}")
+    if n_ad != LORA_ADAPTERS or len(lora.lora_targets(mods.unet)) != \
+            LORA_KERNELS:
+        raise AssertionError(f"{n_ad} adapter parameters on "
+                             f"{len(lora.lora_targets(mods.unet))} kernels, "
+                             f"not {LORA_ADAPTERS} on {LORA_KERNELS}")
+    want = {(4096, 40), (1024, 80), (4096, 512)}
+    if launches["attention"] <= 0 or not want <= set(by_shape):
+        raise AssertionError(f"K7 by (N, D) in the LoRA phase: {by_shape}")
+    r = {"batch": batch_size, "oom_at_4": oom, "rank": LORA_RANK,
+         "adapter_params": n_ad, "adapted_kernels": LORA_KERNELS,
+         "base_params": n_base, "sd_build_s": build_s,
+         "host_batch_ms": batch_s * 1e3, "step_ms": step_ms,
+         "peak_gib": peak_gib, "attention_bwd_ms": attn_bwd_ms,
+         "attention_bwd_share": attn_bwd_ms / step_ms, "losses": losses,
+         "ddim_step_ms": ddim_ms, "ddim_total_ms": times,
+         "k7_by_shape": {f"{n}x{d}": c for (n, d), c in by_shape.items()},
+         "launches": launches}
+    print(f"lora: full-size SD1.5-inpaint UNet (bf16, random), rank "
+          f"{LORA_RANK}, batch {batch_size} at 512²: {step_ms:.3f} ms a step "
+          f"(mean of {LORA_STEPS} after {LORA_WARM} warm-up), peak "
+          f"{peak_gib:.2f} GiB, K7 backward {attn_bwd_ms:.3f} ms a step; "
+          f"DDIM inpaint {ddim_ms:.3f} ms a step | {smi}")
+    print(f"lora: {json.dumps(r)}")
+
+    # the merged UNet against the functional path (not counted)
+    x = torch.randn((2, 64, 64, 9), generator=gen, device=dev)
+    emb = mods.embeds_rgb[1:]
+    with torch.no_grad():
+        eps_f = torch.func.functional_call(
+            mods.unet, lora.apply_lora(mods.unet, adapters), (x, 500, emb))
+        lora.merge_lora_strict(mods.unet, {k: v.detach() for k, v in
+                                           adapters.items()},
+                               source="the LoRA phase")
+        eps_m = mods.unet(x, 500, emb)
+    cos = float(torch.nn.functional.cosine_similarity(
+        eps_m.flatten().double(), eps_f.flatten().double(), dim=0))
+    print(f"lora: merged vs functional ε cosine {cos:.9f} (max |Δ| "
+          f"{float((eps_m - eps_f).abs().max()):.3e})")
+    if cos < LORA_MERGE_COS:
+        raise AssertionError(f"merged vs functional ε cosine {cos}")
+    step_fn = (lambda: step(adapters, opt, batches[0], gen))
+    if outdir is not None:
+        profile_once(step_fn, "lora_step", outdir, step_ms)
+    del mods, adapters, opt, batches, step, step_fn
+    torch.cuda.empty_cache()
+
+    r["tiny_vs_cpu"] = _tiny_lora_vs_cpu(dev)
+    # a prior written and read back through utils/msgpack.py on the card
+    kw = dict(unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
+              text_config=CLIPTextConfig(vocab_size=49408, width=32,
+                                         layers=2, heads=2), latent_size=256,
+              dtype=torch.float32, device=dev)
+    a = build_sd_modules(gcfg, torch.Generator(device=dev).manual_seed(8),
+                         **kw)
+    b = build_sd_modules(gcfg, torch.Generator(device=dev).manual_seed(9),
+                         **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights.save_prior_ckpt(f"{tmp}/prior.msgpack", a)
+        nbytes = Path(f"{tmp}/prior.msgpack").stat().st_size
+        weights.load_prior_ckpt(f"{tmp}/prior.msgpack", b)
+    same = all(torch.equal(x, y) for m, n in ((a.unet, b.unet),
+                                              (a.vae, b.vae))
+               for x, y in zip(m.state_dict().values(),
+                               n.state_dict().values()))
+    same = same and torch.equal(a.embeds_rgb, b.embeds_rgb) and \
+        torch.equal(a.embeds_normal, b.embeds_normal)
+    print(f"lora: prior of {nbytes} bytes written and read back through "
+          f"utils/msgpack.py, arrays equal: {same}")
+    if not same:
+        raise AssertionError("the prior read back differs")
+    return r
 
 
 def profile_paths(workdir: Path) -> dict:
@@ -1719,6 +2147,10 @@ def main() -> None:
     disk_dir = tempfile.TemporaryDirectory()
     disk = disk_phase(dev, Path(disk_dir.name))
     check_lpips(dev)
+    # ---- 14. the guided arms on the disk scene: prior → LoRA → priorNL
+    guided = guided_phase(dev, Path(disk_dir.name))
+    # ---- 15. the full-size LoRA fine-tune and DDIM inpaint (own counts)
+    lora_res = lora_phase(dev, disk["datadir"], args.profile)
 
     # ---- 6. one step on the card vs the same step on the CPU plain path,
     # and one full-width step twice from one state (bit-equal)
@@ -1747,10 +2179,12 @@ def main() -> None:
                      args.profile, step_ms)
         profile_stage2(cfg2, dev, out2, scene, args.profile, step2_ms)
         profile_nog(dev, disk, args.profile)
+        profile_prior_nl(dev, guided, args.profile)
     disk_dir.cleanup()
 
     paths = [render_launches, step_launches, eval_launches, stage2_launches,
-             disk["launches"], *prof_launches.values()]
+             disk["launches"], guided["launches"], lora_res["launches"],
+             *prof_launches.values()]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",

@@ -19,7 +19,11 @@ per-parameter ``step``.
 The SD guidance stack carries across with ``sd_params_from_jax``: the flax
 module names (``down_0_resnets_1``, ``to_out_0``, ``net_0``) map to the
 port's diffusers names, and the leaves to torch's layouts. LPIPS's VGG16
-carries across with ``lpips_params_from_jax``.
+carries across with ``lpips_params_from_jax``. ``state_dict_to_flax`` is
+the inverse of ``flax_to_state_dict`` (the prior checkpoints of
+guidance/weights.py are written in the flax tree's names and layouts), and
+``flax_key`` names a port parameter by its flax path (the LoRA adapter
+files of guidance/lora.py are keyed by it).
 """
 from __future__ import annotations
 
@@ -191,6 +195,61 @@ def flax_to_state_dict(tree: Mapping, rules=_SD_RULES
     return out
 
 
+# the inverse rules: the port's diffusers / transformers names → flax's
+_SD_RULES_INV = [
+    (r"\b(down|up)_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\b",
+     r"\1_\2_\3_\4"),
+    (r"\bdown_blocks\.(\d+)\.downsamplers\.0\b", r"down_\1_downsamplers_0"),
+    (r"\bup_blocks\.(\d+)\.upsamplers\.0\b", r"up_\1_upsamplers_0"),
+    (r"\bmid_block\.(resnets|attentions)\.(\d+)\b", r"mid_\1_\2"),
+    (r"\btransformer_blocks\.(\d+)\b", r"transformer_blocks_\1"),
+    (r"\bto_out\.0\b", "to_out_0"),
+    (r"\bnet\.(\d+)\b", r"net_\1"),
+]
+_TEXT_RULES_INV = [
+    (r"^text_model\.embeddings\.token_embedding\.weight$",
+     "token_embedding.embedding"),
+    (r"^text_model\.embeddings\.position_embedding\.weight$",
+     "position_embedding"),
+    (r"^text_model\.encoder\.layers\.(\d+)\.(self_attn|mlp)\.", r"layers_\1."),
+    (r"^text_model\.encoder\.layers\.(\d+)\.", r"layers_\1."),
+    (r"^text_model\.final_layer_norm\.", "final_layer_norm."),
+]
+
+
+def flax_key(key: str, ndim: int, rules=_SD_RULES_INV) -> str:
+    """A port parameter's name and rank → its flax path joined by ".": the
+    module names by ``rules``, then ``weight`` → ``kernel`` (a Conv or
+    Dense weight, rank 4 or 2) or ``scale`` (a norm's, rank 1); a name the
+    rules rewrite whole (the text embeddings) keeps its leaf."""
+    new = key
+    for pat, rep in rules:
+        new = re.sub(pat, rep, new)
+    head, _, kind = new.rpartition(".")
+    if kind != "weight":
+        return new
+    return f"{head}.{'scale' if ndim == 1 else 'kernel'}"
+
+
+def state_dict_to_flax(sd: Mapping, rules=_SD_RULES_INV) -> Dict:
+    """The inverse of ``flax_to_state_dict``: a torch state dict → a
+    nested flax param tree of f32 numpy arrays (``weight`` [out, in, kh,
+    kw] → ``kernel`` [kh, kw, in, out], [out, in] → [in, out], a norm's
+    ``weight`` → ``scale``)."""
+    tree: Dict = {}
+    for key, v in sd.items():
+        a = v.detach().float().cpu().numpy()
+        path = flax_key(key, a.ndim, rules)
+        if path.endswith(".kernel"):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        parts = path.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
 def sd_params_from_jax(unet_tree: Mapping, vae_tree: Mapping,
                        text_tree: Mapping):
     """The JAX package's SD param trees (UNet, VAE, CLIP text) → the state
@@ -198,6 +257,14 @@ def sd_params_from_jax(unet_tree: Mapping, vae_tree: Mapping,
     CLIPTextEncoder, in that order."""
     return (flax_to_state_dict(unet_tree), flax_to_state_dict(vae_tree),
             flax_to_state_dict(text_tree, _TEXT_RULES))
+
+
+def sd_params_to_jax(unet: nn.Module, vae: nn.Module, text: nn.Module):
+    """The inverse of ``sd_params_from_jax``: the port's three modules →
+    the JAX package's flax trees (numpy), in that order."""
+    return (state_dict_to_flax(unet.state_dict()),
+            state_dict_to_flax(vae.state_dict()),
+            state_dict_to_flax(text.state_dict(), _TEXT_RULES_INV))
 
 
 def lpips_params_from_jax(tree: Mapping):

@@ -33,12 +33,21 @@ class DiffusionSchedule:
                                  alphas_cumprod.astype(np.float32))
 
     def _ac(self, t, dtype, device=None) -> torch.Tensor:
+        if isinstance(t, torch.Tensor):
+            # t on the device (the trainers' per-sample draws): index a
+            # device copy of ᾱ, made once, with no host read of t
+            tables = self.__dict__.setdefault("_tables", {})
+            if t.device not in tables:
+                tables[t.device] = torch.as_tensor(self.alphas_cumprod,
+                                                   device=t.device)
+            return tables[t.device][t].to(dtype)
         return torch.as_tensor(self.alphas_cumprod[np.asarray(t)],
                                dtype=dtype, device=device)
 
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t):
-        """x_t = √ᾱ_t x₀ + √(1−ᾱ_t) ε (t: an int or [B]). The result is at
-        least f32, as jnp's promotion of the f32 ᾱ with bf16 latents."""
+        """x_t = √ᾱ_t x₀ + √(1−ᾱ_t) ε (t: an int, or [B] on the host or on
+        x₀'s device). The result is at least f32, as jnp's promotion of the
+        f32 ᾱ with bf16 latents."""
         dtype = torch.promote_types(x0.dtype, torch.float32)
         ac = self._ac(t, dtype, x0.device)
         while ac.dim() < x0.dim():

@@ -20,8 +20,15 @@ Resizing: ``jax.image.resize`` samples at half-pixel centres. Its
 downsamples, jax antialiases (a triangle kernel widened by the scale);
 the port then passes ``antialias=True``, torch's kernel of the same shape.
 
-Not ported yet, and refused: Perp-Neg, the collaborative (colla)
-guidance, ``sd_lora_ckpt``, ``sd_prior_ckpt`` and the LoRA merge.
+LoRA: with ``weights_dir`` the config's ``model_path`` (a PEFT-LoRA
+dir) merges into the UNet's state dict as it loads; ``sd_lora_ckpt`` (the
+adapters of train_lora, guidance/lora.py) merges into the UNet and, when
+the file has them, the text tower before the prompt embeddings are
+computed, unless ``sd_prior_ckpt`` is set: the prior replaces the UNet
+after the build, so train/loop.py merges after loading it.
+
+Not ported yet, and refused: Perp-Neg and the collaborative (colla)
+guidance.
 """
 from __future__ import annotations
 
@@ -61,22 +68,13 @@ class SDModules:
         return self.latent_size // 8
 
 
-def _refuse_unported(gcfg, weights_dir) -> None:
+def _refuse_unported(gcfg) -> None:
     if gcfg.perpneg:
         raise NotImplementedError("Perp-Neg guidance (perpneg) is not ported "
                                   "yet")
     if gcfg.is_colla_guidance:
         raise NotImplementedError("collaborative guidance "
                                   "(is_colla_guidance) is not ported yet")
-    if gcfg.sd_lora_ckpt:
-        raise NotImplementedError("sd_lora_ckpt (LoRA adapters) is not "
-                                  "ported yet")
-    if gcfg.sd_prior_ckpt:
-        raise NotImplementedError("sd_prior_ckpt (prior checkpoints) is not "
-                                  "ported yet")
-    if weights_dir and gcfg.model_path:
-        raise NotImplementedError("the PEFT-LoRA merge (model_path) is not "
-                                  "ported yet")
 
 
 def _build(ctor, generator, device, dtype):
@@ -113,7 +111,7 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
             f"sd_version={ver!r}: only the SD1.x-inpaint architecture is "
             "implemented (UNet 320/640/1280, CLIP ViT-L text width 768); use "
             "sd_version=1.5 with an SD1.x-inpaint checkpoint.")
-    _refuse_unported(gcfg, weights_dir)
+    _refuse_unported(gcfg)
     device = torch.device(device if device is not None else "cpu")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -140,7 +138,19 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
     if weights_dir:
         from .weights import load_sd_weights
 
-        load_sd_weights(weights_dir, unet, vae, text)
+        load_sd_weights(weights_dir, unet, vae, text,
+                        lora_dir=gcfg.model_path, lora_rank=gcfg.lora_rank)
+    if gcfg.sd_lora_ckpt and not gcfg.sd_prior_ckpt:
+        from .lora import merge_lora_strict, split_adapters
+
+        unet_ad, text_ad = split_adapters(gcfg.sd_lora_ckpt)
+        merge_lora_strict(unet, unet_ad, what="unet",
+                          source=gcfg.sd_lora_ckpt)
+        if text_ad is not None:
+            merge_lora_strict(text, text_ad, what="text encoder",
+                              source=gcfg.sd_lora_ckpt)
+        print(f"[guidance] merged LoRA adapters from {gcfg.sd_lora_ckpt}"
+              + (" (unet+text)" if text_ad is not None else " (unet)"))
 
     @torch.no_grad()
     def encode_triple(prompt: str, negative: str) -> torch.Tensor:
@@ -297,7 +307,7 @@ def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
     gradient).
     """
     del n_iters          # the progressive view ranges of Perp-Neg use it
-    _refuse_unported(gcfg, None)
+    _refuse_unported(gcfg)
 
     def guidance_fn(step_i: int, combin_rgb, normal_map, mask,
                     generator: Optional[torch.Generator] = None, *,

@@ -1,29 +1,49 @@
-"""The stage-1 / no-guidance arms of the guidance ablation, on the port.
+"""The guidance ablation on the port: the s1, nog and guided arms.
 
     python -m gbnerf_tpu_torch.tools.run_ablation OUT [--arms s1,nog]
-        [--iters1 10000] [--iters2 10000] [--device cuda] [--check]
+        [--combine sds|csd|csd_ref] [--iters1 10000] [--iters2 10000]
+        [--prior_steps 6000] [--lora_steps 1000] [--skip_prior]
+        [--device cuda] [--check]
 
-The port's twin of tools/run_ablation.py for its s1 and nog arms, at the
-settings of ``tools/run_ablation.py OUT --production --colmap --lindisp
---combine sds --arms s1,nog`` (the round-5 table of PARITY.md):
+The port's twin of tools/run_ablation.py at the settings of
+``tools/run_ablation.py OUT --production --colmap --lindisp`` (the
+round-5 table of PARITY.md; the reference's shipped combine is
+``--combine sds``):
 
   Scene  ``gbnerf_tpu_torch.tools.make_synthetic_scene --task inpaint
          --colmap_sparse`` at 252 × 189, 16 train + 3 test views, seed 0:
          an intruder sphere "removed" by per-view inconsistent 2-D
          inpaintings; the held-out views carry clean ground truth and the
          intruder masks, so masked-region PSNR measures the fill.
-  Arms   s1   stage 1 only (the DS-NeRF fit of the inconsistent inpaintings)
-         nog  stage 2 from s1's checkpoint: the LPIPS patch loss (random
-              VGG), no guidance
+  Prior  ``gbnerf_tpu_torch.tools.train_tiny_prior OUT/prior.msgpack`` at
+         the guidance resolution (the tiny stack trained from scratch on
+         random sphere worlds; the domain, never the scene).
+  LoRA   ``gbnerf_tpu_torch.train_lora --tiny --sd_prior_ckpt`` on the
+         scene's inpainted training images, the label masks out of the
+         loss (the reference's DreamBooth → guidance workflow).
+  Arms   s1      stage 1 only (the DS-NeRF fit of the inconsistent
+                 inpaintings)
+         nog     stage 2 from s1's checkpoint: the LPIPS patch loss
+                 (random VGG), no guidance
+         rand    nog + RGB guidance from the random-weight tiny stack
+         prior   nog + RGB guidance from the trained prior
+         priorN  prior + normal-map guidance from the same prior
+         priorL  prior + the scene LoRA
+         priorNL priorN + the scene LoRA: the reference's shipped shape
 
 Each arm is a run of ``python -m gbnerf_tpu_torch.run`` on the config it
-writes (the same text as the original's, paths aside); nog starts from a
-copy of s1's checkpoints. The other arms (rand, prior, priorN, priorL,
-priorNL, priorC) need the tiny-prior trainer, LoRA and Perp-Neg, which are
-not ported yet (ROADMAP A4/A5): asking for one exits 1. ``--smoke``
+writes (the same text as the original's, paths aside); the stage-2 arms
+start from a copy of s1's checkpoints. Where the original runs one command
+after another, the twin starts each as soon as what it needs exists (the
+prior beside s1; nog and rand once s1 is done; the prior's arms and the
+LoRA once the prior is; the LoRA's arms once it is), beside the others on
+the one card: a guided arm leaves the card idle most of a step, and each
+run is the same computation either way. Guided arms' names carry the
+combine's tag (``prior-sds``), as in the original. ``priorC``
+(collaborative guidance) waits for ROADMAP A6 and exits 1. ``--smoke``
 swaps in the original's small-MLP field (its non-production default) for
-quick CPU runs. Results: OUT/ablation.json and a table of masked,
-unmasked and full held-out PSNR.
+quick CPU runs, and ``--latent`` a smaller guidance resolution. Results:
+OUT/ablation.json and a table of masked, unmasked and full held-out PSNR.
 """
 from __future__ import annotations
 
@@ -36,8 +56,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-ARMS = ("s1", "nog")
-UNPORTED_ARMS = ("rand", "prior", "priorN", "priorL", "priorNL", "priorC")
+ARMS = ("s1", "nog", "rand", "prior", "priorN", "priorL", "priorNL")
+UNPORTED_ARMS = ("priorC",)
 
 COMMON = """
 datadir = {scene}
@@ -74,8 +94,6 @@ N_importance = 64
 N_rand = 1024
 raw_noise_std = 1e0"""
 
-# stage 2 at the shipped 2-way SDS combine (no guidance runs in nog, but
-# the config carries the same text as the original's)
 STAGE2 = """
 first_stage = False
 lpips = True
@@ -83,24 +101,43 @@ patch_len = 32
 n_patches = 4
 lpips_weight = 0.01
 is_normal_guidance = False
-use_csd = False
-normal_guidance_scale = 1.5
-sds_loss_weight = 0.0001
-anneal_iters = 20000
-sd_latent_size = 256
-cache_masked_latents = True
+{combine}
+sds_loss_weight = {sds_w}
+anneal_iters = {anneal}
+sd_latent_size = {latent}
+{extra}
 """
 
+# the guidance combines: csd (3-way, the round-3 flat triple), sds (the
+# reference's shipped 2-way combine at the per-modality scales, normal
+# 1.5 as its config sets), csd_ref (3-way, the reference's own triples)
+COMBINE = {
+    "csd": ("use_csd = True\n"
+            "rgb_w1 = 1.0\nrgb_w2 = 0.5\nrgb_w3 = 0.5\n"
+            "normal_w1 = 1.0\nnormal_w2 = 0.5\nnormal_w3 = 0.5"),
+    "sds": "use_csd = False\nnormal_guidance_scale = 1.5",
+    "csd_ref": "use_csd = True",
+}
+COMBINE_TAG = {"csd": "", "sds": "-sds", "csd_ref": "-csdref"}
+SDS_W, ANNEAL, NORMAL_FACTOR = 1e-4, 20000, 7      # the production knobs
 
-def run(cmd, log_path):
+
+def launch(cmd, log_path) -> subprocess.Popen:
     print(f"[ablation] $ {' '.join(cmd)}  (log: {log_path})", flush=True)
     with open(log_path, "w") as log:
-        r = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
-                           cwd=ROOT)
-    if r.returncode != 0:
-        with open(log_path) as fh:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=ROOT)
+    proc.log_path = log_path
+    return proc
+
+
+def finish(proc: subprocess.Popen) -> None:
+    """Wait for a launched command; its failure prints its log's end and
+    exits."""
+    if proc.wait() != 0:
+        with open(proc.log_path) as fh:
             print(fh.read()[-3000:])
-        raise SystemExit(f"command failed: {' '.join(cmd)}")
+        raise SystemExit(f"command failed: {' '.join(proc.args)}")
 
 
 def last_eval(expdir):
@@ -117,60 +154,150 @@ def last_eval(expdir):
     return out
 
 
-def write_configs(out, args):
-    """OUT/cfg_s1.txt and OUT/cfg_nog.txt → {arm: path}."""
+def arm_name(arm: str, combine: str) -> str:
+    """s1 and nog never guide: their names carry no combine tag."""
+    return arm if arm in ("s1", "nog") else arm + COMBINE_TAG[combine]
+
+
+def write_configs(out, args, arms=("s1", "nog")):
+    """OUT/cfg_<arm>.txt for s1 and each requested arm → {arm: path}."""
     scene = os.path.join(out, "scene")
     logs = os.path.join(out, "logs")
     field = FIELD_SMOKE if args.smoke else FIELD_PROD
+    combine, latent = args.combine, args.latent
+    prior, lora_ckpt = artifact_paths(out, args)
     n2 = args.iters1 + args.iters2
-    bodies = {"s1": (f"first_stage = True\nN_iters = {args.iters1}\n"
-                     f"i_evaluate = {args.iters1}\n"),
-              "nog": (STAGE2 + "is_rgb_guidance = False\n"
-                      f"N_iters = {n2}\ni_evaluate = {n2}\n")}
+    stage2 = STAGE2.format(combine=COMBINE[combine], sds_w=SDS_W,
+                           anneal=ANNEAL, latent=latent,
+                           extra="cache_masked_latents = True")
+    guided = "is_rgb_guidance = True\nsd_tiny = True\n"
+    normal = ("is_rgb_guidance = True\nis_normal_guidance = True\n"
+              f"normal_start_iter = {args.iters1}\n"
+              f"normalmap_render_factor = {NORMAL_FACTOR}\n"
+              "sd_tiny = True\n")
+    bodies = {"nog": "is_rgb_guidance = False\n",
+              "rand": guided,
+              "prior": guided + f"sd_prior_ckpt = {prior}\n",
+              "priorL": (guided + f"sd_prior_ckpt = {prior}\n"
+                         f"sd_lora_ckpt = {lora_ckpt}\n"),
+              "priorN": normal + f"sd_prior_ckpt = {prior}\n",
+              "priorNL": (normal + f"sd_prior_ckpt = {prior}\n"
+                          f"sd_lora_ckpt = {lora_ckpt}\n")}
+    texts = {"s1": (f"first_stage = True\nN_iters = {args.iters1}\n"
+                    f"i_evaluate = {args.iters1}\n")}
+    for arm in arms:
+        if arm != "s1":
+            texts[arm] = (stage2 + bodies[arm]
+                          + f"N_iters = {n2}\ni_evaluate = {n2}\n")
     paths = {}
-    for arm, body in bodies.items():
-        paths[arm] = os.path.join(out, f"cfg_{arm}.txt")
+    for arm, body in texts.items():
+        name = arm_name(arm, combine)
+        paths[arm] = os.path.join(out, f"cfg_{name}.txt")
         with open(paths[arm], "w") as fh:
-            fh.write(COMMON.format(scene=scene, logs=logs, arm=arm,
+            fh.write(COMMON.format(scene=scene, logs=logs, arm=name,
                                    field=field, n_test=args.n_test) + body)
     return paths
 
 
+def artifact_paths(out, args):
+    """(the prior's path, the scene LoRA's adapter file)."""
+    return (os.path.join(out, "prior.msgpack"),
+            os.path.join(out, "lora", f"lora_{args.lora_steps:06d}"
+                         ".safetensors"))
+
+
 def check_configs(paths, args):
     """Load each written config through the port's parser and hold it to
-    its arm."""
+    its arm (the original's --check)."""
     from ..config import load_reference_config
 
+    combine = args.combine
+    prior, lora_ckpt = artifact_paths(os.path.abspath(args.out), args)
+    legacy, ref = (1.0, 0.5, 0.5), ((8.5, 7.5, 0.5), (2.5, 1.5, 0.5))
     errs = []
     for arm, path in paths.items():
         cfg = load_reference_config(path)
         t, g = cfg.train, cfg.guidance
-        want_iters = args.iters1 + (args.iters2 if arm == "nog" else 0)
-        if t.first_stage != (arm == "s1") or t.N_iters != want_iters:
-            errs.append(f"{arm}: first_stage / N_iters")
-        if not (cfg.render.lindisp and cfg.data.colmap_depth):
-            errs.append(f"{arm}: lindisp and colmap_depth must be on")
-        if arm == "nog" and (g.is_rgb_guidance or g.is_normal_guidance
-                             or not t.lpips):
-            errs.append("nog: no guidance, LPIPS on")
+
+        def need(cond, what):
+            if not cond:
+                errs.append(f"{arm_name(arm, combine)}: {what}")
+
+        want_iters = args.iters1 + (0 if arm == "s1" else args.iters2)
+        need(t.first_stage == (arm == "s1") and t.N_iters == want_iters,
+             "first_stage / N_iters")
+        need(cfg.render.lindisp and cfg.data.colmap_depth,
+             "lindisp and colmap_depth must be on")
+        if arm == "s1":
+            continue
+        need(t.lpips, "LPIPS on")
+        if arm == "nog":
+            need(not (g.is_rgb_guidance or g.is_normal_guidance),
+                 "nog must not guide")
+            continue
+        need(g.is_rgb_guidance and g.sd_tiny, "RGB guidance, tiny stack")
+        need(g.use_csd == (combine != "sds"), "use_csd vs combine")
+        trip = ((g.rgb_w1, g.rgb_w2, g.rgb_w3),
+                (g.normal_w1, g.normal_w2, g.normal_w3))
+        if combine == "csd":
+            need(trip == (legacy, legacy), "legacy csd triples")
+        elif combine == "csd_ref":
+            need(trip == ref, "reference csd triples")
+        else:
+            need(g.normal_guidance_scale == 1.5, "shipped normal scale")
+        need((g.sd_prior_ckpt == prior) == arm.startswith("prior"),
+             "prior ckpt")
+        need((g.sd_lora_ckpt == lora_ckpt) == (arm in ("priorL", "priorNL")),
+             "lora ckpt")
+        need(g.is_normal_guidance == (arm in ("priorN", "priorNL")),
+             "is_normal_guidance vs arm")
+        if g.is_normal_guidance:
+            need(g.normal_start_iter == args.iters1,
+                 "normal_start_iter must be stage-2 entry")
     if errs:
         raise SystemExit("[check] FAILED:\n  " + "\n  ".join(errs))
-    print(f"[check] OK — {', '.join(paths)} configs consistent; no "
-          "training was run.")
+    print(f"[check] OK — {', '.join(arm_name(a, combine) for a in paths)} "
+          "configs consistent; no training was run.")
+
+
+def _check_meta(path, want, what):
+    """True when the artifact exists; refuse one built for another
+    resolution (the tiny towers load at any resolution without a shape
+    error)."""
+    mpath = path + ".meta.json"
+    if not os.path.exists(path):
+        return False
+    if os.path.exists(mpath):
+        with open(mpath) as fh:
+            meta = json.load(fh)
+        if meta != want:
+            raise SystemExit(f"{what} at {path} was built with {meta}, but "
+                             f"this run needs {want} — delete it (or point "
+                             "OUT at a fresh dir) to retrain.")
+    return True
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
     ap.add_argument("--arms", default="s1,nog")
+    ap.add_argument("--combine", default="sds", choices=sorted(COMBINE))
     ap.add_argument("--iters1", type=int, default=10000)
     ap.add_argument("--iters2", type=int, default=10000)
+    ap.add_argument("--latent", type=int, default=256,
+                    help="guidance latent size (sd_latent_size), also the "
+                         "prior's and the LoRA's resolution")
+    ap.add_argument("--prior_steps", type=int, default=6000)
+    ap.add_argument("--lora_steps", type=int, default=1000,
+                    help="scene-LoRA fine-tune steps (priorL, priorNL)")
+    ap.add_argument("--skip_prior", action="store_true",
+                    help="reuse an existing prior ckpt")
     ap.add_argument("--H", type=int, default=189)
     ap.add_argument("--W", type=int, default=252)
     ap.add_argument("--n_train", type=int, default=16)
     ap.add_argument("--n_test", type=int, default=3)
     ap.add_argument("--device", default="cuda",
-                    help="passed to gbnerf_tpu_torch.run (cpu without a card)")
+                    help="passed to every command (cpu without a card)")
     ap.add_argument("--smoke", action="store_true",
                     help="the original's small-MLP field, for CPU runs")
     ap.add_argument("--check", action="store_true",
@@ -183,43 +310,117 @@ def main(argv=None):
         known = [a for a in bad if a in UNPORTED_ARMS]
         raise SystemExit(
             f"arms {bad} are not ported: " + (
-                "they wait for the tiny-prior trainer, LoRA and Perp-Neg "
-                "(ROADMAP A4/A5)" if known == bad else
+                "collaborative guidance waits for ROADMAP A6"
+                if known == bad else
                 f"the ablation's arms are {ARMS + UNPORTED_ARMS}"))
     out = os.path.abspath(args.out)
     logs = os.path.join(out, "logs")
     os.makedirs(logs, exist_ok=True)
-    paths = write_configs(out, args)
+    paths = write_configs(out, args, arms)
     if args.check:
         check_configs(paths, args)
         return
+    if not args.device.startswith("cpu"):
+        from ..train.loop import device_from_flag
+
+        device_from_flag(args.device)
     py = sys.executable
     scene = os.path.join(out, "scene")
     if not os.path.isdir(scene):
-        run([py, "-m", "gbnerf_tpu_torch.tools.make_synthetic_scene", scene,
+        finish(launch(
+            [py, "-m", "gbnerf_tpu_torch.tools.make_synthetic_scene", scene,
              "--task", "inpaint", "--H", str(args.H), "--W", str(args.W),
              "--n_train", str(args.n_train), "--n_test", str(args.n_test),
              "--seed", "0", "--colmap_sparse"],
-            os.path.join(out, "scene.log"))
+            os.path.join(out, "scene.log")))
 
-    def train(arm):
-        run([py, "-m", "gbnerf_tpu_torch.run", "--config", paths[arm],
-             "--device", args.device], os.path.join(out, f"{arm}.log"))
+    prior, lora_ckpt = artifact_paths(out, args)
+    meta = {"res": args.latent}
+    jobs = []
 
-    s1dir = os.path.join(logs, "s1")
-    if not os.path.isdir(os.path.join(s1dir, "ckpt")):
-        train("s1")
-    if "nog" in arms:
-        expdir = os.path.join(logs, "nog")
-        if os.path.isdir(os.path.join(expdir, "ckpt")):
-            print("[ablation] nog: already run, skipping")
-        else:
+    def start(cmd, log_name):
+        """A command, now, beside the others."""
+        proc = launch(cmd, os.path.join(out, log_name))
+        jobs.append(proc)
+        return proc
+
+    def wait(proc):
+        if proc is not None:
+            finish(proc)
+
+    def train_prior():
+        if not any(a.startswith("prior") for a in arms) or _check_meta(
+                prior, meta, "prior"):
+            return None
+        if args.skip_prior:
+            raise SystemExit(f"--skip_prior but no prior at {prior}")
+        return start([py, "-m", "gbnerf_tpu_torch.tools.train_tiny_prior",
+                      prior, "--res", str(args.latent), "--steps_unet",
+                      str(args.prior_steps), "--device", args.device],
+                     "prior_train.log")
+
+    def train_lora():
+        if not any(a in ("priorL", "priorNL") for a in arms) or _check_meta(
+                lora_ckpt, meta, "scene LoRA"):
+            return None
+        return start([py, "-m", "gbnerf_tpu_torch.train_lora", "--tiny",
+                      "--sd_prior_ckpt", prior, "--latent_size",
+                      str(args.latent), "--instance_data_dir",
+                      os.path.join(scene, "images_4", "RGB_inpainted"),
+                      "--instance_mask_dir",
+                      os.path.join(scene, "images_4", "label"),
+                      "--output_dir", os.path.join(out, "lora"),
+                      "--max_train_steps", str(args.lora_steps),
+                      "--train_batch_size", "4", "--checkpointing_steps",
+                      str(args.lora_steps), "--device", args.device],
+                     "lora.log")
+
+    def write_meta(path):
+        if os.path.exists(path) and not os.path.exists(path + ".meta.json"):
+            with open(path + ".meta.json", "w") as fh:
+                json.dump(meta, fh)
+
+    def train_arm(arm):
+        name = arm_name(arm, args.combine)
+        if arm != "s1":
+            expdir = os.path.join(logs, name)
+            if os.path.isdir(os.path.join(expdir, "ckpt")):
+                print(f"[ablation] {name}: already run, skipping")
+                return None
             os.makedirs(expdir, exist_ok=True)
-            shutil.copytree(os.path.join(s1dir, "ckpt"),
+            shutil.copytree(os.path.join(logs, "s1", "ckpt"),
                             os.path.join(expdir, "ckpt"))
-            train("nog")
+        elif os.path.isdir(os.path.join(logs, "s1", "ckpt")):
+            return None
+        return start([py, "-m", "gbnerf_tpu_torch.run", "--config",
+                      paths[arm], "--device", args.device], f"{name}.log")
 
-    results = {a: last_eval(os.path.join(logs, a)) for a in arms}
+    try:
+        prior_job = train_prior()
+        wait(train_arm("s1"))
+        for arm in arms:
+            if arm != "s1" and not arm.startswith("prior"):
+                train_arm(arm)
+        wait(prior_job)
+        write_meta(prior)
+        lora_job = train_lora()
+        for arm in arms:
+            if arm.startswith("prior") and arm not in ("priorL", "priorNL"):
+                train_arm(arm)
+        wait(lora_job)
+        write_meta(lora_ckpt)
+        for arm in ("priorL", "priorNL"):
+            if arm in arms:
+                train_arm(arm)
+        for proc in jobs:
+            wait(proc)
+    finally:
+        for proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+
+    names = [arm_name(a, args.combine) for a in arms]
+    results = {n: last_eval(os.path.join(logs, n)) for n in names}
     jpath = os.path.join(out, "ablation.json")
     if os.path.exists(jpath):
         with open(jpath) as fh:
@@ -232,9 +433,9 @@ def main(argv=None):
     print("\n| arm | " + " | ".join(c.replace("eval_", "") for c in cols)
           + " |")
     print("|---" * (len(cols) + 1) + "|")
-    for arm in arms:
-        r = results[arm]
-        print(f"| {arm} | " + " | ".join(
+    for n in names:
+        r = results[n]
+        print(f"| {n} | " + " | ".join(
             f"{r[c]:.2f}" if c in r else "—" for c in cols) + " |")
     print(f"\nwrote {jpath}")
     return results

@@ -262,8 +262,7 @@ def test_resize_matches_jax_image_resize(rng, src, size, method):
 
 def test_unported_guidance_options_raise(stack):
     _, tm = stack["mods"]()
-    for kw in ({"perpneg": True}, {"is_colla_guidance": True},
-               {"sd_prior_ckpt": "x"}, {"sd_lora_ckpt": "x"}):
+    for kw in ({"perpneg": True}, {"is_colla_guidance": True}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tst.make_guidance_fn(tm, dataclasses.replace(stack["gcfg"], **kw))
     with pytest.raises(NotImplementedError, match="sd_version"):
@@ -332,7 +331,8 @@ def test_fake_ckpt_loads_into_both_packages_alike(tmp_path, rng,
                                                   legacy_attn):
     """One tools/make_fake_sd_ckpt.py --tiny dir (diffusers key names;
     the original VAE's query/key/value/proj_attn when legacy) loaded by
-    both packages' loaders: every key matches, and the models agree."""
+    both packages' loaders: every key matches, and the models agree; with
+    a PEFT adapter dir (lora_dir) merged by both, the UNets agree too."""
     spec = importlib.util.spec_from_file_location(
         "make_fake_sd_ckpt", Path(__file__).resolve().parents[1] / "tools"
         / "make_fake_sd_ckpt.py")
@@ -370,5 +370,25 @@ def test_fake_ckpt_loads_into_both_packages_alike(tmp_path, rng,
             _close(tu(_t(x), 300, _t(ctx)),
                    jax.jit(ju.apply)({"params": up}, x, 300, ctx))
             _close(tt(ids), jax.jit(jt.apply)({"params": tp}, ids))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tweights.load_sd_weights(str(tmp_path), tu, tv, tt, lora_dir="x")
+    # the PEFT merge (lora_dir, the config's model_path): one adapter file
+    # merged by both loaders gives the same UNet
+    from safetensors.numpy import save_file
+
+    stem = "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q"
+    o, i = tu.state_dict()[stem + ".weight"].shape
+    peft = tmp_path / "peft"
+    peft.mkdir()
+    save_file({f"base_model.model.{stem}.lora_A.weight":
+               rng.normal(0, 0.3, (4, i)).astype(np.float32),
+               f"base_model.model.{stem}.lora_B.weight":
+               rng.normal(0, 0.3, (o, 4)).astype(np.float32)},
+              str(peft / "adapter_model.safetensors"))
+    up, _, _ = jload(str(tmp_path), *zeros, strict=True, lora_dir=str(peft),
+                     lora_rank=4)
+    tweights.load_sd_weights(str(tmp_path), tu, tv, tt, strict=True,
+                             lora_dir=str(peft), lora_rank=4)
+    x = rng.standard_normal((1, 8, 8, 9)).astype(np.float32)
+    ctx = rng.standard_normal((1, 77, 32)).astype(np.float32)
+    with torch.no_grad():
+        _close(tu(_t(x), 300, _t(ctx)),
+               jax.jit(ju.apply)({"params": up}, x, 300, ctx))

@@ -1,7 +1,8 @@
 """The port imports no JAX and nothing of the JAX package: every module of
 gbnerf_tpu_torch, and chip_smoke.py, imported in a fresh interpreter leave
-``jax`` (and flax, optax, orbax) and ``gbnerf_tpu`` out of
-``sys.modules``. The machine with the card has no JAX installed."""
+``jax`` (and flax, optax, orbax), ``gbnerf_tpu``, and the file libraries
+the machine with the card lacks (msgpack, safetensors, imageio, cv2) out
+of ``sys.modules``. The machine with the card has no JAX installed."""
 import json
 import os
 import subprocess
@@ -24,7 +25,9 @@ for name in sys.argv[1:]:
     out[name] = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                               "optax", "orbax",
-                                              "gbnerf_tpu"))
+                                              "gbnerf_tpu", "msgpack",
+                                              "safetensors", "imageio",
+                                              "cv2"))
 print(json.dumps(out))
 """
 
@@ -47,6 +50,9 @@ def test_every_module_is_listed():
     assert len(MODULES) >= 20
     assert "gbnerf_tpu_torch.ops.field_fused" in MODULES
     assert "gbnerf_tpu_torch.tools.prof_field" in MODULES
+    for name in ("utils.msgpack", "guidance.lora", "guidance.pipeline",
+                 "train.lora_trainer", "train_lora", "tools.train_tiny_prior"):
+        assert f"gbnerf_tpu_torch.{name}" in MODULES, name
 
 
 def test_probe_sees_the_jax_package_and_not_the_port():

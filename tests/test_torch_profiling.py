@@ -178,16 +178,27 @@ def _run_argv(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["run", "prof_field", "prof_train",
-                                   "prof_guidance"])
+                                   "prof_guidance", "train_lora",
+                                   "train_tiny_prior", "run_ablation"])
 def test_entry_points_refuse_to_start_without_a_card(monkeypatch, tmp_path,
                                                      entry):
     """No card and no --device cpu: a non-zero exit whose message names the
     flag, before any work (the default is the card, with no fallback)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from gbnerf_tpu_torch import train_lora
+    from gbnerf_tpu_torch.tools import run_ablation, train_tiny_prior
+
     main = {"run": trun.main, "prof_field": prof_field.main,
             "prof_train": prof_train.main,
-            "prof_guidance": prof_guidance.main}[entry]
-    argv = _run_argv(tmp_path) if entry == "run" else []
+            "prof_guidance": prof_guidance.main,
+            "train_lora": train_lora.main,
+            "train_tiny_prior": train_tiny_prior.main,
+            "run_ablation": run_ablation.main}[entry]
+    argv = {"run": _run_argv(tmp_path),
+            "train_lora": ["--instance_data_dir", str(tmp_path)],
+            "train_tiny_prior": [str(tmp_path / "p.msgpack")],
+            "run_ablation": [str(tmp_path / "abl"), "--arms",
+                             "prior,priorNL"]}.get(entry, [])
     for extra in ([], ["--device", "cuda"], ["--device", "cuda:0"]):
         with pytest.raises(SystemExit) as e:
             main(argv + extra)

@@ -683,8 +683,8 @@ def test_dump_eval_images_matches_jax(tmp_path):
 
 def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
     """The twin's configs against tools/run_ablation.py's at --production
-    --colmap --lindisp --combine sds --arms s1,nog, paths aside; other arms
-    are refused."""
+    --colmap --lindisp --combine sds --arms s1,nog, paths aside; priorC
+    (collaborative guidance, ROADMAP A6) is refused."""
     _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
            "--combine", "sds", "--arms", "s1,nog", "--check"], ROOT,
           "tools.run_ablation")
@@ -699,10 +699,36 @@ def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-m",
                         "gbnerf_tpu_torch.tools.run_ablation",
-                        str(tmp_path / "x"), "--arms", "s1,priorNL"],
+                        str(tmp_path / "x"), "--arms", "s1,priorC"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=120)
-    assert r.returncode == 1 and "A4/A5" in r.stderr
+    assert r.returncode == 1 and "A6" in r.stderr
+
+
+@pytest.mark.parametrize("combine", ["sds", "csd", "csd_ref"])
+def test_run_ablation_twin_writes_the_originals_guided_configs(tmp_path,
+                                                               combine):
+    """Every ported arm (rand, prior, priorN, priorL, priorNL beside s1 and
+    nog) under each combine: the twin's --check configs equal
+    tools/run_ablation.py's at --production --colmap --lindisp, paths
+    aside, file for file."""
+    arms = "s1,nog,rand,prior,priorN,priorL,priorNL"
+    _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
+           "--combine", combine, "--arms", arms, "--check"], ROOT,
+          "tools.run_ablation")
+    r = _tool([str(tmp_path / "twin"), "--combine", combine, "--arms", arms,
+               "--check"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
+    assert "[check] OK" in r.stdout
+    names = sorted(p.name for p in (tmp_path / "orig").glob("cfg_*.txt"))
+    assert len(names) == 7
+    assert sorted(p.name for p in (tmp_path / "twin").glob("cfg_*.txt")) \
+        == names
+    for name in names:
+        o = (tmp_path / "orig" / name).read_text().replace(
+            str(tmp_path / "orig"), "OUT")
+        t = (tmp_path / "twin" / name).read_text().replace(
+            str(tmp_path / "twin"), "OUT")
+        assert t == o, name
 
 
 def test_run_ablation_twin_s1_then_nog_on_the_cpu(tmp_path):
