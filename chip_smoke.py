@@ -39,8 +39,10 @@
    batch, which must leave bit-equal parameters and Adam moments.
 7. Holds K7 (self-attention) against its plain version on the card, in
    bf16, at the three shapes of the stage-2 path (the UNet at 64² and 32²
-   latents, the VAE mid block), at a ragged N and with an f32 q; times
-   both, beside the previous design's time (PREV_MS).
+   latents, the VAE mid block), at the LoRA, tiny-prior and colla shapes
+   (the colla UNet at batch 8: 64 × 4096 × 40 and 64 × 1024 × 80), at a
+   ragged N and with an f32 q; times both, beside SDPA and the previous
+   design's time (PREV_MS).
 8. Drives stage 2 through train() (first_stage = False), warm-started
    (ft_path) from the stage-1 run's last checkpoint on the same scene: the
    full-width SD1.5-inpainting UNet, VAE and CLIP text tower at 512² / 64²
@@ -55,7 +57,9 @@
 9. Holds one stage-2 step on the card against the same step on the CPU
    plain path, at the tiny SD widths (f32) but sd_latent_size 512, so that
    attention sees N = 4096 and 1024 and K7 runs on the card: the same
-   fields and SD weights, injected view, stream indices and draws.
+   fields and SD weights, injected view, stream indices and draws; with
+   RGB + normal, RGB alone, RGB + colla (the four neighbour views
+   injected) and Perp-Neg (its orbit uniforms injected).
 10. Holds K6 (the standalone CP encode) against its plain version on the
    card, bit for bit: at the profile's 2,097,152 points (R_max 257, F
    80), at the proposal field's R_max 65, F 24, and at a ragged N, each
@@ -96,6 +100,17 @@
    functional path; one tiny LoRA step on the card against the CPU; a
    prior written and read back through utils/msgpack.py. With --profile,
    one LoRA step is traced.
+16. Stage 2 from the stage-1 checkpoint as in 8, with collaborative
+   guidance (four random views rendered at 27 × 36 with gradient each
+   step, the UNet at batch 8) and then with Perp-Neg (the UNet at batch 4
+   on direction-blended prompts), COLLA_STEPS and PERPNEG_STEPS steps:
+   ms per step and peak memory, K1, K3, K4 and K7 launched. Then stage 1
+   for FROZEN_STEPS steps with alpha_model_path at the stage-1
+   checkpoints: σ from that run's fine field (K2) bit-equal to the alpha
+   field's own call along 1024 rays, the σ column of each field's ws1
+   bit-equal before and after while the rest trained; ms per step.
+17. CLIP guidance at the ViT-B/16 size: its loss and image gradient on
+   the card against the CPU.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -163,10 +178,15 @@ ATTN_SHAPES = (("unet 64x64", 16, 4096, 40), ("unet 32x32", 16, 1024, 80),
                # 256 (32² = 1024 tokens) in prior training at batch 16
                ("lora unet 64x64", 32, 4096, 40),
                ("lora unet 32x32", 32, 1024, 80), ("lora vae", 4, 4096, 512),
-               ("prior unet", 32, 1024, 16), ("prior vae", 16, 1024, 32))
+               ("prior unet", 32, 1024, 16), ("prior vae", 16, 1024, 32),
+               # the colla UNet at batch 8 (4 views × 2 CFG copies); the
+               # Perp-Neg UNet at batch 4 is the LoRA shape, 32 × 4096 × 40
+               ("colla unet 64x64", 64, 4096, 40),
+               ("colla unet 32x32", 64, 1024, 80))
 # the shapes timed (the stage-2 path's first, the main-path shape)
 ATTN_TIMED = ("unet 64x64", "unet 32x32", "vae mid", "lora unet 64x64",
-              "lora unet 32x32", "lora vae", "prior unet", "prior vae")
+              "lora unet 32x32", "lora vae", "prior unet", "prior vae",
+              "colla unet 64x64", "colla unet 32x32")
 # the same check with an f32 q (the kernel scales q as it loads it and
 # writes q's dtype): the UNet's head dim, and the VAE's with a ragged N
 ATTN_F32_SHAPES = (("f32 q", 4, 4096, 40), ("f32 q vae", 1, 4000, 512))
@@ -189,10 +209,23 @@ PREV_MS = {("attention", "unet 64x64"): 0.482,
            ("field_fused_sigma", "coarse"): 0.590,
            ("field_fused_bwd", "fine"): 3.678,
            ("field_fused_bwd_sigma", "coarse"): 0.394}
-# stage 2 through train(): the steps after the stage-1 checkpoint
+# stage 2 through train(): the steps after the stage-1 checkpoint; then
+# the same with collaborative guidance (four 27 × 36 neighbour views a
+# step) and with Perp-Neg, each for a group of warm-up steps and four
+# timed groups
 STAGE2_STEPS, STAGE2_PRINT = 50, 10
+COLLA_STEPS, PERPNEG_STEPS, VARIANT_PRINT = 25, 25, 5
+# stage 1 with alpha_model_path at the stage-1 phase's checkpoints: the
+# steps, and the rays × N_samples points whose σ is held bit-equal to the
+# alpha field's
+FROZEN_STEPS, FROZEN_PRINT, FROZEN_SIGMA_RAYS = 50, 10, 1024
+# CLIP guidance at the ViT-B/16 size, card vs CPU in f32 (TF32 off): the
+# same formulas summed in another order over 12 layers: the loss to 1e-4
+# relative, the image gradient to 1e-3·max|cpu|
+CLIP_LOSS_RTOL, CLIP_GRAD_ATOL_FRAC = 1e-4, 1e-3
 # one stage-2 step, card vs the CPU plain path, tiny SD widths at 512²,
-# with both modalities and with RGB only. The card's bf16 attention (K7
+# with both modalities, with RGB only, with RGB + colla and with Perp-Neg
+# (RGB, without the normal term: at 0.999 as RGB only). The card's bf16 attention (K7
 # rounds f32 q, k, v, p to bf16; the CPU does not) moves the UNet's ε and
 # the VAE's latents, which the 7.5× CFG scale amplifies in the SDS term:
 # loss to 1e-3 relative (the SDS term enters at weight 1e-4), the SDS loss
@@ -205,7 +238,8 @@ STAGE2_STEPS, STAGE2_PRINT = 50, 10
 # three runs (every other parameter ≥ 0.9999; RGB only ≥ 0.99999): 0.98.
 STEP2_VIEW, STEP2_LATENT = (63, 84), 512
 STEP2_LOSS_RTOL, STEP2_SDS_RTOL = 1e-3, 5e-2
-STEP2_GRAD_COS = {"rgb+normal": 0.98, "rgb": 0.999}
+STEP2_GRAD_COS = {"rgb+normal": 0.98, "rgb": 0.999, "colla": 0.999,
+                  "perpneg": 0.999}
 # K6 against its plain version: the same taps and roundings, so bit-equal
 # (limit 1e-6·max|plain|, which equality meets). (label, points, R_max, F):
 # the profile's fine pass, the proposal field, a ragged N.
@@ -836,55 +870,72 @@ def stage2_config(cfg, workdir: Path, ft_path: str, n_iters: int):
                                      normal_start_iter=0))
 
 
-def stage2_train(cfg, dev, scene, depth_gts, workdir: Path, start: int):
-    """Stage 2 through train(), STAGE2_STEPS steps after the stage-1
-    checkpoint at ``start`` → (out, ms per step, launches, the config)."""
+def stage2_train(cfg, dev, scene, depth_gts, workdir: Path, start: int, *,
+                 label: str = "stage2", steps: int = STAGE2_STEPS,
+                 every: int = STAGE2_PRINT, profile_dir=None, **guidance):
+    """Stage 2 through train(), ``steps`` steps after the stage-1
+    checkpoint at ``start``, with ``guidance`` overriding the shipped
+    guidance options → (out, ms per step, launches, the config, peak
+    memory in GiB). With ``profile_dir``, one more step is traced."""
     from gbnerf_tpu_torch.ops import attention as at
     from gbnerf_tpu_torch.train.loop import train
 
     cfg = stage2_config(cfg, workdir,
                         str(workdir / "stage1" / "ckpt" / str(start)),
-                        start + STAGE2_STEPS)
+                        start + steps)
+    cfg = cfg.replace(
+        train=dataclasses.replace(cfg.train, i_print=every, expname=label),
+        guidance=dataclasses.replace(cfg.guidance, **guidance))
     group_ms = []
 
     def log_fn(i, m):
-        print(f"stage2: [{i}/{start + STAGE2_STEPS}] " + " ".join(
+        print(f"{label}: [{i}/{start + steps}] " + " ".join(
             f"{k}={v:.5g}" for k, v in m.items()))
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         if bad:
-            raise AssertionError(f"non-finite stage-2 metrics at {i}: {bad}")
+            raise AssertionError(f"non-finite {label} metrics at {i}: {bad}")
         if m["sds_loss"] == 0.0:
             raise AssertionError(f"sds_loss is 0 at {i}: no guidance")
         group_ms.append(1e3 / m["iters_per_sec"])
 
-    # ---- the stage-2 main path: launches counted from here ...
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: launches counted from here ...
     zero_launches()
     out = train(cfg, scene=scene, depth_gts=depth_gts, device=dev,
                 log_fn=log_fn)
     torch.cuda.synchronize()
     launches, by_shape = all_launches(), dict(at.LAUNCHES_BY_SHAPE)
     # ... to here
-    if out["state"].step != start + STAGE2_STEPS or len(group_ms) == 0:
-        raise AssertionError(f"stage 2 stopped at {out['state'].step}")
-    print(f"stage2: launches {json.dumps(launches)}; attention by (N, D) "
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out["state"].step != start + steps or len(group_ms) == 0:
+        raise AssertionError(f"{label} stopped at {out['state'].step}")
+    print(f"{label}: launches {json.dumps(launches)}; attention by (N, D) "
           f"{json.dumps({f'{n}x{d}': c for (n, d), c in by_shape.items()})}")
     for k in ("field_fused", "merge128", "field_fused_bwd", "attention"):
         if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched by stage 2")
+            raise AssertionError(f"kernel {k} was not launched by {label}")
     unet = sum(c for (n, d), c in by_shape.items() if d in (40, 80))
     vae = sum(c for (n, d), c in by_shape.items() if d == 512)
     if unet <= 0 or vae <= 0:
         raise AssertionError(f"K7 launches: UNet {unet}, VAE {vae}")
     ms = float(np.median(group_ms[1:] or group_ms))
     times = out["setup_times"]
-    print(f"stage2: {STAGE2_STEPS} steps at the full SD1.5-inpaint width "
-          f"(bf16, 512² / 64² latents, RGB + normal SDS): {ms:.3f} ms per "
-          f"step (median of the groups of {STAGE2_PRINT} after the first: "
-          f"{', '.join(f'{g:.3f}' for g in group_ms)}); SD build "
-          f"{times['sd_build_s']:.3f} s, masked-latents cache of "
-          f"{len(scene.images)} views {times['masked_latents_s']:.3f} s; K7 "
-          f"launches UNet {unet}, VAE {vae}")
-    return out, ms, launches, cfg
+    print(f"{label}: {steps} steps at the full SD1.5-inpaint width "
+          f"(bf16, 512² / 64² latents, RGB + normal SDS"
+          f"{''.join(f', {k}={v}' for k, v in guidance.items())}): "
+          f"{ms:.3f} ms per step (median of the groups of {every} after the "
+          f"first: {', '.join(f'{g:.3f}' for g in group_ms)}); peak memory "
+          f"{peak_gib:.2f} GiB ({peak_gib - base_gib:.2f} above the "
+          f"{base_gib:.2f} GiB held before the run); SD build "
+          f"{times['sd_build_s']:.3f} s, "
+          f"masked-latents cache of {len(scene.images)} views "
+          f"{times['masked_latents_s']:.3f} s; K7 launches UNet {unet}, "
+          f"VAE {vae}")
+    if profile_dir is not None:
+        profile_step(cfg, dev, out, scene, profile_dir, label, ms)
+    return out, ms, launches, cfg, peak_gib
 
 
 def sds_gradient_check(cfg, dev, out, scene):
@@ -924,7 +975,10 @@ def sds_gradient_check(cfg, dev, out, scene):
 
 def stage2_step_vs_plain(cfg, dev, state, np_rng):
     """One stage-2 loss and gradient on the card vs the CPU plain path, at
-    the tiny SD widths in f32 and sd_latent_size 512, on a small view."""
+    the tiny SD widths in f32 and sd_latent_size 512, on a small view: RGB
+    + normal, RGB alone, RGB + colla (the four neighbour views injected,
+    rendered with gradient), and Perp-Neg's RGB (its orbit uniforms
+    injected)."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
     from gbnerf_tpu_torch.guidance import build_sd_modules, make_guidance_fn
     from gbnerf_tpu_torch.guidance.text import CLIPTextConfig
@@ -945,7 +999,8 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
         guidance=dataclasses.replace(cfg.guidance, normal_start_iter=0,
                                      cache_masked_latents=False))
     mods_cpu = build_sd_modules(
-        cfg.guidance, torch.Generator().manual_seed(4),
+        dataclasses.replace(cfg.guidance, perpneg=True),
+        torch.Generator().manual_seed(4),
         unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
         text_config=CLIPTextConfig(vocab_size=49408, width=32, layers=2,
                                    heads=2),
@@ -956,16 +1011,23 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
     idx = {name: torch.from_numpy(np_rng.integers(0, len(s), STEP_RAYS))
            for name, s in (("clf", banks.rgb_clf), ("inp", banks.inp),
                            ("depth", banks.depth))}
+    idx["colla"] = torch.tensor([2, 0, 3, 1])
     lr = STEP2_LATENT // 8
     draws = {mod: {k: torch.from_numpy(np_rng.standard_normal(
-        (1, lr, lr, 4)).astype(np.float32))
+        (b, lr, lr, 4)).astype(np.float32))
         for k in ("noise", "enc_eps", "enc_masked_eps")}
-        for mod in ("rgb", "normal")}
+        for mod, b in (("rgb", 1), ("normal", 1), ("colla", 4))}
+    draws_pn = dict(draws, rgb=dict(draws["rgb"], u=torch.from_numpy(
+        np_rng.random((3, 1)).astype(np.float32))))
+    rgb_only = dataclasses.replace(cfg.guidance, is_normal_guidance=False)
     out = {}
-    for variant, gcfg in (
-            ("rgb+normal", cfg.guidance),
-            ("rgb", dataclasses.replace(cfg.guidance,
-                                        is_normal_guidance=False))):
+    for variant, gcfg, vdraws in (
+            ("rgb+normal", cfg.guidance, draws),
+            ("rgb", rgb_only, draws),
+            ("colla", dataclasses.replace(rgb_only, is_colla_guidance=True),
+             draws),
+            ("perpneg", dataclasses.replace(rgb_only, perpneg=True),
+             draws_pn)):
         res, before = {}, all_launches()
         for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
             fields = [copy.deepcopy(f).to(device) for f in state.fields()]
@@ -973,16 +1035,19 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
                 mods_cpu, unet=copy.deepcopy(mods_cpu.unet).to(device),
                 vae=copy.deepcopy(mods_cpu.vae).to(device),
                 embeds_rgb=mods_cpu.embeds_rgb.to(device),
-                embeds_normal=mods_cpu.embeds_normal.to(device))
+                embeds_normal=mods_cpu.embeds_normal.to(device),
+                embeds_dir={k: v.to(device)
+                            for k, v in mods_cpu.embeds_dir.items()})
             step = make_train_step_stage2(
                 cfg.replace(guidance=gcfg), fields[0], fields[1], scene.near,
                 scene.far, scene.hwf, guidance_fn=make_guidance_fn(mods, gcfg))
             batch = select_stage2_view(
                 scene_to_device(scene, banks, device),
-                banks_to_device(banks, device), STEP_RAYS, img_i=1, idx=idx)
+                banks_to_device(banks, device), STEP_RAYS, img_i=1, idx=idx,
+                n_colla=4 if gcfg.is_colla_guidance else 0)
             loss, m = step.loss_fn(batch, state.step, draws={
                 mod: {k: v.to(device) for k, v in d.items()}
-                for mod, d in draws.items()})
+                for mod, d in vdraws.items()})
             loss.backward()
             res[where] = (loss.item(), m["sds_loss"].detach().item(), {
                 f"{name}.{k}": p.grad.detach().cpu().double()
@@ -1019,12 +1084,11 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
     return out
 
 
-def profile_stage2(cfg, dev, out, scene, outdir: Path, step_ms: float):
-    """--profile: one traced stage-2 step, and the step's parts timed alone
-    with CUDA events: the UNet forward (2 CFG copies, per modality), the
-    VAE encode of a 512² render with its backward, and the NeRF renders of
-    the step with their backward (guidance replaced by a stub that keeps
-    the masked and normal-map renders)."""
+def profile_step(cfg, dev, out, scene, outdir: Path, label: str,
+                 step_ms: float):
+    """--profile: one traced stage-2 step of ``cfg`` on the state and SD
+    stack of ``out`` (the masked latents zeros) → (state, scene_dev,
+    banks_dev, generator) for more timings."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
     from gbnerf_tpu_torch.guidance import make_guidance_fn
     from gbnerf_tpu_torch.train.loop import banks_to_device, scene_to_device
@@ -1043,7 +1107,21 @@ def profile_stage2(cfg, dev, out, scene, outdir: Path, step_ms: float):
         cfg, state.coarse, state.fine, scene.near, scene.far, scene.hwf,
         guidance_fn=make_guidance_fn(mods, cfg.guidance))
     profile_once(lambda: step(state, scene_dev, banks_dev, gen),
-                 "stage2_step", outdir, step_ms)
+                 f"{label}_step", outdir, step_ms)
+    return state, scene_dev, banks_dev, gen
+
+
+def profile_stage2(cfg, dev, out, scene, outdir: Path, step_ms: float):
+    """--profile: one traced stage-2 step, and the step's parts timed alone
+    with CUDA events: the UNet forward (2 CFG copies, per modality), the
+    VAE encode of a 512² render with its backward, and the NeRF renders of
+    the step with their backward (guidance replaced by a stub that keeps
+    the masked and normal-map renders)."""
+    from gbnerf_tpu_torch.train.step import make_train_step_stage2
+
+    mods = out["guidance"]
+    state, scene_dev, banks_dev, gen = profile_step(
+        cfg, dev, out, scene, outdir, "stage2", step_ms)
 
     lr = mods.latent_res
     unet_in = torch.randn((2, lr, lr, 9), generator=gen, device=dev)
@@ -1161,6 +1239,131 @@ def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
           f"checkpoint restored equal; eval PSNR {last['eval_psnr']:.3f} dB "
           f"on {len(scene.poses_test)} held-out views")
     return out, ms, step_launches, eval_launches
+
+
+def frozen_sigma_phase(cfg, dev, scene, depth_gts, workdir: Path) -> dict:
+    """Stage 1 through train() for FROZEN_STEPS steps with alpha_model_path
+    at the stage-1 phase's checkpoints: σ from that run's fine field (K2,
+    σ-only, no gradient), the colour from fresh fields (K1, and K4 with a
+    zero σ cotangent). Checks that σ of the frozen field along a batch of
+    rays is bit-equal to the alpha field's own σ-only call, and that the σ
+    column of each field's ws1 (the σ-net's output weight, which feeds σ
+    alone) is bit-equal before and after while the rest trained."""
+    from gbnerf_tpu_torch.core.fields import (make_field_fn,
+                                              make_frozen_sigma_field_fn)
+    from gbnerf_tpu_torch.train.loop import load_alpha_model, train
+    from gbnerf_tpu_torch.train.state import create_train_state
+
+    never = 10 ** 9
+    cfg = cfg.replace(
+        field=dataclasses.replace(
+            cfg.field, alpha_model_path=str(workdir / "stage1" / "ckpt")),
+        train=dataclasses.replace(
+            cfg.train, first_stage=True, N_iters=FROZEN_STEPS,
+            i_print=FROZEN_PRINT, i_weights=never, i_evaluate=never,
+            i_testset=never, i_video=never, basedir=str(workdir),
+            expname="frozen", no_reload=True,
+            sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    # train() draws the initial fields from a CPU generator seeded with
+    # train.seed: the same draw here gives the state before the steps
+    init, _, _ = create_train_state(
+        cfg, torch.Generator().manual_seed(cfg.train.seed), dev)
+    group_ms = []
+
+    def log_fn(i, m):
+        print(f"frozen: [{i}/{FROZEN_STEPS}] " + " ".join(
+            f"{k}={v:.5g}" for k, v in m.items()))
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite frozen-σ metrics at {i}")
+        group_ms.append(1e3 / m["iters_per_sec"])
+
+    # ---- the frozen-σ main path: launches counted from here ...
+    zero_launches()
+    out = train(cfg, scene=scene, depth_gts=depth_gts, device=dev,
+                log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    # ... to here
+    print(f"frozen: launches {json.dumps(launches)}")
+    for k in ("field_fused", "field_fused_sigma", "merge128",
+              "field_fused_bwd"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "frozen-σ steps")
+    state = out["state"]
+    kept = {name: torch.equal(a.ws1[:, 0], b.ws1[:, 0])
+            for name, a, b in zip(("coarse", "fine"), init.fields(),
+                                  state.fields())}
+    moved = {name: not torch.equal(a.ws1[:, 1:], b.ws1[:, 1:])
+             and not torch.equal(a.wc2, b.wc2)
+             for name, a, b in zip(("coarse", "fine"), init.fields(),
+                                   state.fields())}
+
+    alpha = load_alpha_model(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = FROZEN_SIGMA_RAYS
+    ro = torch.randn((n, 3), generator=g, device=dev) * 0.1
+    rd = torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    z = torch.linspace(scene.near, scene.far, cfg.render.N_samples,
+                       device=dev)
+    pts = ro[:, None] + rd[:, None] * z[:, None]
+    with torch.no_grad():
+        frozen = make_frozen_sigma_field_fn(make_field_fn(state.fine),
+                                            make_field_fn(alpha))
+        sigma = frozen(pts, rd)[..., 3]
+        sigma_alpha = make_field_fn(alpha)(pts, rd, sigma_only=True)[..., 3]
+    bit_equal = torch.equal(sigma, sigma_alpha)
+    ms = float(np.median(group_ms[1:] or group_ms))
+    print(f"frozen: {FROZEN_STEPS} stage-1 steps with alpha_model_path (σ "
+          f"from the stage-1 run's fine field): {ms:.3f} ms per step "
+          f"(median of the groups of {FROZEN_PRINT} after the first: "
+          f"{', '.join(f'{x:.3f}' for x in group_ms)}); σ of {n} rays × "
+          f"{cfg.render.N_samples} points bit-equal to the alpha field's: "
+          f"{bit_equal}; ws1's σ column unchanged {json.dumps(kept)}, the "
+          f"rest trained {json.dumps(moved)}")
+    if not (bit_equal and all(kept.values()) and all(moved.values())):
+        raise AssertionError("the frozen-σ run changed σ or its parameters, "
+                             "or trained nothing")
+    return {"ms": ms, "launches": launches}
+
+
+def check_clip(dev) -> dict:
+    """CLIPGuidance at the ViT-B/16 size (the text tower ViT-L/14's): the
+    loss and its gradient with respect to a 189 × 252 image on the card
+    against the CPU, the same towers and projection."""
+    from gbnerf_tpu_torch.guidance.clip_guidance import CLIPGuidance
+
+    cpu = CLIPGuidance("a stone park bench",
+                       torch.Generator().manual_seed(14))
+    card = copy.copy(cpu)
+    card.vision = copy.deepcopy(cpu.vision).to(dev)
+    card.text_embed = cpu.text_embed.to(dev)
+    img = torch.rand((VIEW_H, VIEW_W, 3),
+                     generator=torch.Generator().manual_seed(15))
+    res = {}
+    for where, g, dv in (("card", card, dev), ("cpu", cpu, "cpu")):
+        x = img.to(dv).clone().requires_grad_(True)
+        loss = g.loss(x, 1.0)
+        loss.backward()
+        res[where] = (loss.item(), x.grad.cpu().double())
+    (l_card, g_card), (l_cpu, g_cpu) = res["card"], res["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    gerr = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    t0 = time.perf_counter()
+    x = img.to(dev).requires_grad_(True)
+    for _ in range(5):
+        card.loss(x, 1.0).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    r = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": rel,
+         "grad_err_over_max": gerr, "ms_fwd_bwd": ms,
+         "limits": [CLIP_LOSS_RTOL, CLIP_GRAD_ATOL_FRAC]}
+    print(f"check clip (ViT-B/16 vision, ViT-L/14 text, {VIEW_H}x{VIEW_W} "
+          f"image): {json.dumps(r)}")
+    if rel > CLIP_LOSS_RTOL or gerr > CLIP_GRAD_ATOL_FRAC:
+        raise AssertionError("CLIP guidance on the card differs from the CPU")
+    return r
 
 
 def step_vs_plain(cfg, dev, state, scene, depth_gts):
@@ -2015,6 +2218,11 @@ def main() -> None:
     smi = nvidia_smi_line()
     dev = torch.device(DEVICE)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    # seconds from the start to the end of each phase (host clock)
+    t_start, phase_s = time.perf_counter(), {}
+
+    def phase_done(name: str) -> None:
+        phase_s[name] = round(time.perf_counter() - t_start, 1)
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -2044,6 +2252,7 @@ def main() -> None:
     check_field_widths(dev, np_rng)
     attn_res = check_attention(dev)
     cp_res = check_cp_encode(dev, np_rng)
+    phase_done("build and kernel checks")
 
     # ---- 4. the eval render path: launches counted from here ...
     render = make_render_fn(cfg, coarse, fine, near=NEAR, far=FAR)
@@ -2136,31 +2345,58 @@ def main() -> None:
           f"{sum(len(d['depth']) for d in depth_gts)} depth keypoints, "
           f"made in {time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as workdir:
+        phase_done("render, scene")
         out, step_ms, step_launches, eval_launches = stage1_train(
             cfg, dev, scene, depth_gts, Path(workdir))
+        phase_done("stage 1")
         # ---- 8. stage 2 from the stage-1 checkpoint (its own counts)
-        out2, step2_ms, stage2_launches, cfg2 = stage2_train(
+        out2, step2_ms, stage2_launches, cfg2, _ = stage2_train(
             cfg, dev, scene, depth_gts, Path(workdir), TRAIN_STEPS)
+        phase_done("stage 2")
+        # ---- 16. stage 2 with colla and with Perp-Neg, and stage 1 with
+        # the frozen σ of the stage-1 checkpoints (each its own counts)
+        colla_launches = stage2_train(
+            cfg, dev, scene, depth_gts, Path(workdir), TRAIN_STEPS,
+            label="colla", steps=COLLA_STEPS, every=VARIANT_PRINT,
+            profile_dir=args.profile, is_colla_guidance=True)[2]
+        phase_done("colla")
+        perpneg_launches = stage2_train(
+            cfg, dev, scene, depth_gts, Path(workdir), TRAIN_STEPS,
+            label="perpneg", steps=PERPNEG_STEPS, every=VARIANT_PRINT,
+            profile_dir=args.profile, perpneg=True)[2]
+        phase_done("perpneg")
+        frozen = frozen_sigma_phase(cfg, dev, scene, depth_gts,
+                                    Path(workdir))
+        phase_done("frozen σ")
+    # ---- 17. CLIP guidance, card vs CPU
+    check_clip(dev)
+    phase_done("clip")
     state = out["state"]
     sds_gradient_check(cfg2, dev, out2, scene)
     # ---- 13. the disk phase: scene to disk and back, s1 → nog (own counts)
     disk_dir = tempfile.TemporaryDirectory()
     disk = disk_phase(dev, Path(disk_dir.name))
     check_lpips(dev)
+    phase_done("disk")
     # ---- 14. the guided arms on the disk scene: prior → LoRA → priorNL
     guided = guided_phase(dev, Path(disk_dir.name))
+    phase_done("guided")
     # ---- 15. the full-size LoRA fine-tune and DDIM inpaint (own counts)
     lora_res = lora_phase(dev, disk["datadir"], args.profile)
+    phase_done("lora")
 
     # ---- 6. one step on the card vs the same step on the CPU plain path,
     # and one full-width step twice from one state (bit-equal)
     step_vs_plain(cfg, dev, state, scene, depth_gts)
     stage1_step_twice(cfg, dev, state, scene, depth_gts)
+    phase_done("stage-1 step vs plain, twice")
     # ---- 9. one stage-2 step on the card vs the CPU plain path
     stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(7))
+    phase_done("stage-2 steps vs plain")
     # ---- 11. the profiling entry points (their own counts)
     with tempfile.TemporaryDirectory() as workdir:
         prof_launches = profile_paths(Path(workdir))
+    phase_done("profilers")
 
     if args.profile is not None:
         from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
@@ -2183,6 +2419,7 @@ def main() -> None:
     disk_dir.cleanup()
 
     paths = [render_launches, step_launches, eval_launches, stage2_launches,
+             colla_launches, perpneg_launches, frozen["launches"],
              disk["launches"], guided["launches"], lora_res["launches"],
              *prof_launches.values()]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
@@ -2223,6 +2460,9 @@ def main() -> None:
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was launched on no "
                                  "path")
+    phase_done("end")
+    print(f"phases: seconds from the start at the end of each "
+          f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

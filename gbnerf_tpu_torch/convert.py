@@ -19,7 +19,8 @@ per-parameter ``step``.
 The SD guidance stack carries across with ``sd_params_from_jax``: the flax
 module names (``down_0_resnets_1``, ``to_out_0``, ``net_0``) map to the
 port's diffusers names, and the leaves to torch's layouts. LPIPS's VGG16
-carries across with ``lpips_params_from_jax``. ``state_dict_to_flax`` is
+carries across with ``lpips_params_from_jax``, CLIP guidance's vision
+tower with ``clip_vision_params_from_jax``. ``state_dict_to_flax`` is
 the inverse of ``flax_to_state_dict`` (the prior checkpoints of
 guidance/weights.py are written in the flax tree's names and layouts), and
 ``flax_key`` names a port parameter by its flax path (the LoRA adapter
@@ -265,6 +266,22 @@ def sd_params_to_jax(unet: nn.Module, vae: nn.Module, text: nn.Module):
     return (state_dict_to_flax(unet.state_dict()),
             state_dict_to_flax(vae.state_dict()),
             state_dict_to_flax(text.state_dict(), _TEXT_RULES_INV))
+
+
+_CLIP_VISION_RULES = [
+    (r"^layers_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\.",
+     r"layers.\1.self_attn.\2."),
+    (r"^layers_(\d+)\.(fc1|fc2)\.", r"layers.\1.mlp.\2."),
+    (r"^layers_(\d+)\.", r"layers.\1."),
+]
+
+
+def clip_vision_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's CLIP vision tower (guidance/clip_guidance.py
+    there) → the state dict of the port's ``CLIPVisionEncoder``: the
+    layers as the text tower's (``self_attn``/``mlp`` submodules), the
+    patch Conv's HWIO kernel as OIHW, the Dense kernels transposed."""
+    return flax_to_state_dict(tree, _CLIP_VISION_RULES)
 
 
 def lpips_params_from_jax(tree: Mapping):

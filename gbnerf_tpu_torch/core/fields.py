@@ -1,10 +1,11 @@
 """The classic NeRF MLP and the field-closure helper of the render path.
 
 Port of gbnerf_tpu/core/fields.py: ``NeRFMLP`` (8×256 trunk with an
-input-concat skip, σ from the trunk, rgb from a view branch) and
-``make_field_fn``. The MLP has no kernel; run in float64 it is the tight
-anchor for checks of the render pipeline against the JAX package.
-``HashGridField`` and ``make_frozen_sigma_field_fn`` are not ported yet.
+input-concat skip, σ from the trunk, rgb from a view branch),
+``make_field_fn`` and ``make_frozen_sigma_field_fn`` (σ from a frozen
+pretrained field, colour from the trainable one). The MLP has no kernel;
+run in float64 it is the tight anchor for checks of the render pipeline
+against the JAX package. ``HashGridField`` is not ported yet.
 
 Layer names are flax's (``trunk_{i}``, ``sigma``, ``feature``,
 ``views_0``, ``rgb``, ``output``) as ``nn.Linear``s, so a flax Dense
@@ -110,5 +111,27 @@ def make_field_fn(model: nn.Module) -> FieldFn:
     def field_fn(pts, viewdirs, sigma_only: bool = False):
         vd = viewdirs[..., None, :] if viewdirs is not None else None
         return model(pts, vd, sigma_only=sigma_only)
+
+    return field_fn
+
+
+def make_frozen_sigma_field_fn(rgb_fn: FieldFn, alpha_fn: FieldFn) -> FieldFn:
+    """σ from a frozen pretrained field, colour from the trainable one (the
+    reference's NeRF_RGB with --alpha_model_path).
+
+    The alpha field is called σ-only without gradient (K2 on the card for a
+    CP field), the trainable field in full (K1); the trainable field's σ is
+    dropped, so its backward (K4) sees a zero σ cotangent and no gradient
+    reaches the parameters that feed σ alone. ``sigma_only`` calls go to the
+    alpha field only.
+    """
+
+    def field_fn(pts, viewdirs, sigma_only: bool = False):
+        with torch.no_grad():
+            alpha_raw = alpha_fn(pts, viewdirs, sigma_only=True)
+        if sigma_only:
+            return alpha_raw
+        raw = rgb_fn(pts, viewdirs)
+        return torch.cat([raw[..., :3], alpha_raw[..., 3:4]], dim=-1)
 
     return field_fn

@@ -1,17 +1,21 @@
 """Stable-Diffusion-inpainting guidance: the stack, the score-distillation
 step and the train-step hook.
 
-Port of gbnerf_tpu/guidance/stable.py: ``SDModules``, ``build_sd_modules``,
-``_resize``, ``_gate_negative``, ``sd_train_step`` (2-way SDS and the
-3-way CSD combine), ``precompute_masked_latents``, ``guidance_params`` and
-``make_guidance_fn`` for the RGB and normal-map modalities. As in the JAX
-package the prompts are encoded once at build time, the UNet runs without
-gradient (its CFG copies batched on the leading axis), and only the VAE
-encode of the render is differentiated.
+Port of gbnerf_tpu/guidance/stable.py: ``SDModules``, ``build_sd_modules``
+(with the direction-suffixed prompt embeddings of Perp-Neg), ``_resize``,
+``_gate_negative``, ``sd_train_step`` (2-way SDS and the 3-way CSD
+combine), ``sd_train_step_colla`` (collaborative guidance over K views),
+``sd_train_step_perpneg``, ``precompute_masked_latents``,
+``guidance_params`` and ``make_guidance_fn`` for the RGB (plain or
+Perp-Neg), collaborative and normal-map modalities. As in the JAX package
+the prompts are encoded once at build time, the UNet runs without gradient
+(its CFG copies batched on the leading axis), and only the VAE encode of
+the renders is differentiated.
 
 Every random draw is an optional argument (the noise ε, the VAE posterior
-ε of the render and of the masked image), else drawn from a
-``torch.Generator``; the tests hand the port the JAX package's draws.
+ε of the render and of the masked image, Perp-Neg's orbit uniforms), else
+drawn from a ``torch.Generator``; the tests hand the port the JAX
+package's draws.
 
 Resizing: ``jax.image.resize`` samples at half-pixel centres. Its
 "nearest" at the 512 → 64 mask downsample is torch's "nearest-exact"
@@ -26,12 +30,10 @@ adapters of train_lora, guidance/lora.py) merges into the UNet and, when
 the file has them, the text tower before the prompt embeddings are
 computed, unless ``sd_prior_ckpt`` is set: the prior replaces the UNet
 after the build, so train/loop.py merges after loading it.
-
-Not ported yet, and refused: Perp-Neg and the collaborative (colla)
-guidance.
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -41,8 +43,11 @@ import torch.nn.functional as F
 
 from .blocks import init_weights_
 from .schedule import DiffusionSchedule
-from .sds import (cfg_combine_bsd, cfg_combine_sds, inject_gradient,
-                  score_distillation_grad)
+from .directional import adjust_text_embeddings, wrap_azimuth
+from .orchestrator import progressive_ranges, rand_poses
+from .perpneg import weighted_perpendicular_aggregator
+from .sds import (cfg_combine_bsd, cfg_combine_colla, cfg_combine_sds,
+                  inject_gradient, score_distillation_grad)
 from .text import CLIPTextConfig, CLIPTextEncoder, Tokenizer
 from .unet import UNet2DCondition, UNetConfig
 from .vae import AutoencoderKL, VAEConfig
@@ -59,6 +64,9 @@ class SDModules:
     schedule: DiffusionSchedule
     embeds_rgb: torch.Tensor       # [3, L, D] (null, uncond, text), f32
     embeds_normal: torch.Tensor    # the same triple for the normal prompt
+    # {front, side, back} → [L, D]: the direction-suffixed prompt embeds
+    # of Perp-Neg; None unless gcfg.perpneg
+    embeds_dir: Optional[Dict[str, torch.Tensor]] = None
     latent_size: int = LATENT_SIZE
     text_model: Any = None
     tokenizer: Any = None
@@ -66,15 +74,6 @@ class SDModules:
     @property
     def latent_res(self) -> int:
         return self.latent_size // 8
-
-
-def _refuse_unported(gcfg) -> None:
-    if gcfg.perpneg:
-        raise NotImplementedError("Perp-Neg guidance (perpneg) is not ported "
-                                  "yet")
-    if gcfg.is_colla_guidance:
-        raise NotImplementedError("collaborative guidance "
-                                  "(is_colla_guidance) is not ported yet")
 
 
 def _build(ctor, generator, device, dtype):
@@ -111,7 +110,6 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
             f"sd_version={ver!r}: only the SD1.x-inpaint architecture is "
             "implemented (UNet 320/640/1280, CLIP ViT-L text width 768); use "
             "sd_version=1.5 with an SD1.x-inpaint checkpoint.")
-    _refuse_unported(gcfg)
     device = torch.device(device if device is not None else "cpu")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -156,12 +154,21 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
     def encode_triple(prompt: str, negative: str) -> torch.Tensor:
         return text(tok(["", negative, prompt]))       # (null, uncond, text)
 
+    embeds_dir = None
+    if gcfg.perpneg:
+        # direction-suffixed prompts (stable-dreamfusion's convention)
+        with torch.no_grad():
+            z = text(tok([f"{gcfg.prompt}, {d} view"
+                          for d in ("front", "side", "back")]))
+        embeds_dir = {"front": z[0], "side": z[1], "back": z[2]}
+
     return SDModules(
         unet=unet, vae=vae, schedule=DiffusionSchedule.sd_v1(),
         embeds_rgb=encode_triple(gcfg.prompt, gcfg.negative_prompt),
         embeds_normal=encode_triple(gcfg.prompt_normal or gcfg.prompt,
                                     gcfg.negative_prompt),
-        latent_size=latent_size, text_model=text, tokenizer=tok)
+        embeds_dir=embeds_dir, latent_size=latent_size, text_model=text,
+        tokenizer=tok)
 
 
 def _resize(img: torch.Tensor, size, method: str = "bilinear"
@@ -214,18 +221,46 @@ def sd_train_step(mods: SDModules, gcfg, step_i: int, rgb: torch.Tensor,
     (the noise ε, the posterior ε of the render's and of the masked image's
     encode); each is drawn from ``generator`` when not given.
     """
-    S, LR = mods.latent_size, mods.latent_res
-    sched = mods.schedule
     mode = mode or ("csd" if gcfg.use_csd else "sds")
     if w_triple is None:
         w_triple = (gcfg.w1, gcfg.w2, gcfg.w3)
     embeds = _gate_negative(embeds, step_i if gate_step is None else gate_step,
                             gcfg.use_negative)
-    dev, vdt = rgb.device, mods.vae.quant_conv.weight.dtype
-    lat_shape = (1, LR, LR, mods.vae.config.latent_channels)
+    latents_t, noise, mask_latent, unet_in, t = _noised_latents(
+        mods, gcfg, step_i, rgb[None], mask[None], generator,
+        masked_latents=masked_latents, noise=noise, enc_eps=enc_eps,
+        enc_masked_eps=enc_masked_eps)
 
-    rgb512 = _resize(rgb[None], S) * 2.0 - 1.0               # [1,S,S,3]
-    mask512 = _resize(torch.abs(mask)[None, ..., None], S)    # [1,S,S,1]
+    k = 3 if mode == "csd" else 2
+    emb = embeds if k == 3 else embeds[1:]                    # (u, t) 2-way
+    with torch.no_grad():
+        eps = mods.unet(unet_in.expand(k, -1, -1, -1), t, emb)
+    if mode == "csd":
+        pred = cfg_combine_bsd(eps[0], eps[1], eps[2], *w_triple)
+    else:
+        pred = cfg_combine_sds(eps[0], eps[1], guidance_scale)
+    return _inject(mods, gcfg, latents_t, pred[None], noise, t, mask_latent,
+                   mode=mode)
+
+
+def _noised_latents(mods: SDModules, gcfg, step_i: int, rgbs, masks,
+                    generator, *, masked_latents=None, noise=None,
+                    enc_eps=None, enc_masked_eps=None):
+    """The differentiable half of a score-distillation step on B images:
+    rgbs [B, H, W, 3] in [0, 1] and masks [B, H, W] → (latents_t, noise,
+    mask_latent, unet_in, t). The images are resized to S², encoded (with
+    gradient) and noised at the annealed t; the masked images are encoded
+    without gradient unless ``masked_latents`` is given; unet_in [B, LR,
+    LR, 9] is the UNet's input (noised latents without gradient, the
+    latent mask, the masked latents). noise, enc_eps, enc_masked_eps: the
+    injected draws [B, LR, LR, 4], else drawn from ``generator``."""
+    S, LR = mods.latent_size, mods.latent_res
+    sched = mods.schedule
+    dev, vdt = rgbs.device, mods.vae.quant_conv.weight.dtype
+    lat_shape = (rgbs.shape[0], LR, LR, mods.vae.config.latent_channels)
+
+    rgb512 = _resize(rgbs, S) * 2.0 - 1.0                    # [B,S,S,3]
+    mask512 = _resize(torch.abs(masks)[..., None], S)         # [B,S,S,1]
     if enc_eps is None:
         enc_eps = _randn(lat_shape, generator, vdt, dev)
     init_latents = mods.vae.encode(rgb512, enc_eps)           # differentiable
@@ -235,28 +270,100 @@ def sd_train_step(mods: SDModules, gcfg, step_i: int, rgb: torch.Tensor,
         with torch.no_grad():
             masked_latents = mods.vae.encode(rgb512 * (mask512 < 0.5),
                                              enc_masked_eps)
-    mask_latent = _resize(mask512, LR, method="nearest")      # [1,LR,LR,1]
+    mask_latent = _resize(mask512, LR, method="nearest")      # [B,LR,LR,1]
 
     t = sched.annealed_t(step_i, gcfg.t_range, gcfg.anneal_iters)
     if noise is None:
         noise = _randn(init_latents.shape, generator, torch.float32, dev)
     latents_t = sched.add_noise(init_latents, noise, t)
-
-    k = 3 if mode == "csd" else 2
     unet_in = torch.cat([latents_t.detach(), mask_latent,
                          masked_latents.to(latents_t.dtype)], dim=-1)
-    emb = embeds if k == 3 else embeds[1:]                    # (u, t) 2-way
-    with torch.no_grad():
-        eps = mods.unet(unet_in.expand(k, -1, -1, -1), t, emb)
-    if mode == "csd":
-        pred = cfg_combine_bsd(eps[0], eps[1], eps[2], *w_triple)
-    else:
-        pred = cfg_combine_sds(eps[0], eps[1], guidance_scale)
+    return latents_t, noise, mask_latent, unet_in, t
 
-    grad = score_distillation_grad(pred[None], noise,
-                                   sched.sds_weight(t, dev), mode=mode)
+
+def _inject(mods: SDModules, gcfg, latents_t, pred, noise, t, mask_latent, *,
+            mode: str, standard_sds: bool = False) -> torch.Tensor:
+    """The score-distillation gradient of ``pred`` injected into latents_t
+    under the latent mask, at weight lambda_guidance."""
+    grad = score_distillation_grad(pred, noise,
+                                   mods.schedule.sds_weight(t, pred.device),
+                                   mode=mode, standard_sds=standard_sds)
     return gcfg.lambda_guidance * inject_gradient(latents_t, grad,
                                                   mask_latent)
+
+
+def sd_train_step_colla(mods: SDModules, gcfg, step_i: int,
+                        rgbs: torch.Tensor, masks: torch.Tensor,
+                        generator: Optional[torch.Generator] = None, *,
+                        embeds: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        enc_eps: Optional[torch.Tensor] = None,
+                        enc_masked_eps: Optional[torch.Tensor] = None):
+    """Collaborative score distillation over K neighbour views (the
+    reference's train_step_colla_sds) → scalar, summed over the views.
+
+    rgbs: [K, H, W, 3] rendered views in [0, 1]; masks: [K, H, W]. Under
+    use_csd the per-view 3-way combine w1·ε_text + (w2 − w1)·ε_null −
+    w2·ε_uncond (shared w1/w2), else the 2-way CFG at
+    colla_guidance_scale with the textbook gradient w·(ε̂ − ε), which
+    differs from sd_train_step's reference-exact w·ε̂ − ε. The masked
+    images come from the renders, so they are encoded every call. The
+    UNet's batch is [null×K,] uncond×K, text×K, the embeddings repeated
+    per view in the same order. noise, enc_eps, enc_masked_eps: the
+    injected draws [K, LR, LR, 4].
+    """
+    K, LR = rgbs.shape[0], mods.latent_res
+    mode = "csd" if gcfg.use_csd else "sds"
+    nc = 3 if mode == "csd" else 2                            # CFG copies
+    embeds = mods.embeds_rgb if embeds is None else embeds
+    embeds = _gate_negative(embeds, step_i, gcfg.use_negative)
+    latents_t, noise, mask_latent, unet_in, t = _noised_latents(
+        mods, gcfg, step_i, rgbs, masks, generator, noise=noise,
+        enc_eps=enc_eps, enc_masked_eps=enc_masked_eps)
+
+    emb3 = embeds if mode == "csd" else embeds[1:]           # (u, t) 2-way
+    with torch.no_grad():
+        eps = mods.unet(unet_in.repeat(nc, 1, 1, 1), t,
+                        emb3.repeat_interleave(K, dim=0))
+    eps = eps.reshape(nc, K, LR, LR, eps.shape[-1])
+    if mode == "csd":
+        pred = cfg_combine_colla(eps[0], eps[1], eps[2], gcfg.w1, gcfg.w2)
+    else:
+        pred = cfg_combine_sds(eps[0], eps[1], gcfg.colla_guidance_scale)
+    return _inject(mods, gcfg, latents_t, pred, noise, t, mask_latent,
+                   mode=mode, standard_sds=True)
+
+
+def sd_train_step_perpneg(mods: SDModules, gcfg, step_i: int,
+                          rgb: torch.Tensor, mask: torch.Tensor,
+                          generator: Optional[torch.Generator] = None, *,
+                          text_z: torch.Tensor, weights: torch.Tensor,
+                          guidance_scale: float, uncond: torch.Tensor,
+                          masked_latents: Optional[torch.Tensor] = None,
+                          noise: Optional[torch.Tensor] = None,
+                          enc_eps: Optional[torch.Tensor] = None,
+                          enc_masked_eps: Optional[torch.Tensor] = None):
+    """Perp-Neg SDS on one modality → scalar: the azimuth-blended positive
+    prompt plus the weighted perpendicular components of the auxiliary
+    directions' deltas, one UNet call at batch 1 + (1 + K) (uncond, the
+    main direction, the K auxiliaries).
+
+    text_z: [1+K, L, D] from adjust_text_embeddings; weights: [K];
+    uncond: [L, D]. masked_latents and the draws as sd_train_step's.
+    """
+    latents_t, noise, mask_latent, unet_in, t = _noised_latents(
+        mods, gcfg, step_i, rgb[None], mask[None], generator,
+        masked_latents=masked_latents, noise=noise, enc_eps=enc_eps,
+        enc_masked_eps=enc_masked_eps)
+    k = 1 + text_z.shape[0]                                   # uncond + dirs
+    emb = torch.cat([uncond[None], text_z], dim=0)            # [k, L, D]
+    with torch.no_grad():
+        eps = mods.unet(unet_in.expand(k, -1, -1, -1), t, emb)
+    e_unc = eps[:1]
+    agg = weighted_perpendicular_aggregator(eps[1:] - e_unc, weights, 1)
+    pred = e_unc[0] + guidance_scale * agg[0]
+    return _inject(mods, gcfg, latents_t, pred[None], noise, t, mask_latent,
+                   mode="sds")
 
 
 @torch.no_grad()
@@ -287,40 +394,78 @@ def guidance_params(mods: SDModules) -> Dict[str, Any]:
     """The SD state of the stack: the modules and the prompt embeddings
     (the JAX package threads these through its jitted step as arguments;
     the port's hook holds the modules, so nothing needs to)."""
-    return {"unet": mods.unet, "vae": mods.vae,
-            "embeds_rgb": mods.embeds_rgb,
-            "embeds_normal": mods.embeds_normal}
+    p = {"unet": mods.unet, "vae": mods.vae,
+         "embeds_rgb": mods.embeds_rgb,
+         "embeds_normal": mods.embeds_normal}
+    if mods.embeds_dir is not None:
+        p["embeds_dir"] = mods.embeds_dir
+    return p
 
 
 def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
     """The train-step guidance hook (the reference's Pretrain_Model
-    .cal_loss): RGB SDS on the composite, normal-map SDS after
+    .cal_loss): RGB SDS on the composite (Perp-Neg under gcfg.perpneg),
+    collaborative SDS on the K neighbour views, normal-map SDS after
     normal_start_iter, each with its own CFG scale and CSD triple; the
     modality losses sum into one scalar.
 
     guidance_fn(step_i, combin_rgb [H,W,3], normal_map [h,w,3] | None,
-    mask [H,W], generator=None, *, masked_latents=None, draws=None) →
-    scalar. draws: {"rgb": {...}, "normal": {...}}, each the
-    injected draws of sd_train_step (noise, enc_eps, enc_masked_eps).
-    The normal term is not computed while it is gated off (the JAX
-    package computes it and multiplies by 0: the same value and
-    gradient).
+    mask [H,W], generator=None, *, rgbs4=None, masks4=None,
+    masked_latents=None, draws=None) → scalar. rgbs4 [K,h,w,3] and masks4
+    [K,h,w]: the collaborative views (used under is_colla_guidance).
+    draws: {"rgb": {...}, "colla": {...}, "normal": {...}}, each the
+    injected draws of its step (noise, enc_eps, enc_masked_eps; for
+    Perp-Neg also "u", the orbit uniforms [3, 1] of rand_poses).
+    Under Perp-Neg a random orbit azimuth is drawn each step (its view
+    ranges widened with the step over ``n_iters`` under progressive_view),
+    and the direction-suffixed prompt embeddings are blended by it. The
+    normal term is not computed while it is gated off (the JAX package
+    computes it and multiplies by 0: the same value and gradient).
     """
-    del n_iters          # the progressive view ranges of Perp-Neg use it
-    _refuse_unported(gcfg)
+    use_perpneg = gcfg.perpneg and mods.embeds_dir is not None
+
+    def _perpneg_rgb(step_i, combin_rgb, mask, generator, *,
+                     masked_latents, u=None, **draws):
+        theta_r, phi_r, rad_r = progressive_ranges(step_i, gcfg, n_iters)
+        _, _, _, phis, _ = rand_poses(
+            1, generator, u=u, radius_range=rad_r, theta_range=theta_r,
+            phi_range=phi_r, angle_overhead=gcfg.angle_overhead,
+            angle_front=gcfg.angle_front, device=combin_rgb.device)
+        az = wrap_azimuth(phis * (180.0 / math.pi) - gcfg.default_azimuth)
+        text_z, weights = adjust_text_embeddings(
+            mods.embeds_dir, az, front_decay_factor=gcfg.front_decay_factor,
+            side_decay_factor=gcfg.side_decay_factor,
+            negative_w=gcfg.negative_w)
+        return sd_train_step_perpneg(
+            mods, gcfg, step_i, combin_rgb, mask, generator, text_z=text_z,
+            weights=weights, guidance_scale=gcfg.guidance_scale,
+            uncond=mods.embeds_rgb[1], masked_latents=masked_latents,
+            **draws)
 
     def guidance_fn(step_i: int, combin_rgb, normal_map, mask,
                     generator: Optional[torch.Generator] = None, *,
-                    masked_latents=None, draws=None):
+                    rgbs4=None, masks4=None, masked_latents=None,
+                    draws=None):
         draws = draws or {}
         loss = torch.zeros((), device=combin_rgb.device)
-        if gcfg.is_rgb_guidance:
+        # masked_latents caches the RGB modality's conditioning encode
+        # only: the composite is the GT outside the mask. The collaborative
+        # and normal modalities' masked images come from the live renders.
+        if gcfg.is_rgb_guidance and use_perpneg:
+            loss = loss + _perpneg_rgb(step_i, combin_rgb, mask, generator,
+                                       masked_latents=masked_latents,
+                                       **draws.get("rgb", {}))
+        elif gcfg.is_rgb_guidance:
             loss = loss + sd_train_step(
                 mods, gcfg, step_i, combin_rgb, mask, generator,
                 embeds=mods.embeds_rgb,
                 guidance_scale=gcfg.guidance_scale,
                 w_triple=(gcfg.rgb_w1, gcfg.rgb_w2, gcfg.rgb_w3),
                 masked_latents=masked_latents, **draws.get("rgb", {}))
+        if gcfg.is_colla_guidance and rgbs4 is not None:
+            loss = loss + sd_train_step_colla(
+                mods, gcfg, step_i, rgbs4, masks4, generator,
+                embeds=mods.embeds_rgb, **draws.get("colla", {}))
         if (gcfg.is_normal_guidance and normal_map is not None
                 and step_i > gcfg.normal_start_iter):
             # the normal anneal restarts when it switches on: it runs on

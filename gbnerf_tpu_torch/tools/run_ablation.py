@@ -30,6 +30,8 @@ round-5 table of PARITY.md; the reference's shipped combine is
          priorN  prior + normal-map guidance from the same prior
          priorL  prior + the scene LoRA
          priorNL priorN + the scene LoRA: the reference's shipped shape
+         priorC  prior + collaborative guidance: four random training
+                 views rendered each step and guided jointly
 
 Each arm is a run of ``python -m gbnerf_tpu_torch.run`` on the config it
 writes (the same text as the original's, paths aside); the stage-2 arms
@@ -39,8 +41,7 @@ prior beside s1; nog and rand once s1 is done; the prior's arms and the
 LoRA once the prior is; the LoRA's arms once it is), beside the others on
 the one card: a guided arm leaves the card idle most of a step, and each
 run is the same computation either way. Guided arms' names carry the
-combine's tag (``prior-sds``), as in the original. ``priorC``
-(collaborative guidance) waits for ROADMAP A6 and exits 1. ``--smoke``
+combine's tag (``prior-sds``), as in the original. ``--smoke``
 swaps in the original's small-MLP field (its non-production default) for
 quick CPU runs, and ``--latent`` a smaller guidance resolution. Results:
 OUT/ablation.json and a table of masked, unmasked and full held-out PSNR.
@@ -56,8 +57,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-ARMS = ("s1", "nog", "rand", "prior", "priorN", "priorL", "priorNL")
-UNPORTED_ARMS = ("priorC",)
+ARMS = ("s1", "nog", "rand", "prior", "priorN", "priorL", "priorNL",
+        "priorC")
 
 COMMON = """
 datadir = {scene}
@@ -182,7 +183,10 @@ def write_configs(out, args, arms=("s1", "nog")):
                          f"sd_lora_ckpt = {lora_ckpt}\n"),
               "priorN": normal + f"sd_prior_ckpt = {prior}\n",
               "priorNL": (normal + f"sd_prior_ckpt = {prior}\n"
-                          f"sd_lora_ckpt = {lora_ckpt}\n")}
+                          f"sd_lora_ckpt = {lora_ckpt}\n"),
+              "priorC": ("is_rgb_guidance = True\nis_colla_guidance = True\n"
+                         "sd_tiny = True\n"
+                         f"sd_prior_ckpt = {prior}\n")}
     texts = {"s1": (f"first_stage = True\nN_iters = {args.iters1}\n"
                     f"i_evaluate = {args.iters1}\n")}
     for arm in arms:
@@ -251,6 +255,8 @@ def check_configs(paths, args):
              "lora ckpt")
         need(g.is_normal_guidance == (arm in ("priorN", "priorNL")),
              "is_normal_guidance vs arm")
+        need(g.is_colla_guidance == (arm == "priorC"),
+             "is_colla_guidance vs arm")
         if g.is_normal_guidance:
             need(g.normal_start_iter == args.iters1,
                  "normal_start_iter must be stage-2 entry")
@@ -307,12 +313,8 @@ def main(argv=None):
     arms = args.arms.split(",")
     bad = [a for a in arms if a not in ARMS]
     if bad:
-        known = [a for a in bad if a in UNPORTED_ARMS]
-        raise SystemExit(
-            f"arms {bad} are not ported: " + (
-                "collaborative guidance waits for ROADMAP A6"
-                if known == bad else
-                f"the ablation's arms are {ARMS + UNPORTED_ARMS}"))
+        raise SystemExit(f"unknown arms {bad}: the ablation's arms are "
+                         f"{ARMS}")
     out = os.path.abspath(args.out)
     logs = os.path.join(out, "logs")
     os.makedirs(logs, exist_ok=True)

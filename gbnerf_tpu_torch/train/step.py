@@ -1,13 +1,13 @@
 """Render functions and the stage-1 and stage-2 train steps.
 
 Port of gbnerf_tpu/train/step.py: ``make_render_fn`` (with its NDC and
-non-NDC branches), ``make_image_renderer``, ``_full_view_rays``,
-``_sigma_depth_loss``, ``make_train_step_stage1``, and stage 2:
-``Stage2Batch``, ``select_stage2_view``, ``_masked_rays`` and
-``make_train_step_stage2`` with the LPIPS patch loss (``lpips_fn``) and
-``gradient_clip`` (pwclip). Not ported yet: the frozen-σ field
-(``alpha=``), the data mesh (``mesh=``), and in stage 2 the
-collaborative neighbour views.
+non-NDC branches and the frozen-σ field, ``alpha=``),
+``make_image_renderer``, ``_full_view_rays``, ``_sigma_depth_loss``,
+``make_train_step_stage1``, and stage 2: ``Stage2Batch``,
+``select_stage2_view``, ``_masked_rays`` and ``make_train_step_stage2``
+with the LPIPS patch loss (``lpips_fn``), ``gradient_clip`` (pwclip) and
+the collaborative neighbour views. Not ported yet: the data mesh
+(``mesh=``).
 """
 from __future__ import annotations
 
@@ -17,10 +17,11 @@ import torch
 
 from ..config import Config
 from ..core.normals import depth2normal_geo, depth2xyz
-from ..core.fields import make_field_fn
+from ..core.fields import make_field_fn, make_frozen_sigma_field_fn
 from ..core.rays import ndc_rays
 from ..core.render import RenderOutputs, render_rays, render_rays_blocked
 from ..data.rays_bank import sample_batch
+from ..guidance.stable import _resize
 from ..utils.metrics import img2mse, mse2psnr, weighted_mse
 from .losses import (cp_tv_loss, draw_patch_idx, extract_patches, pwclip,
                      sigma_loss)
@@ -28,13 +29,16 @@ from .state import TrainState, adam_step, lr_schedule
 
 
 def make_render_fn(cfg: Config, coarse_model, fine_model, near: float,
-                   far: float, hwf=None):
+                   far: float, hwf=None, alpha=None):
     """Build render(rays_o, rays_d, generator=None, *, train) → RenderOutputs.
 
     near/far are scene constants. With no_ndc=False the rays are mapped
     through ndc_rays (near plane 1) and marched over [0, 1], with viewdirs
     from the world-space directions; that needs hwf = (H, W, focal).
     At eval (train=False) the coarse pass is σ-only, with no jitter or noise.
+    alpha: a frozen pretrained field (``train.loop.load_alpha_model``) that
+    supplies σ to both passes; the coarse and fine fields then give only
+    the colour (``make_frozen_sigma_field_fn``).
     """
     r = cfg.render
     use_ndc = not r.no_ndc
@@ -46,6 +50,11 @@ def make_render_fn(cfg: Config, coarse_model, fine_model, near: float,
         near, far = 0.0, 1.0
     coarse_fn = make_field_fn(coarse_model)
     fine_fn = make_field_fn(fine_model) if fine_model is not None else None
+    if alpha is not None:
+        alpha_fn = make_field_fn(alpha)
+        coarse_fn = make_frozen_sigma_field_fn(coarse_fn, alpha_fn)
+        if fine_fn is not None:
+            fine_fn = make_frozen_sigma_field_fn(fine_fn, alpha_fn)
 
     def render(rays_o: torch.Tensor, rays_d: torch.Tensor,
                generator: Optional[torch.Generator] = None, *,
@@ -103,8 +112,8 @@ def _full_view_rays(H: int, W: int, focal: float, pose: torch.Tensor):
 
 
 def _sigma_depth_loss(cfg: Config, coarse_model, fine_model, dep, near,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      alpha=None) -> torch.Tensor:
     """DS-NeRF σ-likelihood on COLMAP-depth rays, on the fine field (the
     reference's SigmaLoss, built at run.py:2122-2124 on the fine network).
 
@@ -112,10 +121,14 @@ def _sigma_depth_loss(cfg: Config, coarse_model, fine_model, dep, near,
     but its shipped loop never adds it to the loss; here it is added with
     weight sigma_loss_weight. The loss reads only σ, so the field is called
     σ-only (K2 forward and K5 backward on the card): σ and its gradients
-    are those of the full call, bit for bit, without the colour head.
+    are those of the full call, bit for bit, without the colour head. With
+    a frozen alpha field, σ is the alpha field's and the term carries no
+    gradient, as in the JAX package.
     """
     r = cfg.render
     fn = make_field_fn(fine_model if fine_model is not None else coarse_model)
+    if alpha is not None:
+        fn = make_frozen_sigma_field_fn(fn, make_field_fn(alpha))
     viewdirs = dep["d"] / torch.linalg.norm(dep["d"], dim=-1, keepdim=True)
     per_ray = sigma_loss(lambda pts, vd: fn(pts, vd, sigma_only=True),
                          dep["o"], dep["d"], viewdirs, near,
@@ -136,15 +149,14 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
     the card), takes one Adam step at lr_schedule(state.step) and updates
     ``state`` in place. ``step.loss_fn(batches, generator=None)`` →
     (loss, metrics) is exposed for the loss tests, as in the JAX package.
-    hwf: training intrinsics, required only for the NDC path.
+    hwf: training intrinsics, required only for the NDC path. alpha: a
+    frozen field that supplies σ (``make_render_fn``).
     """
-    if alpha is not None:
-        raise NotImplementedError("the frozen-σ field (alpha=) is not ported "
-                                  "yet")
     if mesh is not None:
         raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
                                   "the port trains on one device")
-    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf)
+    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf,
+                            alpha=alpha)
     schedule = lr_schedule(cfg)
     t, d = cfg.train, cfg.data
     fields = [m for m in (coarse_model, fine_model) if m is not None]
@@ -179,7 +191,7 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
             loss = loss + d.sdepth_lambda * col_loss
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator)
+                                             dep, near, generator, alpha)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         if t.tv_loss_weight > 0:
@@ -226,16 +238,20 @@ class Stage2Batch(NamedTuple):
     # cached [1, LR, LR, 4] VAE encoding of the view's masked conditioning
     # image (guidance/stable.py::precompute_masked_latents)
     masked_latents: Optional[torch.Tensor] = None
+    colla_poses: Optional[torch.Tensor] = None  # [K, 3, 4] neighbour views
+    colla_masks: Optional[torch.Tensor] = None  # [K, H, W]
 
 
 def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
                        n_rand: int,
                        generator: Optional[torch.Generator] = None, *,
-                       img_i=None, idx=None) -> Stage2Batch:
-    """A random view and N_rand rays of each stream, on the device. The
-    view index (``img_i``) and the stream draws (``idx``: {"clf", "inp",
-    "depth"} → [n_rand] indices) may be injected; otherwise they come from
-    ``generator``."""
+                       img_i=None, idx=None, n_colla: int = 0) -> Stage2Batch:
+    """A random view and N_rand rays of each stream, on the device; with
+    n_colla, that many random views' poses and masks for the collaborative
+    guidance. The view index (``img_i``), the stream draws (``idx``:
+    {"clf", "inp", "depth"} → [n_rand] indices) and the collaborative
+    views (``idx["colla"]`` → [n_colla] indices) may be injected;
+    otherwise they come from ``generator``."""
     idx = idx or {}
     images = scene_dev["images"]
     if img_i is None:
@@ -249,7 +265,7 @@ def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
 
     ml = scene_dev.get("masked_latents")
     depth = banks_dev.get("depth")
-    return Stage2Batch(
+    batch = Stage2Batch(
         image=take("images"), mask=take("masks"), coords=take("mask_coords"),
         valid=take("mask_valid"), pose=take("poses")[:3, :4],
         clf=sample_batch(banks_dev["rgb_clf"], n_rand, generator,
@@ -258,6 +274,16 @@ def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
         depth=(sample_batch(depth, n_rand, generator, idx.get("depth"))
                if depth is not None else None),
         masked_latents=ml.index_select(0, img_i) if ml is not None else None)
+    if not n_colla:
+        return batch
+    ci = idx.get("colla")
+    if ci is None:
+        ci = torch.randint(0, images.shape[0], (n_colla,),
+                           generator=generator, device=images.device)
+    ci = torch.as_tensor(ci, device=images.device)
+    return batch._replace(
+        colla_poses=scene_dev["poses"].index_select(0, ci)[:, :3, :4],
+        colla_masks=scene_dev["masks"].index_select(0, ci))
 
 
 def _masked_rays(H: int, W: int, focal: float, pose: torch.Tensor,
@@ -286,8 +312,30 @@ def _composite(image: torch.Tensor, coords: torch.Tensor,
 
 
 # guidance_fn(step, combin_rgb [H,W,3], normal_map [h,w,3] | None,
-#             mask [H,W], generator, *, masked_latents, draws) → scalar
+#             mask [H,W], generator, *, masked_latents, draws[, rgbs4,
+#             masks4]) → scalar
 GuidanceFn = Callable[..., torch.Tensor]
+
+
+def _colla_views(render, batch: Stage2Batch, H_r: int, W_r: int,
+                 focal_r: float) -> Dict[str, torch.Tensor]:
+    """The collaborative guidance's neighbour views (the reference's
+    render_path_4view): each of batch.colla_poses rendered at H_r × W_r as
+    at eval (train=False: the σ-only coarse pass, no jitter or noise) but
+    with gradient, all K views' rays in one render call; their masks
+    resized nearest (jax.image.resize's, nearest-exact). The σ-only coarse
+    pass only places the fine samples (its weights are detached), so the
+    gradient reaches the fields through the fine pass alone (K1 forward,
+    K4 backward on the card). → {"rgbs4": [K, H_r, W_r, 3], "masks4":
+    [K, H_r, W_r]}."""
+    K = batch.colla_poses.shape[0]
+    rays = [_full_view_rays(H_r, W_r, focal_r, p) for p in batch.colla_poses]
+    ro = torch.stack([o for o, _ in rays]).reshape(-1, 3)
+    rd = torch.stack([d for _, d in rays]).reshape(-1, 3)
+    rgbs4 = render(ro, rd, None, train=False).rgb.reshape(K, H_r, W_r, 3)
+    masks4 = _resize(batch.colla_masks[..., None], (H_r, W_r),
+                     method="nearest")[..., 0]
+    return {"rgbs4": rgbs4, "masks4": masks4}
 
 
 def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
@@ -307,28 +355,28 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
     weight sds_loss_weight; with ``lpips_fn`` (a [B,h,w,3]×2 → [B]
     distance, utils/lpips.py) the perceptual distance of n_patches
     patches cut at the same masked positions from the composite and the
-    GT view, at weight lpips_weight; one backward and one Adam step at
-    lr_schedule(state.step).
+    GT view, at weight lpips_weight; with ``guidance_fn`` and
+    is_colla_guidance, four random views (``idx["colla"]`` may inject them)
+    rendered at 1/normalmap_render_factor as at eval (σ-only coarse pass,
+    no jitter), with gradient, for the collaborative term; one backward and
+    one Adam step at lr_schedule(state.step).
     ``step.loss_fn(batch, step_i, generator=None, draws=None)`` → (loss,
     metrics) is exposed for the loss tests; ``draws`` goes to guidance_fn,
     and ``draws["patches"]`` [n_patches] may inject the patch positions
     (``extract_patches``'s idx).
-    hwf: (H, W, focal) of the training views.
+    hwf: (H, W, focal) of the training views. alpha: a frozen field that
+    supplies σ (``make_render_fn``).
 
     Divergence kept from the JAX package: the reference's shipped stage-2
     loop never calls backward; here the full loss is differentiated.
     """
-    if alpha is not None:
-        raise NotImplementedError("the frozen-σ field (alpha=) is not ported "
-                                  "yet")
     if mesh is not None:
         raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
                                   "the port trains on one device")
     t, d, g = cfg.train, cfg.data, cfg.guidance
-    if guidance_fn is not None and g.is_colla_guidance:
-        raise NotImplementedError("collaborative guidance (is_colla_guidance)"
-                                  " is not ported yet")
-    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf)
+    n_colla = 4 if (g.is_colla_guidance and guidance_fn is not None) else 0
+    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf,
+                            alpha=alpha)
     schedule = lr_schedule(cfg)
     fields = [m for m in (coarse_model, fine_model) if m is not None]
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
@@ -361,7 +409,7 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 out_d.depth, dep["target"][:, 0], dep["target"][:, 1])
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator)
+                                             dep, near, generator, alpha)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         sds_loss = lpips_loss = zero
@@ -395,10 +443,13 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 lpips_loss = torch.mean(lpips_fn(pr, pg))
                 loss = loss + t.lpips_weight * lpips_loss
             if guidance_fn is not None:
+                kw = {}
+                if n_colla and batch.colla_poses is not None:
+                    kw = _colla_views(render, batch, H_r, W_r, focal_r)
                 sds_loss = guidance_fn(step_i, combin, normal_map,
                                        batch.mask, generator,
                                        masked_latents=batch.masked_latents,
-                                       draws=draws)
+                                       draws=draws, **kw)
                 loss = loss + g.sds_loss_weight * sds_loss
 
         if t.tv_loss_weight > 0:
@@ -412,7 +463,8 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
              draws=None):
         idx = idx or {}
         batch = select_stage2_view(scene_dev, banks, t.N_rand, generator,
-                                   img_i=idx.get("img"), idx=idx)
+                                   img_i=idx.get("img"), idx=idx,
+                                   n_colla=n_colla)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, state.step, generator, draws)
         loss.backward()

@@ -261,10 +261,13 @@ def test_resize_matches_jax_image_resize(rng, src, size, method):
 
 
 def test_unported_guidance_options_raise(stack):
+    """Only sd_version 2.x is refused; Perp-Neg and colla build their hooks
+    (held against the JAX package in tests/test_torch_perpneg.py and
+    tests/test_torch_colla.py)."""
     _, tm = stack["mods"]()
     for kw in ({"perpneg": True}, {"is_colla_guidance": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tst.make_guidance_fn(tm, dataclasses.replace(stack["gcfg"], **kw))
+        assert callable(tst.make_guidance_fn(
+            tm, dataclasses.replace(stack["gcfg"], **kw)))
     with pytest.raises(NotImplementedError, match="sd_version"):
         tst.build_sd_modules(dataclasses.replace(stack["gcfg"],
                                                  sd_version="2.1"))

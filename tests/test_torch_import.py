@@ -51,7 +51,9 @@ def test_every_module_is_listed():
     assert "gbnerf_tpu_torch.ops.field_fused" in MODULES
     assert "gbnerf_tpu_torch.tools.prof_field" in MODULES
     for name in ("utils.msgpack", "guidance.lora", "guidance.pipeline",
-                 "train.lora_trainer", "train_lora", "tools.train_tiny_prior"):
+                 "train.lora_trainer", "train_lora", "tools.train_tiny_prior",
+                 "guidance.perpneg", "guidance.directional",
+                 "guidance.orchestrator", "guidance.clip_guidance"):
         assert f"gbnerf_tpu_torch.{name}" in MODULES, name
 
 

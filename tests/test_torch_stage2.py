@@ -234,18 +234,20 @@ def test_train_stage2_without_weights_warns_and_trains(tmp_path, scene,
 
 
 def test_stage2_unported_options_raise(scene):
+    """Only the data mesh is refused; the frozen-σ field and colla build
+    their steps (held against the JAX package in
+    tests/test_torch_frozen_sigma.py and tests/test_torch_colla.py)."""
     scene, _ = scene
     cfg = _cfg()
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
     args = (cfg, tc, tf, scene.near, scene.far, scene.hwf)
-    for kw in ({"alpha": (tc, None)}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tstep.make_train_step_stage2(*args, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tstep.make_train_step_stage2(*args, mesh=object())
+    assert callable(tstep.make_train_step_stage2(*args, alpha=tf))
     c = cfg.replace(guidance=dataclasses.replace(cfg.guidance,
                                                  is_colla_guidance=True))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tstep.make_train_step_stage2(c, *args[1:],
-                                     guidance_fn=lambda *a, **k: 0.0)
+    assert callable(tstep.make_train_step_stage2(
+        c, *args[1:], guidance_fn=lambda *a, **k: 0.0))
 
 
 def _nog_cfg(**train):

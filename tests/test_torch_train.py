@@ -543,16 +543,18 @@ def test_train_nan_restarts_then_aborts(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py); the
-    other loaders and the frozen-σ field and mesh of the step do not."""
+    """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py), and
+    the frozen-σ field runs (tests/test_torch_frozen_sigma.py); the other
+    loaders and the step's mesh do not."""
     cfg = _loop_cfg(tmp_path)
     with pytest.raises(NotImplementedError):
         tloop.load_scene(cfg.replace(data=dataclasses.replace(
             cfg.data, dataset_type="blender")))
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
-    for kw in ({"alpha": (tc, None)}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0, **kw)
+    with pytest.raises(NotImplementedError):
+        tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0, mesh=object())
+    assert callable(tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0,
+                                                 alpha=tf))
 
 
 def _run_cli(args, cwd):
@@ -683,8 +685,8 @@ def test_dump_eval_images_matches_jax(tmp_path):
 
 def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
     """The twin's configs against tools/run_ablation.py's at --production
-    --colmap --lindisp --combine sds --arms s1,nog, paths aside; priorC
-    (collaborative guidance, ROADMAP A6) is refused."""
+    --colmap --lindisp --combine sds --arms s1,nog, paths aside; and
+    priorC's (collaborative guidance), which the twin checks."""
     _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
            "--combine", "sds", "--arms", "s1,nog", "--check"], ROOT,
           "tools.run_ablation")
@@ -696,23 +698,29 @@ def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
         t = (tmp_path / "twin" / f"cfg_{arm}.txt").read_text().replace(
             str(tmp_path / "twin"), "OUT")
         assert t == o, arm
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-m",
-                        "gbnerf_tpu_torch.tools.run_ablation",
-                        str(tmp_path / "x"), "--arms", "s1,priorC"],
-                       cwd=ROOT, env=env, capture_output=True, text=True,
-                       timeout=120)
-    assert r.returncode == 1 and "A6" in r.stderr
+    _tool([str(tmp_path / "origC"), "--production", "--colmap",
+           "--lindisp", "--combine", "sds", "--arms", "s1,priorC",
+           "--check"], ROOT, "tools.run_ablation")
+    r = _tool([str(tmp_path / "twinC"), "--arms", "s1,priorC", "--check"],
+              ROOT, "gbnerf_tpu_torch.tools.run_ablation")
+    assert "[check] OK" in r.stdout and "priorC-sds" in r.stdout
+    for name in ("cfg_s1.txt", "cfg_priorC-sds.txt"):
+        o = (tmp_path / "origC" / name).read_text().replace(
+            str(tmp_path / "origC"), "OUT")
+        t = (tmp_path / "twinC" / name).read_text().replace(
+            str(tmp_path / "twinC"), "OUT")
+        assert t == o, name
+    assert "is_colla_guidance = True" in t
 
 
 @pytest.mark.parametrize("combine", ["sds", "csd", "csd_ref"])
 def test_run_ablation_twin_writes_the_originals_guided_configs(tmp_path,
                                                                combine):
-    """Every ported arm (rand, prior, priorN, priorL, priorNL beside s1 and
-    nog) under each combine: the twin's --check configs equal
+    """Every arm (rand, prior, priorN, priorL, priorNL, priorC beside s1
+    and nog) under each combine: the twin's --check configs equal
     tools/run_ablation.py's at --production --colmap --lindisp, paths
     aside, file for file."""
-    arms = "s1,nog,rand,prior,priorN,priorL,priorNL"
+    arms = "s1,nog,rand,prior,priorN,priorL,priorNL,priorC"
     _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
            "--combine", combine, "--arms", arms, "--check"], ROOT,
           "tools.run_ablation")
@@ -720,7 +728,7 @@ def test_run_ablation_twin_writes_the_originals_guided_configs(tmp_path,
                "--check"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
     assert "[check] OK" in r.stdout
     names = sorted(p.name for p in (tmp_path / "orig").glob("cfg_*.txt"))
-    assert len(names) == 7
+    assert len(names) == 8
     assert sorted(p.name for p in (tmp_path / "twin").glob("cfg_*.txt")) \
         == names
     for name in names:
