@@ -111,6 +111,21 @@
    bit-equal before and after while the rest trained; ms per step.
 17. CLIP guidance at the ViT-B/16 size: its loss and image gradient on
    the card against the CPU.
+18. The Blender phase: a scene in nerf_synthetic's layout (100 train views
+   at 800² with mask/ companions, 8 val and 16 test views; the twin's
+   sphere, alpha = its silhouette) written with the PNG codec, then with
+   imageio, cv2 and matplotlib blocked: load_scene with half_res (400²)
+   and testskip 8; stage 1 through train() with the shipped field at full
+   width on the white background (σ term on depth rays to the analytic
+   sphere), the held-out PSNR before and after (it must rise);
+   render_only with render_test_ray (test PNGs, test_ray.npz, sigma.png,
+   the maps and a 40-frame spiral GIF, read back by the port's readers);
+   the export_mesh CLI at 256³ with colours (a non-empty PLY, read back;
+   the vertices' distance from the analytic sphere). Then K1 at
+   render_test_ray's 64 points, K2 on a 524,288-point mesh slab and
+   field_normals (K2, K5 with dx) at 65,536 mesh vertices against their
+   plain versions (off the ties of the CP interpolation; at a tie the
+   kernel's partial must be the JAX kernel's 0).
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -258,6 +273,19 @@ CP_GRAD_POINTS, CP_GRAD_RTOL, CP_GRAD_ATOL_FRAC = 65536 - 29, 2.0 ** -7, 5e-3
 # guidance) from s1's checkpoint
 DISK_VIEWS, DISK_S1_STEPS, DISK_NOG_STEPS = (16, 3), 300, 100
 DISK_S1_PRINT, DISK_NOG_PRINT = 50, 20
+# the Blender phase: a scene in nerf_synthetic's layout (BLENDER_VIEWS train,
+# val and test views at BLENDER_SIZE², camera_angle_x as its scenes, cameras
+# on a sphere of BLENDER_RADIUS), read with half_res and testskip; stage 1
+# for BLENDER_STEPS; the mesh at MESH_RES³ over [−MESH_BOUND, MESH_BOUND]³
+# in slabs of MESH_SLAB·MESH_RES² points; field_normals at up to
+# NORMAL_POINTS mesh vertices, held to the plain normals at cosine
+# NORMAL_COS_MIN (every vertex: the dx tolerance, rtol 5e-2, turns a
+# vector by up to ~0.05 rad) and NORMAL_COS_MEDIAN (the median)
+BLENDER_VIEWS, BLENDER_SIZE, BLENDER_TESTSKIP = (100, 8, 16), 800, 8
+BLENDER_ANGLE_X, BLENDER_RADIUS = 0.6911112, 4.0
+BLENDER_STEPS, BLENDER_PRINT = 300, 50
+MESH_RES, MESH_BOUND, MESH_SLAB = 256, 1.5, 8
+NORMAL_POINTS, NORMAL_COS_MIN, NORMAL_COS_MEDIAN = 65536, 0.99, 0.9999
 # LPIPS on the card against the CPU on 4 × 32 × 32 patches (random VGG,
 # TF32 off): cuDNN picks its own f32 algorithm for each of the 13 convs
 # (Winograd, FFT or implicit GEMM), which rounds otherwise than the CPU's
@@ -1738,6 +1766,410 @@ def disk_phase(dev, workdir: Path) -> dict:
             "nog_ms": nog_ms, "datadir": str(workdir / "scene")}
 
 
+def _blender_view(k: int, split: str, theta: float, phi: float, out: Path,
+                  with_mask: bool) -> np.ndarray:
+    """One Blender-layout view: the synthetic sphere rendered by the twin's
+    render_scene at BLENDER_SIZE², alpha = hit_id >= 0, written as an RGBA
+    PNG by the port's codec; with_mask also writes mask/m_k.png, the
+    dilated silhouette of the twin's intruder sphere. → the RGBA array."""
+    from gbnerf_tpu_torch.data.blender import pose_spherical
+    from gbnerf_tpu_torch.utils.png import write_png
+
+    syn = synthetic_tool()
+    n = BLENDER_SIZE
+    focal = 0.5 * n / np.tan(0.5 * BLENDER_ANGLE_X)
+    c2w = pose_spherical(theta, phi, BLENDER_RADIUS)[:3, :4]
+    img, _, hit = syn.render_scene(n, n, focal, c2w)
+    rgba = np.concatenate([(np.clip(img, 0, 1) * 255).astype(np.uint8),
+                           ((hit >= 0) * 255).astype(np.uint8)[..., None]], -1)
+    write_png(str(out / split / f"r_{k}.png"), rgba)
+    if with_mask:
+        _, _, hit_i = syn.render_scene(n, n, focal, c2w, (syn.INTRUDER,))
+        mask = syn.dilate(hit_i == 0, it=2)
+        write_png(str(out / split / "mask" / f"m_{k}.png"),
+                  (mask * 255).astype(np.uint8))
+    return rgba
+
+
+def write_blender_scene(out: Path, seed: int = 0) -> dict:
+    """nerf_synthetic's layout (transforms_{train,val,test}.json with
+    camera_angle_x and c2w from pose_spherical, r_k.png RGBA) with mask/
+    companions for the train views; the views rendered on a thread pool.
+    → {split: [RGBA arrays]} of the views loaded with testskip."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gbnerf_tpu_torch.data.blender import pose_spherical
+
+    rng = np.random.default_rng(seed)
+    jobs, metas = [], {}
+    for split, n in zip(("train", "val", "test"), BLENDER_VIEWS):
+        (out / split / "mask").mkdir(parents=True, exist_ok=True)
+        frames = []
+        for k in range(n):
+            theta = float(rng.uniform(-180.0, 180.0))
+            phi = float(rng.uniform(-70.0, -10.0))
+            frames.append({"file_path": f"./{split}/r_{k}",
+                           "transform_matrix": pose_spherical(
+                               theta, phi, BLENDER_RADIUS).tolist()})
+            jobs.append((k, split, theta, phi, split == "train"))
+        metas[split] = {"camera_angle_x": BLENDER_ANGLE_X, "frames": frames}
+        (out / f"transforms_{split}.json").write_text(
+            json.dumps(metas[split]))
+    with ThreadPoolExecutor(8) as ex:
+        rgba = list(ex.map(lambda j: _blender_view(*j[:4], out, j[4]), jobs))
+    kept, i = {}, 0
+    for split, n in zip(("train", "val", "test"), BLENDER_VIEWS):
+        skip = 1 if split == "train" else BLENDER_TESTSKIP
+        kept[split] = rgba[i:i + n][::skip]
+        i += n
+    return kept
+
+
+def sphere_depth_rays(scene, n_rays: int, seed: int) -> list:
+    """Depth supervision for each train view of a loaded Blender scene:
+    n_rays pixels (x, y) whose ray (get_rays' pixel convention) meets the
+    analytic sphere, with the hit's z-depth and DS-NeRF-style weights
+    2·exp(−(err/ē)²) of seeded errors, as spinnerf_scene makes them."""
+    from gbnerf_tpu_torch.tools.make_synthetic_scene import MAIN_SPHERE
+
+    rng = np.random.default_rng(seed)
+    H, W, focal = scene.hwf
+    center, radius = MAIN_SPHERE[0], MAIN_SPHERE[1]
+    out = []
+    for pose in scene.poses:
+        x = rng.integers(0, W, 8 * n_rays).astype(np.float64)
+        y = rng.integers(0, H, 8 * n_rays).astype(np.float64)
+        d = np.stack([(x - W * 0.5) / focal, -(y - H * 0.5) / focal,
+                      -np.ones_like(x)], -1) @ pose[:3, :3].T
+        oc = pose[:3, 3] - center
+        a, b = (d * d).sum(-1), 2.0 * d @ oc
+        disc = b * b - 4.0 * a * (oc @ oc - radius ** 2)
+        hit = np.nonzero(disc > 0)[0][:n_rays]
+        t = (-b[hit] - np.sqrt(disc[hit])) / (2.0 * a[hit])   # = z-depth
+        err = rng.uniform(0.3, 1.5, len(hit))
+        out.append({"coord": np.stack([x[hit], y[hit]], -1).astype(
+                        np.float32),
+                    "depth": t.astype(np.float32),
+                    "weight": (2.0 * np.exp(-(err / err.mean()) ** 2)
+                               ).astype(np.float32)})
+    return out
+
+
+def read_ply(path: str):
+    """utils/mesh.py's binary PLY → (verts [V, 3], faces [F, 3], colours
+    [V, 3] or None)."""
+    blob = Path(path).read_bytes()
+    end = blob.index(b"end_header\n") + len(b"end_header\n")
+    hdr = blob[:end].decode().splitlines()
+    n_v = int(next(h for h in hdr if h.startswith("element vertex")).split()[-1])
+    n_f = int(next(h for h in hdr if h.startswith("element face")).split()[-1])
+    rgb = "property uchar red" in hdr
+    vdt = np.dtype([("xyz", "<f4", 3)] + ([("rgb", "u1", 3)] if rgb else []))
+    v = np.frombuffer(blob, vdt, n_v, end)
+    f = np.frombuffer(blob, np.dtype([("n", "u1"), ("idx", "<i4", 3)]), n_f,
+                      end + n_v * vdt.itemsize)
+    if not (f["n"] == 3).all():
+        raise AssertionError(f"{path}: a face that is not a triangle")
+    return v["xyz"], f["idx"], (v["rgb"] if rgb else None)
+
+
+def check_blender_kernels(dev, fine, scene, verts: np.ndarray,
+                          results: dict) -> None:
+    """The field kernels at the shapes the Blender phase gives them, each
+    against its plain version at the check tolerances: K1 at
+    render_test_ray's 64 points (the central ray of the first test pose,
+    the trained fine field), K2 on one mesh slab of MESH_SLAB·MESH_RES²
+    grid points, and field_normals at up to NORMAL_POINTS mesh vertices
+    (K2 forward, K5 backward with the point gradient dx) against the same
+    normals through the plain σ-only field and autograd."""
+    from gbnerf_tpu_torch.core.encoding import sh_encode
+    from gbnerf_tpu_torch.core.fields import make_field_fn
+    from gbnerf_tpu_torch.core.normals import field_normals
+    from gbnerf_tpu_torch.core.rays import get_rays
+    from gbnerf_tpu_torch.ops import field_fused as ff
+    from gbnerf_tpu_torch.ops.cp_pallas import upsample_lines
+
+    b = fine.bound
+    r_max = max(fine.resolutions)
+    ul = upsample_lines([l.detach() for l in fine.lines()], r_max)
+    Ws = {k: getattr(fine, k).detach() for k in ff.W_KEYS}
+    # K1: render_test_ray's call, the fine field at 64 points of one ray
+    # ([1, 64, 3] and one view direction [1, 3]: its SH rows are a
+    # broadcast, copied dense by CPGridField.forward)
+    H, W, focal = scene.hwf
+    ro, rd = get_rays(int(H), int(W), focal, torch.as_tensor(
+        scene.poses_test[0][:3, :4], device=dev))
+    ro, rd = ro[int(H) // 2, int(W) // 2], rd[int(H) // 2, int(W) // 2]
+    z = torch.linspace(scene.near, scene.far, 64, device=dev)
+    pts, vd = (ro + rd * z[:, None])[None], (rd / torch.linalg.norm(rd))[None]
+    field_fn = make_field_fn(fine)
+    x = ((pts[0] + b) / (2.0 * b)).contiguous()
+    sh = sh_encode(vd).expand(64, 16).contiguous()
+    before = all_launches()
+    with torch.no_grad():
+        got = field_fn(pts, vd)[0]
+        used = all_launches()["field_fused"] - before["field_fused"]
+        r = compare_field(got, ff.field_plain(x, sh, ul, Ws))
+        r.update(points=64, F=ul.shape[2], R_max=r_max, launches=used,
+                 ms=cuda_ms(lambda: field_fn(pts, vd), 20),
+                 plain_ms=cuda_ms(lambda: ff.field_plain(x, sh, ul, Ws), 5))
+    print(f"check field_fused [test ray, 64 points] {json.dumps(r)}")
+    if r["n_out_of_tol"] or used != 1:
+        raise AssertionError(f"K1 at 64 points: {r}")
+    results["field_fused"].append(r)
+    # K2: the middle mesh slab
+    ax = torch.from_numpy(np.linspace(-MESH_BOUND, MESH_BOUND, MESH_RES,
+                                      dtype=np.float32)).to(dev)
+    z0 = MESH_RES // 2
+    X, Y, Z = torch.meshgrid(ax, ax, ax[z0:z0 + MESH_SLAB], indexing="ij")
+    x = ((torch.stack([X, Y, Z], -1).reshape(-1, 3) + b) / (2.0 * b))
+    x = x.contiguous()
+    sw = {k: Ws[k] for k in ("ws0", "ws1")}
+    with torch.no_grad():
+        r = compare_field(ff.cp_field_fused(x, None, ul, sw, sigma_only=True),
+                          ff.field_plain(x, None, ul, sw, sigma_only=True))
+        r.update(points=int(x.shape[0]), F=ul.shape[2], R_max=r_max,
+                 ms=cuda_ms(lambda: ff.cp_field_fused(
+                     x, None, ul, sw, sigma_only=True), 10))
+    print(f"check field_fused_sigma [mesh slab] {json.dumps(r)}")
+    if r["n_out_of_tol"]:
+        raise AssertionError(f"K2 on a mesh slab: {r}")
+    results["field_fused_sigma"].append(r)
+    # field_normals: K2 + K5 (dx) against the plain σ-only field. Mesh
+    # vertices on a grid plane that passes through CP nodes (here x, y or
+    # z = ±0.5) sit on a tie of the 2-tap interpolation, where the kernels
+    # take the JAX Pallas kernel's subgradient (sign(0) = 0: that partial
+    # is 0) and autograd of the plain encode another: the comparison runs
+    # on the other vertices, and at the ties checks the kernel's zero
+    pts = torch.from_numpy(np.ascontiguousarray(verts[:NORMAL_POINTS])).to(dev)
+    u = (pts + b) / (2.0 * b) * (r_max - 1)
+    tie = u == torch.round(u)
+    free = ~tie.any(1)
+
+    def sigma_kernel(p):
+        return fine(p[:, None, :], None, sigma_only=True)[:, 0, 3]
+
+    def sigma_plain(p):
+        return ff.field_plain(((p + b) / (2.0 * b)).contiguous(), None, ul,
+                              sw, sigma_only=True)[:, 3]
+
+    def dx(fn):
+        with torch.enable_grad():
+            p = pts.clone().requires_grad_(True)
+            return torch.autograd.grad(fn(p).sum(), p)[0]
+
+    before = all_launches()
+    n_kernel = field_normals(sigma_kernel, pts)
+    torch.cuda.synchronize()
+    used = {k: all_launches()[k] - before[k] for k in before}
+    n_plain = field_normals(sigma_plain, pts)
+    dx_kernel = dx(sigma_kernel)
+    r = {"dx": compare_field(dx_kernel[free], dx(sigma_plain)[free],
+                             rtol=5e-2, atol_frac=8e-3)}
+    cos = (n_kernel * n_plain).sum(-1)[free]
+    r.update(points=int(pts.shape[0]), tie_points=int((~free).sum()),
+             tie_partials_zero=bool((dx_kernel[tie] == 0).all()),
+             cos_min=float(cos.min()), cos_median=float(cos.median()),
+             finite=bool(torch.isfinite(n_kernel).all()),
+             launches={k: used[k] for k in ("field_fused_sigma",
+                                            "field_fused_bwd_sigma")})
+    print(f"check field_normals [mesh vertices] {json.dumps(r)}")
+    if (r["dx"]["n_out_of_tol"] or r["cos_min"] < NORMAL_COS_MIN
+            or r["cos_median"] < NORMAL_COS_MEDIAN or not r["finite"]
+            or not r["tie_partials_zero"]
+            or min(r["launches"].values()) < 1):
+        raise AssertionError(f"field_normals on the card: {r}")
+    results["field_fused_bwd_sigma"].append(
+        {"max_abs_err": r["dx"]["max_abs_err"]})
+
+
+def blender_phase(dev, workdir: Path, field_res: dict) -> dict:
+    """A Blender scene from disk through the port's user paths, with
+    imageio, cv2 and matplotlib blocked (the card's machine has none):
+    write it (write_blender_scene), load_scene with half_res, stage 1
+    through train() with the shipped field at full width, render_only with
+    render_test_ray, and the export_mesh CLI at MESH_RES³; then the field
+    kernels at this phase's new shapes (check_blender_kernels)."""
+    from gbnerf_tpu_torch.config import load_reference_config
+    from gbnerf_tpu_torch.data.llff import resize_area
+    from gbnerf_tpu_torch.tools import export_mesh
+    from gbnerf_tpu_torch.train.eval import (SIGMA_CANVAS, SIGMA_DEPTH,
+                                             eval_summary, render_pose_path)
+    from gbnerf_tpu_torch.train.loop import load_scene, render_only, train
+    from gbnerf_tpu_torch.train.state import create_train_state
+    from gbnerf_tpu_torch.train.step import make_render_fn
+    from gbnerf_tpu_torch.utils.gif import read_gif
+    from gbnerf_tpu_torch.utils.png import read_png
+
+    blocked = {m: sys.modules.get(m) for m in ("imageio", "cv2",
+                                               "matplotlib")}
+    sys.modules.update({m: None for m in blocked})   # the card's machine
+    try:
+        t0 = time.perf_counter()
+        kept = write_blender_scene(workdir / "scene")
+        write_s = time.perf_counter() - t0
+        never = 10 ** 9
+        cfg = load_reference_config(str(ROOT / "configs" /
+                                         "spinnerf_scene.txt"))
+        cfg = cfg.replace(
+            data=dataclasses.replace(
+                cfg.data, dataset_type="blender",
+                datadir=str(workdir / "scene"), half_res=True,
+                testskip=BLENDER_TESTSKIP, colmap_depth=False),
+            render=dataclasses.replace(cfg.render, white_bkgd=True,
+                                       lindisp=False),
+            train=dataclasses.replace(
+                cfg.train, first_stage=True, N_iters=BLENDER_STEPS,
+                i_print=BLENDER_PRINT, i_weights=BLENDER_STEPS,
+                i_evaluate=BLENDER_STEPS, i_testset=never, i_video=never,
+                basedir=str(workdir / "logs"), expname="blender",
+                no_reload=True, sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+        t0 = time.perf_counter()
+        scene = load_scene(cfg)
+        decode_s = time.perf_counter() - t0
+        # the held-out ground truth, as load_scene composites it
+        half = BLENDER_SIZE // 2
+        gt = np.stack([resize_area(a.astype(np.float32) / 255.0, half, half)
+                       for a in kept["test"]])
+        scene.images_test = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+        print(f"blender: {sum(BLENDER_VIEWS)} views of {BLENDER_SIZE}² "
+              f"(+ {BLENDER_VIEWS[0]} masks) written in {write_s:.3f} s; "
+              f"load_scene (half_res, testskip {BLENDER_TESTSKIP}; PNG "
+              f"codec, imageio, cv2 and matplotlib blocked) {decode_s:.3f} s "
+              f"→ {len(scene.images)} train views at "
+              f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
+              f"{len(scene.poses_test)} held out, focal "
+              f"{scene.hwf[2]:.3f}, masks {scene.masks.shape}")
+        if scene.images.shape[1:] != (half, half, 3) or len(scene.masks) != \
+                BLENDER_VIEWS[0]:
+            raise AssertionError(f"blender scene {scene.images.shape}")
+        depth_gts = sphere_depth_rays(scene, 200, seed=1)
+        # the held-out PSNR of the initial fields (the run's seed)
+        state0, c0, f0 = create_train_state(
+            cfg, torch.Generator().manual_seed(cfg.train.seed), dev)
+        before = eval_summary(render_pose_path(
+            make_render_fn(cfg, c0, f0, scene.near, scene.far,
+                           hwf=scene.hwf),
+            scene.poses_test, scene.hwf, block=cfg.render.render_block,
+            device=dev), scene.images_test)["psnr"]
+        del state0, c0, f0
+
+        group_ms = []
+
+        def log_fn(i, m):
+            print(f"blender: [{i}/{BLENDER_STEPS}] " + " ".join(
+                f"{k}={v:.5g}" for k, v in m.items()))
+            bad = [k for k, v in m.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite blender metrics at {i}: "
+                                     f"{bad}")
+            group_ms.append(1e3 / m["iters_per_sec"])
+
+        # ---- the Blender path: launches counted from here (load_scene,
+        # above, launches none) ...
+        zero_launches()
+        out = train(cfg, scene=scene, depth_gts=depth_gts, device=dev,
+                    log_fn=log_fn)
+        torch.cuda.synchronize()
+        launches_at = {"train": all_launches()}
+        after = (out["last_eval"] or {}).get("eval_psnr", float("nan"))
+        ms = float(np.median(group_ms))
+        print(f"blender: stage 1, {BLENDER_STEPS} steps, 3 × "
+              f"{cfg.train.N_rand} rays a step (σ term on "
+              f"{sum(len(d['depth']) for d in depth_gts)} sphere depth "
+              f"rays): {ms:.3f} ms per step (median of {len(group_ms)} "
+              f"groups of {BLENDER_PRINT}: "
+              f"{', '.join(f'{g:.3f}' for g in group_ms)}); held-out PSNR "
+              f"{before:.3f} → {after:.3f} dB on {len(scene.poses_test)} "
+              f"views at {half}²")
+        if not after > before:
+            raise AssertionError(f"blender: held-out PSNR did not rise "
+                                 f"({before} → {after})")
+
+        ro_cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, render_test_ray=True))
+        t0 = time.perf_counter()
+        ro = render_only(ro_cfg, scene=scene, device=dev)
+        torch.cuda.synchronize()
+        ro_s = time.perf_counter() - t0
+        launches_at["render_only"] = all_launches()
+        rdir = Path(ro["outdir"])
+        n_views = len(scene.poses_test) + len(scene.render_poses)
+        frames, delays = read_gif(str(rdir / "spiral_rgb.gif"))
+        tests = sorted((rdir / "test" / "rgb").glob("*.png"))
+        test_rgb = np.stack([read_png(str(p)) for p in tests])
+        sigma_png = read_png(str(rdir / "sigma.png"))
+        with np.load(rdir / "test_ray.npz") as prof:
+            prof = {k: prof[k] for k in prof.files}
+        red_cols = np.unique(np.nonzero((sigma_png == SIGMA_DEPTH).all(-1))[1])
+        maps_ok = all(np.isfinite(np.load(rdir / f"{k}.npy")).all()
+                      for k in ("depth", "disp", "acc"))
+        print(f"blender: render_only with render_test_ray {ro_s:.3f} s for "
+              f"{n_views} views ({ro_s / n_views:.3f} s a view at {half}², "
+              f"GIF and PNG writes included): spiral_rgb.gif "
+              f"{frames.shape} at {delays[0]} ms a frame, "
+              f"{len(tests)} test PNGs {test_rgb.shape}, sigma.png "
+              f"{sigma_png.shape} (depth column {red_cols.tolist()}), "
+              f"test_ray.npz depth {float(prof['depth']):.4f}, σ max "
+              f"{float(prof['sigma'].max()):.3f} over "
+              f"{prof['z_vals'].shape[0]} samples")
+        if (frames.shape != (len(scene.render_poses), half, half, 3)
+                or len(scene.render_poses) != 40
+                or test_rgb.shape != (len(scene.poses_test), half, half, 3)
+                or sigma_png.shape != SIGMA_CANVAS + (3,)
+                or len(red_cols) != 1
+                or prof["sigma"].shape != (cfg.render.N_samples,)
+                or not maps_ok):
+            raise AssertionError("blender: render_only's artifacts")
+
+        t0 = time.perf_counter()
+        mesh = export_mesh.main([
+            "--config", str(workdir / "logs" / "blender" / "config.txt"),
+            "--res", str(MESH_RES), "--bound", str(MESH_BOUND), "--color"])
+        mesh_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches_at["export_mesh"] = all_launches()
+        # ... to here
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    verts, faces, cols = read_ply(mesh["out"])
+    cell = 2.0 * MESH_BOUND / (MESH_RES - 1)
+    radius = synthetic_tool().MAIN_SPHERE[1]
+    dist = np.abs(np.linalg.norm(verts, axis=1) - radius) / cell
+    parts = {}
+    prev = {k: 0 for k in launches_at["export_mesh"]}
+    for part in ("train", "render_only", "export_mesh"):
+        parts[part] = {k: launches_at[part][k] - prev[k] for k in prev}
+        prev = launches_at[part]
+    print(f"blender: export_mesh --res {MESH_RES} --bound {MESH_BOUND} "
+          f"--color {mesh_s:.3f} s (σ grid {mesh['times']['grid_s']:.3f} s "
+          f"in {parts['export_mesh']['field_fused_sigma']} K2 calls, "
+          f"triangulation {mesh['times']['triangulate_s']:.3f} s, colours "
+          f"{mesh['times']['color_s']:.3f} s in "
+          f"{parts['export_mesh']['field_fused']} K1 calls): {len(verts)} "
+          f"vertices, {len(faces)} faces, {cols is not None and len(cols)} "
+          f"colours; vertices from the analytic sphere (r {radius}) in grid "
+          f"cells of {cell:.5f}: median {float(np.median(dist)):.3f}, 90th "
+          f"percentile {float(np.percentile(dist, 90)):.3f}")
+    if not (len(faces) and cols is not None and len(cols) == len(verts)
+            and np.array_equal(verts, mesh["verts"])):
+        raise AssertionError("blender: the PLY is empty, uncoloured, or "
+                             "differs from the mesh")
+    launches = launches_at["export_mesh"]
+    print(f"blender: launches by part {json.dumps(parts)}")
+    for k in ("field_fused", "field_fused_sigma", "merge128",
+              "field_fused_bwd", "field_fused_bwd_sigma"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "Blender path")
+    check_blender_kernels(dev, out["state"].fine, scene, verts, field_res)
+    return {"launches": launches, "step_ms": ms}
+
+
 def profile_nog(dev, disk: dict, outdir: Path) -> None:
     """--profile: one traced nog step on the disk phase's trained state."""
     from gbnerf_tpu_torch.data.llff import load_colmap_depth
@@ -2378,6 +2810,11 @@ def main() -> None:
     disk = disk_phase(dev, Path(disk_dir.name))
     check_lpips(dev)
     phase_done("disk")
+    # ---- 18. a Blender scene from disk through train(), render_only and
+    # export_mesh (its own counts), then the kernels at its shapes
+    with tempfile.TemporaryDirectory() as blender_dir:
+        blender = blender_phase(dev, Path(blender_dir), field_res)
+    phase_done("blender")
     # ---- 14. the guided arms on the disk scene: prior → LoRA → priorNL
     guided = guided_phase(dev, Path(disk_dir.name))
     phase_done("guided")
@@ -2420,7 +2857,8 @@ def main() -> None:
 
     paths = [render_launches, step_launches, eval_launches, stage2_launches,
              colla_launches, perpneg_launches, frozen["launches"],
-             disk["launches"], guided["launches"], lora_res["launches"],
+             disk["launches"], blender["launches"], guided["launches"],
+             lora_res["launches"],
              *prof_launches.values()]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [

@@ -1,0 +1,15 @@
+"""Rays, encodings, fields, sampling, rendering and normals.
+
+The ray and normal helpers are exported here; import the other
+submodules directly.
+"""
+from .rays import get_rays, get_rays_by_coord, ndc_rays
+from .normals import (depth2xyz, depth2normal_geo, render_normal_map,
+                      pointcloud_normals, field_normals,
+                      estimate_normals_grad)
+
+__all__ = [
+    "get_rays", "get_rays_by_coord", "ndc_rays",
+    "depth2xyz", "depth2normal_geo", "render_normal_map",
+    "pointcloud_normals", "field_normals", "estimate_normals_grad",
+]

@@ -121,9 +121,12 @@ class CPGridField(nn.Module):
             sh = None                                     # never read
         else:
             # viewdirs may be per-ray ([..., 1, 3] against [..., S, 3] pts):
-            # SH is computed per ray and broadcast over the samples.
+            # SH is computed per ray and broadcast over the samples. The
+            # kernel reads sh as dense rows: for one ray the broadcast is a
+            # stride-0 view that reshape keeps, so it is copied here.
             d = sh_encode(viewdirs.float(), self.sh_degree)
-            sh = d.expand(pts.shape[:-1] + (sh_dim,)).reshape(-1, sh_dim)
+            sh = d.expand(pts.shape[:-1] + (sh_dim,)).reshape(
+                -1, sh_dim).contiguous()
 
         r_max = max(self.resolutions)
         nested = all((r_max - 1) % (r - 1) == 0 for r in self.resolutions)

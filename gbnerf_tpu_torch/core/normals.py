@@ -7,8 +7,9 @@ plane fit over a k×k window, n = (AᵀA)⁻¹ Aᵀ1 with A the window's points
 package: AᵀA = Σ ppᵀ and Aᵀ1 = Σ p are 9 windowed-sum channels from an
 integral image (two cumsum-difference passes, O(HW) for any k; zero
 padding), then a closed-form adjugate solve. Differentiable: it feeds the
-normal-map SDS term. Not ported yet: ``pointcloud_normals``,
-``field_normals``, ``estimate_normals_grad``.
+normal-map SDS term. Also ``pointcloud_normals`` (numpy and scipy's
+cKDTree, on the host), ``field_normals`` (−∇σ by autograd) and
+``estimate_normals_grad`` (finite differences of a depth map).
 """
 from __future__ import annotations
 
@@ -92,3 +93,48 @@ def render_normal_map(depth: torch.Tensor, K: torch.Tensor,
                       k: int = 31) -> torch.Tensor:
     """depth [H, W] → the [0, 1]-mapped normal image [H, W, 3]."""
     return (depth2normal_geo(depth2xyz(depth, K), k=k) + 1.0) / 2.0
+
+
+def pointcloud_normals(points, knn: int = 30):
+    """kNN + SVD point-cloud normals: numpy [N, 3] → [N, 3] unit normals,
+    the smallest-variance direction of each point's ``knn`` neighbours.
+    Host-side numpy with scipy's cKDTree (imported here, when called)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    _, idxs = tree.query(points, k=knn)
+    nb = points[idxs]                              # [N, k, 3]
+    centered = nb - nb.mean(axis=1, keepdims=True)
+    cov = np.einsum("nki,nkj->nij", centered, centered)
+    # eigh: ascending eigenvalues → the first eigenvector is the normal
+    _, vecs = np.linalg.eigh(cov)
+    n = vecs[:, :, 0]
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+
+
+def field_normals(sigma_fn, pts: torch.Tensor) -> torch.Tensor:
+    """Analytic density-gradient normals n = −∇σ/‖∇σ‖ at pts [..., 3].
+
+    sigma_fn: a batched σ, [N, 3] points → [N], in which each σ depends on
+    its own point only (a field's σ head is): then the gradient of Σσ with
+    respect to the points is each point's own ∇σ, which is what the JAX
+    package's vmap of grad over [3] → scalar computes. One backward pass
+    (K5 with its point gradient for a σ-only CP field on the card).
+    """
+    with torch.enable_grad():
+        p = pts.reshape(-1, 3).detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(sigma_fn(p).sum(), p)
+    n = -g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                         min=1e-8)
+    return n.reshape(pts.shape)
+
+
+def estimate_normals_grad(depth: torch.Tensor) -> torch.Tensor:
+    """Cheap gradient normals of a depth map [H, W] → [H, W, 3] in [0, 1]:
+    central differences inside, one-sided first-order at the edges (as
+    jnp.gradient)."""
+    gx = torch.gradient(depth, dim=1, edge_order=1)[0]
+    gy = torch.gradient(depth, dim=0, edge_order=1)[0]
+    n = torch.stack([-gx, -gy, torch.ones_like(depth)], dim=-1)
+    return (n + 1.0) / 2.0

@@ -25,6 +25,19 @@ def get_rays(H: int, W: int, focal, c2w: torch.Tensor, *,
     return rays_o, rays_d
 
 
+def get_rays_by_coord(H: int, W: int, focal, c2w: torch.Tensor,
+                      coords: torch.Tensor):
+    """Rays through arbitrary (x, y) pixel coordinates [N, 2] (float), as
+    for COLMAP keypoints → rays_o, rays_d, each [N, 3]."""
+    x = (coords[:, 0] - W * 0.5) / focal
+    y = -(coords[:, 1] - H * 0.5) / focal
+    dirs = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3].to(dirs.dtype),
+                       dim=-1)
+    rays_o = c2w[:3, -1].to(dirs.dtype).expand(rays_d.shape)
+    return rays_o, rays_d
+
+
 def ndc_rays(H: int, W: int, focal, near, rays_o: torch.Tensor,
              rays_d: torch.Tensor):
     """Shift rays to the near plane and map them to NDC space."""

@@ -23,12 +23,12 @@ path at load_llff.py:420-422. We do not reproduce it. ``spherify=True``
 All host-side numpy; the training path uploads the resulting arrays once.
 
 The port's copy of gbnerf_tpu/data/llff.py (``LLFFScene``, the pose
-helpers, ``load_poses_bounds``, ``load_llff_data``, ``load_colmap_depth``)
-that needs neither imageio nor cv2: PNG files are read and written by the
-port's own codec (utils/png.py), and the two resizes are numpy
-(``resize_nearest`` equals cv2's INTER_NEAREST, ``resize_area`` its
-INTER_AREA within one level). Other image formats go through imageio where
-it is installed. The NeRD and sensor-depth loaders are not ported yet.
+helpers, ``load_poses_bounds``, ``load_llff_data``, ``load_colmap_depth``,
+``load_nerd_data``, ``load_sensor_depth``) that needs neither imageio nor
+cv2: PNG files are read and written by the port's own codec
+(utils/png.py), and the two resizes are numpy (``resize_nearest`` equals
+cv2's INTER_NEAREST, ``resize_area`` its INTER_AREA within one level).
+Other image formats go through imageio where it is installed.
 """
 from __future__ import annotations
 
@@ -81,16 +81,32 @@ def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
     return overlap / overlap.sum(1, keepdims=True)
 
 
+def _area_pass(a: np.ndarray, n_dst: int, axis: int) -> np.ndarray:
+    """a resized along ``axis`` by the overlap weights, summing each
+    destination pixel's few nonzero taps in source order (the weights are
+    banded: a dense product would spend its time on zeros)."""
+    w = _area_weights(a.shape[axis], n_dst)
+    taps = int((w > 0).sum(1).max())
+    first = np.argmax(w > 0, axis=1)
+    idx = np.minimum(first[:, None] + np.arange(taps), a.shape[axis] - 1)
+    wt = np.take_along_axis(w, idx, axis=1)
+    wt[first[:, None] + np.arange(taps) >= a.shape[axis]] = 0.0
+    a = np.moveaxis(a, axis, 0)
+    shape = (-1,) + (1,) * (a.ndim - 1)
+    out = wt[:, 0].reshape(shape) * a[idx[:, 0]]
+    for t in range(1, taps):
+        out += wt[:, t].reshape(shape) * a[idx[:, t]]
+    return np.moveaxis(out, 0, axis)
+
+
 def resize_area(img: np.ndarray, H: int, W: int) -> np.ndarray:
     """[h, w, ...] → [H, W, ...] (H ≤ h, W ≤ w) by area averaging, as
     cv2.INTER_AREA downsamples: at an integer factor that divides h and w
     the box mean, otherwise fractional overlap weights. Integer images
     are rounded to the nearest level (cv2 may differ by one level where
     its single-precision sums round the other way)."""
-    wy = _area_weights(img.shape[0], H)
-    wx = _area_weights(img.shape[1], W)
-    out = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))
-    out = np.moveaxis(np.tensordot(wx, out, axes=(1, 1)), 0, 1)
+    out = _area_pass(img.astype(np.float64), H, axis=0)
+    out = _area_pass(out, W, axis=1)
     if np.issubdtype(img.dtype, np.integer):
         info = np.iinfo(img.dtype)
         return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
@@ -436,6 +452,34 @@ def load_llff_data(
     )
 
 
+def load_nerd_data(basedir: str, factor: int = 8, *, recenter: bool = True,
+                   bd_factor: float = 0.75, spherify: bool = False) -> LLFFScene:
+    """NeRD layout: LLFF poses_bounds + images_{f}/ + masks (binarised at
+    0.5) in images_{f}/masks/, else masks_{f}/; the objects (the images on
+    white outside the masks) ride in the inpainted_depths slot, the NeRD
+    path having no inpainted depths. No test split."""
+    scene = load_llff_data(basedir, factor, recenter=recenter,
+                           bd_factor=bd_factor, spherify=spherify,
+                           origin=False, test_split_count=0)
+    sfx = f"_{factor}" if factor != 1 else ""
+    candidates = (os.path.join(basedir, f"images{sfx}", "masks"),
+                  os.path.join(basedir, f"masks{sfx}"))
+    mskdir = next((d for d in candidates if os.path.isdir(d)), candidates[0])
+    if os.path.isdir(mskdir):
+        H, W = scene.images.shape[1:3]
+        masks = np.stack([_load_mask_like(f, (H, W), normalize_max=False)
+                          for f in _list_images(mskdir)])
+        masks = (masks > 0.5).astype(np.float32)
+        m3 = masks[..., None]
+        objects = scene.images * m3 + (1.0 - m3)
+        scene = LLFFScene(
+            images=scene.images, masks=masks, inpainted_depths=objects[..., 0],
+            poses=scene.poses, poses_test=scene.poses_test, bds=scene.bds,
+            render_poses=scene.render_poses, hwf=scene.hwf,
+            near=scene.near, far=scene.far)
+    return scene
+
+
 def load_colmap_depth(
     basedir: str,
     factor: int = 4,
@@ -497,4 +541,16 @@ def load_colmap_depth(
                 "coord": np.array(coord_l, np.float32),
                 "weight": np.array(weight_l, np.float32),
             })
+    return data_list
+
+
+def load_sensor_depth(basedir: str, factor: int = 8, *,
+                      bd_factor: float = 0.75) -> List[dict]:
+    """``load_colmap_depth`` over every registered image (no test-split id
+    offset), also written to ``<basedir>/colmap_depth.npy`` as a pickled
+    object array, as the JAX package writes it."""
+    data_list = load_colmap_depth(basedir, factor, bd_factor=bd_factor,
+                                  skip_first=0)
+    np.save(str(Path(basedir) / "colmap_depth.npy"),
+            np.asarray(data_list, dtype=object), allow_pickle=True)
     return data_list

@@ -12,10 +12,11 @@ The twin of the repository's run.py (same config files, same overrides):
 It runs on the first CUDA device (``--device cuda``, the default) and
 exits with an error when there is none: it never falls back to the CPU by
 itself. ``--device cpu`` runs on the CPU, where every kernel runs its plain
-PyTorch version. Reading a scene from disk needs ``imageio``. Stage 2 (``first_stage = False``) guides with
-the SD1.5-inpainting stack from ``guidance.sd_weights_dir`` (a local
-diffusers-layout checkpoint), or with random weights under
-``guidance.sd_tiny`` / ``guidance.sd_allow_random``.
+PyTorch version. Scenes (``dataset_type`` llff, nerd, blender or dtu)
+are read from PNGs without imageio; other image formats need it. Stage 2
+(``first_stage = False``) guides with the SD1.5-inpainting stack from
+``guidance.sd_weights_dir`` (a local diffusers-layout checkpoint), or with
+random weights under ``guidance.sd_tiny`` / ``guidance.sd_allow_random``.
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ def main(argv=None):
     p.add_argument("--set", action="append", metavar="section.field=value",
                    help="override a config field (repeatable)")
     p.add_argument("--render_only", action="store_true",
-                   help="skip training; render the test and path poses from "
-                        "the latest checkpoint to .npy maps")
+                   help="skip training; render the test poses (PNGs) and "
+                        "the path (maps and a GIF) from the latest "
+                        "checkpoint")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error without a card) or cpu "
                         "(the kernels' plain versions)")

@@ -215,8 +215,10 @@ def test_train_and_render_only_with_alpha_model_path(tmp_path):
         assert not torch.equal(a.wc2, b.wc2)
     alpha = tloop.load_alpha_model(cfg, "cpu")
     assert not any(p.requires_grad for p in alpha.parameters())
-    got = tloop.render_only(cfg, scene=scene, device="cpu")
-    depth = np.load(f"{got['outdir']}/test/depth.npy")
+    # render_test: the path's depth.npy is of the test poses
+    got = tloop.render_only(cfg.replace(train=dataclasses.replace(
+        cfg.train, render_test=True)), scene=scene, device="cpu")
+    depth = np.load(f"{got['outdir']}/depth.npy")
     assert np.isfinite(depth).all()
     # the depth is the alpha field's: σ of both passes from it (the same
     # as a render with the alpha field as coarse and fine), not the run's

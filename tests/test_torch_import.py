@@ -1,8 +1,9 @@
 """The port imports no JAX and nothing of the JAX package: every module of
 gbnerf_tpu_torch, and chip_smoke.py, imported in a fresh interpreter leave
 ``jax`` (and flax, optax, orbax), ``gbnerf_tpu``, and the file libraries
-the machine with the card lacks (msgpack, safetensors, imageio, cv2) out
-of ``sys.modules``. The machine with the card has no JAX installed."""
+the machine with the card lacks (msgpack, safetensors, imageio, cv2,
+matplotlib) out of ``sys.modules``. The machine with the card has no JAX
+installed."""
 import json
 import os
 import subprocess
@@ -27,7 +28,7 @@ for name in sys.argv[1:]:
                                               "optax", "orbax",
                                               "gbnerf_tpu", "msgpack",
                                               "safetensors", "imageio",
-                                              "cv2"))
+                                              "cv2", "matplotlib"))
 print(json.dumps(out))
 """
 
@@ -53,7 +54,9 @@ def test_every_module_is_listed():
     for name in ("utils.msgpack", "guidance.lora", "guidance.pipeline",
                  "train.lora_trainer", "train_lora", "tools.train_tiny_prior",
                  "guidance.perpneg", "guidance.directional",
-                 "guidance.orchestrator", "guidance.clip_guidance"):
+                 "guidance.orchestrator", "guidance.clip_guidance",
+                 "data.blender", "utils.gif", "utils.mesh", "utils.warp",
+                 "utils.gallery", "tools.export_mesh"):
         assert f"gbnerf_tpu_torch.{name}" in MODULES, name
 
 

@@ -51,6 +51,7 @@ from gbnerf_tpu_torch.train import step as tstep
 from gbnerf_tpu_torch.train.checkpoint import CheckpointManager
 from gbnerf_tpu_torch.train import eval as teval
 from gbnerf_tpu_torch.utils.metrics import to8b
+from gbnerf_tpu_torch.utils.gif import read_gif
 from gbnerf_tpu_torch.utils.png import read_png
 
 torch.set_num_threads(1)
@@ -463,11 +464,17 @@ def test_train_lowers_img_loss_checkpoints_evaluates_and_resumes(tmp_path):
     lines = [json.loads(l) for l in open(exp / "metrics.jsonl")]
     assert [l["iter"] for l in lines] == [10, 20, 30, 40, 40]
     assert "eval_psnr" in lines[-1] and np.isfinite(lines[-1]["eval_psnr"])
-    for d in ("eval_images_40", "testset_40", "spiral_000040"):
-        maps = {k: np.load(exp / d / f"{k}.npy")
-                for k in ("rgb", "disp", "depth", "acc")}
-        assert maps["rgb"].shape[1:] == (24, 32, 3), d
-        assert all(np.isfinite(v).all() for v in maps.values()), d
+    maps = {k: np.load(exp / "eval_images_40" / f"{k}.npy")
+            for k in ("rgb", "disp", "depth", "acc")}
+    assert maps["rgb"].shape[1:] == (24, 32, 3)
+    assert all(np.isfinite(v).all() for v in maps.values())
+    # the testset's PNGs and the spiral's GIFs, as the JAX loop writes them
+    for sub in ("rgb", "disp"):
+        assert read_png(str(exp / "testset_40" / sub / "000.png")).shape[:2] \
+            == (24, 32)
+    for kind in ("rgb", "disp"):
+        frames, _ = read_gif(str(exp / f"spiral_000040_{kind}.gif"))
+        assert frames.shape == (2, 24, 32, 3), kind
     # the eval's PNGs are to8b of its maps
     maps = {k: np.load(exp / "eval_images_40" / f"{k}.npy")
             for k in ("rgb", "disp")}
@@ -543,13 +550,10 @@ def test_train_nan_restarts_then_aborts(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py), and
-    the frozen-σ field runs (tests/test_torch_frozen_sigma.py); the other
-    loaders and the step's mesh do not."""
+    """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py), the
+    frozen-σ field runs (tests/test_torch_frozen_sigma.py), and every
+    loader reads (tests/test_torch_blender.py); the step's mesh does not."""
     cfg = _loop_cfg(tmp_path)
-    with pytest.raises(NotImplementedError):
-        tloop.load_scene(cfg.replace(data=dataclasses.replace(
-            cfg.data, dataset_type="blender")))
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
     with pytest.raises(NotImplementedError):
         tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0, mesh=object())
@@ -589,9 +593,13 @@ def test_cli_trains_then_renders_only(tmp_path):
     assert (exp / "ckpt" / "6.pt").is_file()
     # the same entry point in this process: --render_only, a bad key
     assert trun.main(["--config", str(cfg), *sets, "--render_only"]) == 0
-    rgb = np.load(exp / "renderonly_000006" / "test" / "rgb.npy")
-    assert rgb.shape == (1, 16, 20, 3) and np.isfinite(rgb).all()
-    assert (exp / "renderonly_000006" / "path" / "depth.npy").is_file()
+    rgb = read_png(str(exp / "renderonly_000006" / "test" / "rgb" /
+                       "000.png"))
+    assert rgb.shape == (16, 20, 3)
+    depth = np.load(exp / "renderonly_000006" / "depth.npy")
+    assert depth.shape[1:] == (16, 20) and np.isfinite(depth).all()
+    assert read_gif(str(exp / "renderonly_000006" / "spiral_rgb.gif")
+                    )[0].shape[1:] == (16, 20, 3)
     with pytest.raises(SystemExit, match="unknown config key"):
         trun.main(["--config", str(cfg), "--set", "train.nope=1"])
 
