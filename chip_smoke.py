@@ -71,7 +71,7 @@
    (the full-size SD stack in bf16) at a few reps.
 12. Times a library call beside K3 (torch.sort of the [16384, 128] rows)
    and K7 (scaled_dot_product_attention), which the port never calls, and
-   computes each kernel's bound on the H100 from its shapes. K1–K5, K7
+   computes each kernel's bound on the H100 from its shapes. K1–K7
    and SDPA are also timed with the host out of the loop (graph_ms: the
    calls replayed from a CUDA graph).
 13. The disk phase: writes the round-5 ablation scene (252 × 189, 16 + 3
@@ -126,6 +126,17 @@
    field_normals (K2, K5 with dx) at 65,536 mesh vertices against their
    plain versions (off the ties of the CP interpolation; at a tie the
    kernel's partial must be the JAX kernel's 0).
+19. The hash phase: configs/spinnerf_scene.txt with field_type = hash at
+   its full width (16 levels, 2^19 × 2 table, base 16, bound 100, f32) on
+   the scene of 5: stage 1 through train() as in 5 (K3 launched, no CP
+   kernel; ms per step, the held-out PSNR), one step on the card against
+   the CPU in f32 and in float64 (loss to 1e-3, every gradient, the
+   table's too, to cosine 0.999), one full-width step twice from one
+   state (bit-equal: the gather's backward sums in sorted order), bench's
+   16384-ray render (rays/s), HASH_STAGE2_STEPS stage-2 steps from its checkpoint with the
+   full-size SD stack of 8 (K3 and K7 launched, sds_loss nonzero); and
+   the native host library (data/native.py, built from native/csrc into
+   build/) available, its searchsorted equal to numpy's.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -314,6 +325,10 @@ LORA_MERGE_COS = 0.999
 # bf16 where the CPU does not, which moves ε by ≈ 1e-3 relative: the loss
 # to 1e-3 relative, every adapter's gradient to cosine 0.999
 LORA_TINY_LOSS_RTOL, LORA_TINY_GRAD_COS = 1e-3, 0.999
+# the hash phase: bench's render in groups, then stage-2 steps from its
+# stage-1 checkpoint
+HASH_BENCH_GROUPS, HASH_BENCH_REPS = 5, 3
+HASH_STAGE2_STEPS, HASH_STAGE2_PRINT = 20, 5
 # the profiling entry points' reps in this script
 PROF_FIELD_REPS, PROF_TRAIN_REPS, PROF_GUIDANCE_REPS = 5, 5, 3
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16
@@ -900,16 +915,20 @@ def stage2_config(cfg, workdir: Path, ft_path: str, n_iters: int):
 
 def stage2_train(cfg, dev, scene, depth_gts, workdir: Path, start: int, *,
                  label: str = "stage2", steps: int = STAGE2_STEPS,
-                 every: int = STAGE2_PRINT, profile_dir=None, **guidance):
-    """Stage 2 through train(), ``steps`` steps after the stage-1
-    checkpoint at ``start``, with ``guidance`` overriding the shipped
-    guidance options → (out, ms per step, launches, the config, peak
-    memory in GiB). With ``profile_dir``, one more step is traced."""
+                 every: int = STAGE2_PRINT, profile_dir=None,
+                 src: str = "stage1",
+                 kernels=("field_fused", "merge128", "field_fused_bwd",
+                          "attention"), **guidance):
+    """Stage 2 through train(), ``steps`` steps after the checkpoint at
+    ``start`` of the stage-1 run ``src``, with ``guidance`` overriding the
+    shipped guidance options; the steps must launch ``kernels`` → (out, ms
+    per step, launches, the config, peak memory in GiB). With
+    ``profile_dir``, one more step is traced."""
     from gbnerf_tpu_torch.ops import attention as at
     from gbnerf_tpu_torch.train.loop import train
 
     cfg = stage2_config(cfg, workdir,
-                        str(workdir / "stage1" / "ckpt" / str(start)),
+                        str(workdir / src / "ckpt" / str(start)),
                         start + steps)
     cfg = cfg.replace(
         train=dataclasses.replace(cfg.train, i_print=every, expname=label),
@@ -941,7 +960,7 @@ def stage2_train(cfg, dev, scene, depth_gts, workdir: Path, start: int, *,
         raise AssertionError(f"{label} stopped at {out['state'].step}")
     print(f"{label}: launches {json.dumps(launches)}; attention by (N, D) "
           f"{json.dumps({f'{n}x{d}': c for (n, d), c in by_shape.items()})}")
-    for k in ("field_fused", "merge128", "field_fused_bwd", "attention"):
+    for k in kernels:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by {label}")
     unet = sum(c for (n, d), c in by_shape.items() if d in (40, 80))
@@ -1112,6 +1131,25 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
     return out
 
 
+def profile_stage1_step(cfg, dev, state, scene, depth_gts, label: str,
+                        outdir: Path, step_ms: float) -> None:
+    """--profile: one traced stage-1 step of ``cfg`` (the σ term on) on
+    ``state``."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.train.loop import banks_to_device
+    from gbnerf_tpu_torch.train.step import make_train_step_stage1
+
+    tcfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    step = make_train_step_stage1(tcfg, state.coarse, state.fine, scene.near,
+                                  scene.far, hwf=scene.hwf)
+    banks = banks_to_device(build_ray_banks(
+        scene.images, scene.masks, scene.inpainted_depths, scene.poses,
+        scene.hwf[2], depth_gts), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    profile_once(lambda: step(state, banks, gen), label, outdir, step_ms)
+
+
 def profile_step(cfg, dev, out, scene, outdir: Path, label: str,
                  step_ms: float):
     """--profile: one traced stage-2 step of ``cfg`` on the state and SD
@@ -1185,11 +1223,17 @@ def profile_stage2(cfg, dev, out, scene, outdir: Path, step_ms: float):
                                 for k, v in parts.items()))
 
 
-def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
+def stage1_train(cfg, dev, scene, depth_gts, workdir: Path, *,
+                 expname: str = "stage1", label: str = "train",
+                 step_kernels=("field_fused", "merge128", "field_fused_bwd",
+                               "field_fused_sigma", "field_fused_bwd_sigma"),
+                 eval_kernels=("field_fused", "field_fused_sigma",
+                               "merge128")):
     """Stage 1 through train(): TRAIN_STEPS steps, a checkpoint half way and
     at the end (the last restored into a fresh state and compared), one
-    eval render of the held-out views. → (out, ms per step, launches of
-    the steps, launches of the eval)."""
+    eval render of the held-out views; the steps must launch
+    ``step_kernels`` and the eval ``eval_kernels``. → (out, ms per step,
+    launches of the steps, launches of the eval)."""
     from gbnerf_tpu_torch.train.checkpoint import CheckpointManager
     from gbnerf_tpu_torch.train.loop import train
     from gbnerf_tpu_torch.train.state import create_train_state
@@ -1199,12 +1243,12 @@ def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
         cfg.train, first_stage=True, N_iters=TRAIN_STEPS,
         i_print=TRAIN_PRINT, i_weights=TRAIN_STEPS // 2,
         i_evaluate=TRAIN_STEPS, i_testset=never, i_video=never,
-        basedir=str(workdir), expname="stage1", no_reload=True,
+        basedir=str(workdir), expname=expname, no_reload=True,
         sigma_loss_weight=SIGMA_LOSS_WEIGHT))
     group_ms, at_last_step = [], {}
 
     def log_fn(i, m):
-        print(f"train: [{i}/{TRAIN_STEPS}] " + " ".join(
+        print(f"{label}: [{i}/{TRAIN_STEPS}] " + " ".join(
             f"{k}={v:.5g}" for k, v in m.items()))
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         if bad:
@@ -1225,21 +1269,20 @@ def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
                              "the run diverged or stopped early")
     step_launches = at_last_step
     eval_launches = {k: total[k] - step_launches[k] for k in total}
-    print(f"train: launches by the {TRAIN_STEPS} steps "
+    print(f"{label}: launches by the {TRAIN_STEPS} steps "
           f"{json.dumps(step_launches)}, by the eval "
           f"{json.dumps(eval_launches)}")
-    for k in ("field_fused", "merge128", "field_fused_bwd",
-              "field_fused_sigma", "field_fused_bwd_sigma"):
+    for k in step_kernels:
         if step_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the steps")
-    for k in ("field_fused", "field_fused_sigma", "merge128"):
+    for k in eval_kernels:
         if eval_launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched by the eval")
 
     hist = [m["img_loss"] for _, m in out["history"]]
     if not hist[-1] < hist[0]:
         raise AssertionError(f"img_loss did not fall: {hist}")
-    exp = workdir / "stage1"
+    exp = workdir / expname
     ckpt = CheckpointManager(str(exp / "ckpt"))
     if ckpt.steps() != [TRAIN_STEPS // 2, TRAIN_STEPS]:
         raise AssertionError(f"checkpoints {ckpt.steps()}")
@@ -1259,7 +1302,7 @@ def stage1_train(cfg, dev, scene, depth_gts, workdir: Path):
             and all(np.isfinite(v).all() for v in maps.values())):
         raise AssertionError(f"eval render not finite: {last}")
     ms = float(np.median(group_ms))
-    print(f"train: {TRAIN_STEPS} steps, 3 × {cfg.train.N_rand} rays a step, "
+    print(f"{label}: {TRAIN_STEPS} steps, 3 × {cfg.train.N_rand} rays a step, "
           f"{cfg.render.N_samples}+{cfg.render.N_importance} samples: "
           f"{ms:.3f} ms per step (median of {len(group_ms)} groups of "
           f"{TRAIN_PRINT}: {', '.join(f'{g:.3f}' for g in group_ms)}), "
@@ -1394,9 +1437,14 @@ def check_clip(dev) -> dict:
     return r
 
 
-def step_vs_plain(cfg, dev, state, scene, depth_gts):
+def step_vs_plain(cfg, dev, state, scene, depth_gts, label: str = "step",
+                  f64: bool = False):
     """One stage-1 loss and gradient on the card vs the CPU plain path, on
-    the same weights and injected batch indices, STEP_RAYS rays a stream."""
+    the same weights and injected batch indices, STEP_RAYS rays a stream:
+    the loss to STEP_LOSS_RTOL, every parameter's gradient (the hash
+    field's table too) to cosine STEP_GRAD_COS. f64: both sides run the
+    fields, the rays and the render in float64 (K3 merges the f32-rounded
+    depths, the hash encode's cell arithmetic stays f32, on both sides)."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks, sample_batch
     from gbnerf_tpu_torch.train.loop import banks_to_device
     from gbnerf_tpu_torch.train.step import make_train_step_stage1
@@ -1417,6 +1465,8 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
     for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
         fields = [copy.deepcopy(f).to(device) for f in state.fields()]
         for f in fields:
+            if f64:
+                f.double().compute_dtype = torch.float64
             for p in f.parameters():
                 p.grad = None
         step = make_train_step_stage1(cfg, fields[0], fields[1], scene.near,
@@ -1425,6 +1475,9 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
         batches = {key: sample_batch(bank[name], STEP_RAYS, idx=idx[name])
                    for key, name in (("clf", "rgb_clf"), ("inp", "inp"),
                                      ("depth", "depth"))}
+        if f64:
+            batches = {k: {kk: vv.double() for kk, vv in b.items()}
+                       for k, b in batches.items()}
         loss, _ = step.loss_fn(batches)
         loss.backward()
         res[where] = (loss.item(), {
@@ -1438,7 +1491,8 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
                     / (g_card[k].norm() * g_cpu[k].norm()).clamp_min(1e-300))
            for k in g_cpu}
     worst = min(cos, key=cos.get)
-    print(f"step vs plain ({STEP_RAYS} rays a stream): loss card {l_card!r}"
+    print(f"{label} vs plain ({STEP_RAYS} rays a stream"
+          f"{', float64' if f64 else ''}): loss card {l_card!r}"
           f" cpu {l_cpu!r} (rel err {rel:.3e}, limit {STEP_LOSS_RTOL}); "
           f"gradient cosine min {cos[worst]:.6f} ({worst}, limit "
           f"{STEP_GRAD_COS}) over {len(cos)} parameters; kernel launches "
@@ -1449,11 +1503,14 @@ def step_vs_plain(cfg, dev, state, scene, depth_gts):
     return {"loss_rel_err": rel, "min_grad_cos": cos[worst]}
 
 
-def stage1_step_twice(cfg, dev, state, scene, depth_gts):
+def stage1_step_twice(cfg, dev, state, scene, depth_gts,
+                      kernel: str = "field_fused_bwd", label: str = "stage1"):
     """One full-width stage-1 step (N_rand rays a stream, the σ term on),
     run twice from the same trained state and the same injected batch,
-    perturb and σ noise off: K4/K5 sum in a fixed order, so the parameters
-    and Adam moments after the two steps must be bit-equal."""
+    perturb and σ noise off: K4/K5 (the hash field: the gather's sorted
+    backward) sum in a fixed order, so the parameters and Adam moments
+    after the two steps must be bit-equal; the step must launch
+    ``kernel``."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
     from gbnerf_tpu_torch.train.loop import banks_to_device
     from gbnerf_tpu_torch.train.state import create_train_state
@@ -1497,11 +1554,11 @@ def stage1_step_twice(cfg, dev, state, scene, depth_gts):
     r = {"rays_a_stream": cfg.train.N_rand, "tensors": len(after[0]),
          "parameters_moved": moved, "deterministic": not differ,
          "launches": launches}
-    print(f"stage1 step twice {json.dumps(r)}")
-    if differ or launches["field_fused_bwd"] <= 0 or moved == 0:
-        raise AssertionError(f"two stage-1 steps from one state differ in "
-                             f"{differ[:8]} (or launched no K4, or moved "
-                             "nothing)")
+    print(f"{label} step twice {json.dumps(r)}")
+    if differ or launches[kernel] <= 0 or moved == 0:
+        raise AssertionError(f"two {label} steps from one state differ in "
+                             f"{differ[:8]} (or launched no {kernel}, or "
+                             "moved nothing)")
     return r
 
 
@@ -1535,6 +1592,9 @@ def check_cp_encode(dev, np_rng):
         del got, ref
         if label != "ragged":
             r["ms"] = cuda_ms(lambda: cp.encode_kernel(x, ul, r_max), reps=20)
+            # the device alone, as K1–K5 and K7 are timed beside events
+            r["graph_ms"] = graph_ms(lambda: cp.encode_kernel(x, ul, r_max),
+                                     reps=10)
             r["plain_ms"] = cuda_ms(lambda: cp.encode_plain(x, ul, r_max),
                                     reps=3)
             r.update(kernel_bound("cp_encode", r))
@@ -2624,6 +2684,113 @@ def profile_paths(workdir: Path) -> dict:
     return out
 
 
+def hash_phase(cfg, dev, scene, depth_gts, workdir: Path, ro, rd,
+               profile_dir=None) -> dict:
+    """The hash-grid field (field_type = hash, the reference's tcnn
+    topology) at full width, f32, on the stage-1 phase's scene: stage 1
+    through train() (TRAIN_STEPS steps, checkpoint save and restore, one
+    eval render), the card's step against the CPU's, one step twice from
+    one state (bit-equal), bench's 16384-ray render, HASH_STAGE2_STEPS
+    stage-2 steps from its checkpoint with the full-size SD stack, and the
+    native host library. The hash encode is plain PyTorch (as in the JAX
+    package); the paths' kernels are K3 (every render) and K7 (stage 2),
+    and none of the CP field's may run. With ``profile_dir``, one render
+    and one stage-1 step are traced. → {"launches": [the main paths'
+    counts]}"""
+    from gbnerf_tpu_torch.core.fields import HashGridField, level_resolutions
+    from gbnerf_tpu_torch.data import native
+    from gbnerf_tpu_torch.train.step import make_render_fn
+
+    hcfg = cfg.replace(field=dataclasses.replace(
+        cfg.field, field_type="hash", compute_dtype="float32"))
+    f = hcfg.field
+    # ---- stage 1 through train() (its own counts)
+    out, step_ms, step_launches, eval_launches = stage1_train(
+        hcfg, dev, scene, depth_gts, workdir, expname="hash_stage1",
+        label="hash", step_kernels=("merge128",), eval_kernels=("merge128",))
+    state = out["state"]
+    if not isinstance(state.fine, HashGridField):
+        raise AssertionError(f"field_type = hash built {type(state.fine)}")
+    res = level_resolutions(f.n_levels, f.base_res,
+                            state.fine.per_level_scale)
+    print(f"hash: L {f.n_levels}, T 2^{f.log2_hashmap_size}, F "
+          f"{f.n_features}, bound {f.bound}, resolutions {res}, "
+          f"{sum((r + 1) ** 3 <= 2 ** f.log2_hashmap_size for r in res)} "
+          f"dense levels; {state.fine.hash_table.numel() * 4 / 2 ** 20:.0f} "
+          f"MiB of table a field")
+    cp_kernels = ("field_fused", "field_fused_sigma", "field_fused_bwd",
+                  "field_fused_bwd_sigma", "cp_encode")
+    # ---- the card's step against the CPU's, in f32 and in float64; one
+    # step twice (bit-equal)
+    step_vs_plain(hcfg, dev, state, scene, depth_gts, label="hash step")
+    step_vs_plain(hcfg, dev, state, scene, depth_gts, label="hash step",
+                  f64=True)
+    stage1_step_twice(hcfg, dev, state, scene, depth_gts, kernel="merge128",
+                      label="hash stage1")
+    # ---- bench's workload with the trained hash fields (its own counts)
+    render = make_render_fn(hcfg, state.coarse, state.fine, near=NEAR,
+                            far=FAR)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with torch.no_grad():
+        render(ro, rd, train=False)                          # warm
+        torch.cuda.synchronize()
+        group_ms = []
+        for _ in range(HASH_BENCH_GROUPS):
+            t0 = time.perf_counter()
+            for _ in range(HASH_BENCH_REPS):
+                out_r = render(ro, rd, train=False)
+            torch.cuda.synchronize()
+            group_ms.append((time.perf_counter() - t0) * 1e3
+                            / HASH_BENCH_REPS)
+    render_launches = all_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(group_ms))
+    print(f"hash bench: {BENCH_RAYS} rays, 64+64 samples: {ms:.3f} ms per "
+          f"render (median of {HASH_BENCH_GROUPS} groups of "
+          f"{HASH_BENCH_REPS}: {', '.join(f'{g:.3f}' for g in group_ms)}), "
+          f"{BENCH_RAYS / (ms / 1e3):.1f} rays/s; peak memory "
+          f"{peak_gib:.2f} GiB; launches {json.dumps(render_launches)}")
+    for k in ("rgb", "acc", "depth", "disp"):
+        if not bool(torch.isfinite(getattr(out_r, k)).all()):
+            raise AssertionError(f"hash bench {k} not finite")
+    if profile_dir is not None:
+        with torch.no_grad():
+            profile_once(lambda: render(ro, rd, train=False), "hash_render",
+                         profile_dir, ms)
+        profile_stage1_step(hcfg, dev, state, scene, depth_gts,
+                            "hash_train_step", profile_dir, step_ms)
+    # ---- stage 2 from the hash checkpoint, the full-size SD stack (own
+    # counts; train() builds the stack itself)
+    s2_launches = stage2_train(
+        hcfg, dev, scene, depth_gts, workdir, TRAIN_STEPS,
+        label="hash stage2", steps=HASH_STAGE2_STEPS,
+        every=HASH_STAGE2_PRINT, src="hash_stage1",
+        kernels=("merge128", "attention"))[2]
+    paths = [step_launches, eval_launches, render_launches, s2_launches]
+    for k in cp_kernels:
+        if any(p[k] for p in paths):
+            raise AssertionError(f"the hash paths launched the CP field's "
+                                 f"{k}: {[p[k] for p in paths]}")
+    # ---- the native host library, built from native/csrc at first use
+    if not native.available():
+        raise AssertionError(f"native library unavailable: "
+                             f"{native.build_error}")
+    rng = np.random.default_rng(12)
+    a = np.sort(rng.random((1024, 129)).astype(np.float32), -1)
+    v = rng.random((1024, 64)).astype(np.float32) * 1.2 - 0.1
+    for side in ("left", "right"):
+        want = np.stack([np.searchsorted(a[i], v[i], side)
+                         for i in range(len(v))])
+        if not np.array_equal(native.searchsorted(a, v, side), want):
+            raise AssertionError(f"native searchsorted ({side}) differs "
+                                 "from numpy")
+    print(f"native: available, built at "
+          f"{native.build_library().relative_to(ROOT)}; searchsorted "
+          f"[1024, 129] × [1024, 64] both sides equal to numpy")
+    return {"launches": paths}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -2800,6 +2967,11 @@ def main() -> None:
         frozen = frozen_sigma_phase(cfg, dev, scene, depth_gts,
                                     Path(workdir))
         phase_done("frozen σ")
+        # ---- 19. the hash-grid field: stage 1, the checks of 6, bench's
+        # render and stage 2 (each main path its own counts); native
+        hash_res = hash_phase(cfg, dev, scene, depth_gts, Path(workdir),
+                              ro, rd, args.profile)
+        phase_done("hash")
     # ---- 17. CLIP guidance, card vs CPU
     check_clip(dev)
     phase_done("clip")
@@ -2836,20 +3008,8 @@ def main() -> None:
     phase_done("profilers")
 
     if args.profile is not None:
-        from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
-        from gbnerf_tpu_torch.train.loop import banks_to_device
-        from gbnerf_tpu_torch.train.step import make_train_step_stage1
-
-        tcfg = cfg.replace(train=dataclasses.replace(
-            cfg.train, sigma_loss_weight=SIGMA_LOSS_WEIGHT))
-        step = make_train_step_stage1(tcfg, state.coarse, state.fine,
-                                      scene.near, scene.far, hwf=scene.hwf)
-        banks = banks_to_device(build_ray_banks(
-            scene.images, scene.masks, scene.inpainted_depths, scene.poses,
-            scene.hwf[2], depth_gts), dev)
-        gen = torch.Generator(device=dev).manual_seed(3)
-        profile_once(lambda: step(state, banks, gen), "train_step",
-                     args.profile, step_ms)
+        profile_stage1_step(cfg, dev, state, scene, depth_gts, "train_step",
+                            args.profile, step_ms)
         profile_stage2(cfg2, dev, out2, scene, args.profile, step2_ms)
         profile_nog(dev, disk, args.profile)
         profile_prior_nl(dev, guided, args.profile)
@@ -2858,7 +3018,7 @@ def main() -> None:
     paths = [render_launches, step_launches, eval_launches, stage2_launches,
              colla_launches, perpneg_launches, frozen["launches"],
              disk["launches"], blender["launches"], guided["launches"],
-             lora_res["launches"],
+             lora_res["launches"], *hash_res["launches"],
              *prof_launches.values()]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [

@@ -7,7 +7,8 @@ package. It has the same dataclasses, field names and defaults, the same
 so a config file loads identically in both packages
 (tests/test_torch_config.py holds the two against each other). Knobs that
 only the JAX package reads (``steps_per_dispatch``, ``mesh``,
-``guidance.tp``, ``field.compute_dtype``) are kept for that parity.
+``guidance.tp``) are kept for that parity; ``field.compute_dtype`` is
+read by the MLP and hash fields (the CP field's kernels fix their own).
 
 It replaces the reference's ConfigArgParse flat namespace of ~140 flags
 (the reference's run.py:253-568). Every knob that affects the live code

@@ -9,6 +9,8 @@ here). Per field:
 - ``NeRFMLP``: each flax Dense ``{"kernel" [in, out], "bias"}`` under
   ``<name>`` becomes ``<name>.weight`` [out, in] and ``<name>.bias``
   (tools/convert_ref_ckpt.py::torch_nerf_to_flax has the inverse map).
+- ``HashGridField``: ``hash_table`` [L, T, F] maps one to one; its Dense
+  layers have no bias, so ``{"kernel"}`` becomes ``<name>.weight`` alone.
 
 A whole train state carries across too (``train_state_from_jax`` and
 ``train_state_to_jax``): optax's Adam moments ``mu``/``nu`` have the
@@ -43,7 +45,8 @@ def field_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
         if isinstance(v, Mapping):                      # flax Dense
             out[f"{name}.weight"] = torch.from_numpy(
                 np.array(np.asarray(v["kernel"]).T, order="C"))
-            out[f"{name}.bias"] = torch.from_numpy(np.array(v["bias"]))
+            if "bias" in v:                             # use_bias=False: none
+                out[f"{name}.bias"] = torch.from_numpy(np.array(v["bias"]))
         else:
             out[name] = torch.from_numpy(np.array(v))
     return out

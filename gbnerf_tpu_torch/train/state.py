@@ -17,14 +17,17 @@ from torch import nn
 
 from ..config import Config
 from ..core.cp_field import CPGridField
-from ..core.fields import NeRFMLP
+from ..core.fields import HashGridField, NeRFMLP
 
 
 def build_field(cfg: Config, fine: bool = False, *, device=None,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The field the config names: the NeRF MLP (no_tcnn), the hash grid
+    (field_type = hash; the coarse and fine fields alike) or the CP grid
+    (with the proposal-style coarse field of cp_resolutions_coarse)."""
     f = cfg.field
+    dtype = torch.bfloat16 if f.compute_dtype == "bfloat16" else torch.float32
     if f.no_tcnn:
-        dtype = torch.bfloat16 if f.compute_dtype == "bfloat16" else torch.float32
         return NeRFMLP(
             depth=f.netdepth_fine if fine else f.netdepth,
             width=f.netwidth_fine if fine else f.netwidth,
@@ -32,8 +35,10 @@ def build_field(cfg: Config, fine: bool = False, *, device=None,
             use_viewdirs=f.use_viewdirs, compute_dtype=dtype,
             device=device, generator=generator)
     if f.field_type == "hash":
-        raise NotImplementedError("HashGridField is not ported yet; use "
-                                  "field_type = cp")
+        return HashGridField(
+            bound=f.bound, n_levels=f.n_levels, n_features=f.n_features,
+            log2_hashmap_size=f.log2_hashmap_size, base_res=f.base_res,
+            compute_dtype=dtype, device=device, generator=generator)
     res, rank = tuple(f.cp_resolutions), f.cp_rank
     if not fine:
         # proposal-style coarse field (FieldConfig.cp_resolutions_coarse)

@@ -25,6 +25,7 @@ from gbnerf_tpu.ops import cp_pallas as jcpp
 from gbnerf_tpu.train.state import build_field as j_build_field
 from gbnerf_tpu_torch import convert
 from gbnerf_tpu_torch.core import cp_field as tcp
+from gbnerf_tpu_torch.core.fields import HashGridField as THashGridField
 from gbnerf_tpu_torch.core.fields import NeRFMLP as TNeRFMLP
 from gbnerf_tpu_torch.ops import cp_pallas as tcpp
 from gbnerf_tpu_torch.ops import field_fused as tff
@@ -373,6 +374,12 @@ def test_create_params_is_seeded_and_on_the_device():
     # the init scales of the flax module: lines ~ 0.5·N(0,1), lecun kernels
     assert 0.4 < float(c1.lines_2.detach().std()) < 0.6
     assert float(c1.wc1.detach().abs().max()) <= 2.0 / 0.8796 / 8.0 + 1e-6
-    with pytest.raises(NotImplementedError):
-        build_field(cfg.replace(field=dataclasses.replace(
-            cfg.field, field_type="hash")))
+    # field_type = hash: the same hash-grid architecture for both fields
+    hcfg = cfg.replace(field=dataclasses.replace(
+        cfg.field, field_type="hash", n_levels=2, log2_hashmap_size=6))
+    hc = build_field(hcfg, generator=torch.Generator().manual_seed(3))
+    hf = build_field(hcfg, fine=True, generator=torch.Generator().manual_seed(3))
+    assert isinstance(hc, THashGridField) and hc.hash_table.shape == (2, 64, 2)
+    assert all(torch.equal(a, b) for a, b in zip(hc.state_dict().values(),
+                                                 hf.state_dict().values()))
+    assert float(hc.hash_table.detach().abs().max()) <= 1e-4
