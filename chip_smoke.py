@@ -137,6 +137,21 @@
    full-size SD stack of 8 (K3 and K7 launched, sds_loss nonzero); and
    the native host library (data/native.py, built from native/csrc into
    build/) available, its searchsorted equal to numpy's.
+20. The parallel phase, torchrun on the card (tools/parallel_check.py's
+   cases; the ranks count their own launches and rank 0 sums them into
+   the kernels line): (a) one NCCL rank through run.py, NCCL_STEPS
+   stage-1 steps of configs/spinnerf_scene.txt at full width on the disk
+   scene (ms a step, the group's backend and world size); (b) two gloo
+   ranks sharing the card: the data-parallel full-width stage-1 step, 512
+   rays a stream a rank, against the one-process step on the same
+   injected draws (loss 1e-3, every gradient's cosine 0.999), the
+   two-rank step twice (bit-equal), then PAR_STEPS timed steps (two
+   processes on one card: contention, not scaling); (c) two gloo ranks,
+   model = 2: the stage-2 step with the full-size SD stack tensor-parallel
+   against the unsharded step (the same bounds), a rank's UNet bytes at
+   most 0.6 of the whole; (d) tools/run_spmd_demo.py's twin at its micro
+   size. Also, with the kernel checks, the CP field's x01 on the card
+   against the CPU, bit for bit.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -284,6 +299,23 @@ CP_GRAD_POINTS, CP_GRAD_RTOL, CP_GRAD_ATOL_FRAC = 65536 - 29, 2.0 ** -7, 5e-3
 # guidance) from s1's checkpoint
 DISK_VIEWS, DISK_S1_STEPS, DISK_NOG_STEPS = (16, 3), 300, 100
 DISK_S1_PRINT, DISK_NOG_PRINT = 50, 20
+# the parallel phase: (a) one NCCL rank through run.py, NCCL_STEPS stage-1
+# steps of configs/spinnerf_scene.txt on the disk scene (ms by groups of
+# NCCL_PRINT); (b) two gloo ranks sharing the card, the full-width stage-1
+# step at PAR_N_RAND rays a stream (half a rank; the streams cut to
+# PAR_BANK rays) against the one-process step, twice, then PAR_STEPS timed
+# steps; (c) two gloo ranks, the stage-2 step with the full-size SD stack
+# tensor-parallel over model = 2, against the unsharded step, on the first
+# PAR_VIEWS views; (d) the SPMD demo twin at its micro size. The bf16 step
+# tolerance of PERF.md §2: loss PAR_LOSS_RTOL, every gradient's cosine
+# PAR_COS; a rank holds at most PAR_BYTES_MAX of the UNet
+NCCL_STEPS, NCCL_PRINT = 50, 25
+PAR_N_RAND, PAR_BANK, PAR_STEPS, PAR_VIEWS = 1024, 65536, 50, 4
+PAR_LOSS_RTOL, PAR_COS, PAR_BYTES_MAX = 1e-3, 0.999, 0.6
+PAR_SD = ("full", 512)           # (c)'s SD stack and its latent size
+PAR_TIMEOUT = 600
+# the CP field's x01 on the card against the CPU at CP_POS_POINTS points
+CP_POS_POINTS = 1 << 20
 # the Blender phase: a scene in nerf_synthetic's layout (BLENDER_VIEWS train,
 # val and test views at BLENDER_SIZE², camera_angle_x as its scenes, cameras
 # on a sphere of BLENDER_RADIUS), read with half_res and testskip; stage 1
@@ -2791,6 +2823,269 @@ def hash_phase(cfg, dev, scene, depth_gts, workdir: Path, ro, rd,
     return {"launches": paths}
 
 
+def check_cp_positions(dev) -> dict:
+    """The CP field's x01 (core/cp_field.py::positions) on the card against
+    the CPU, bit for bit, at the shipped bound 8 and at 3 and 1.5, where the
+    reciprocal of 2·bound is inexact; beside it, how many entries a
+    Python-scalar divisor (which CUDA turns into a product with the
+    reciprocal) would put off the CPU's."""
+    from gbnerf_tpu_torch.core.cp_field import positions
+
+    pts = torch.randn(CP_POS_POINTS, 3,
+                      generator=torch.Generator().manual_seed(0)) * 4
+    res = {}
+    for b in (8.0, 3.0, 1.5):
+        ref = positions(pts, b)
+        got = positions(pts.to(dev), b).cpu()
+        scalar = ((pts.to(dev) + b) / (2.0 * b)).cpu()
+        res[str(b)] = {"field_differs": int((got != ref).sum()),
+                       "scalar_divisor_differs": int((scalar != ref).sum())}
+    print(f"check cp positions (x01) card vs CPU, {CP_POS_POINTS} x 3: "
+          f"{json.dumps(res)}")
+    bad = [b for b, r in res.items() if r["field_differs"]]
+    if bad:
+        raise AssertionError(f"CP x01 on the card differs from the CPU's at "
+                             f"bound {bad}")
+    return res
+
+
+def _run_group(cmd, log: Path, timeout: float) -> str:
+    """Run cmd in its own process group (torchrun and its ranks), output
+    to ``log``; on a timeout the whole group is killed. → its output."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except BaseException as e:        # a timeout or an interrupt
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            if isinstance(e, subprocess.TimeoutExpired):
+                raise AssertionError(f"timed out after {timeout} s: "
+                                     f"{' '.join(map(str, cmd))}") from e
+            raise
+    out = log.read_text()
+    if rc:
+        print(out[-4000:])
+        raise AssertionError(f"exit {rc}: {' '.join(map(str, cmd))}")
+    return out
+
+
+def _torchrun(nproc: int) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}"]
+
+
+def _cosines(got: dict, ref: dict) -> dict:
+    out = {}
+    for n in ref:
+        for k, r in ref[n].items():
+            g, r = got[n][k].double().reshape(-1), r.double().reshape(-1)
+            den = float(torch.linalg.norm(g) * torch.linalg.norm(r))
+            out[f"{n}.{k}"] = float(g @ r) / den if den else (
+                1.0 if float(torch.linalg.norm(g - r)) == 0 else 0.0)
+    return out
+
+
+def _sub_banks(banks, n: int, seed: int) -> dict:
+    """Each stream of a RayBanks cut to n rays (a seeded draw), on the
+    host."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in ("rgb_clf", "inp", "depth"):
+        st = getattr(banks, name).to("cpu")
+        size = st["o"].shape[0]
+        keep = torch.from_numpy(rng.choice(size, min(n, size), replace=False))
+        out[name] = {k: v[keep].contiguous() for k, v in st.items()}
+    return out
+
+
+def require_launches(report: dict) -> None:
+    """The ranks of (b) launched K1–K5 and those of (c) K1, K3, K4 and
+    K7."""
+    for label, names in (("b", ("field_fused", "field_fused_sigma",
+                                "merge128", "field_fused_bwd",
+                                "field_fused_bwd_sigma")),
+                         ("c", ("field_fused", "merge128", "field_fused_bwd",
+                                "attention"))):
+        idle = [n for n in names if report[label]["launches"][n] <= 0]
+        if idle:
+            raise AssertionError(f"parallel ({label}) launched no {idle}")
+
+
+def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
+                   workdir: Path) -> dict:
+    """torchrun on the card. (a) one NCCL rank through run.py; (b) two gloo
+    ranks sharing the card: the data-parallel full-width stage-1 step
+    against the one-process step, twice (bit-equal), then timed steps;
+    (c) two gloo ranks: the stage-2 step with the full-size SD stack
+    tensor-parallel (model = 2) against the unsharded step; (d) the SPMD
+    demo twin at its micro size. Two ranks on one card measure
+    contention, not scaling. → {"launches": [(b)'s, (c)'s] (summed over
+    the ranks), ...}."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
+    from gbnerf_tpu_torch.tools import parallel_check as pc
+
+    torch.cuda.empty_cache()
+    never = 10 ** 9
+    on = ["--device", dev.type]
+    # ---- (a) one NCCL rank through run.py
+    sets = [f"data.datadir={disk_datadir}",
+            f"data.test_split_count={DISK_VIEWS[1]}",
+            "train.first_stage=True", f"train.N_iters={NCCL_STEPS}",
+            f"train.i_print={NCCL_PRINT}", f"train.i_weights={never}",
+            f"train.i_video={never}", f"train.i_evaluate={never}",
+            f"train.i_testset={never}", f"train.basedir={workdir}",
+            "train.expname=nccl1", "train.no_reload=True",
+            f"train.sigma_loss_weight={SIGMA_LOSS_WEIGHT}"]
+    cmd = _torchrun(1) + ["-m", "gbnerf_tpu_torch.run", "--config",
+                          str(ROOT / "configs" / "spinnerf_scene.txt"), *on]
+    for kv in sets:
+        cmd += ["--set", kv]
+    t0 = time.perf_counter()
+    out = _run_group(cmd, workdir / "nccl1.log", PAR_TIMEOUT)
+    wall_a = time.perf_counter() - t0
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if f"rank 0 of 1 ({backend})" not in out:
+        raise AssertionError(f"run.py under torchrun did not join a "
+                             f"{backend} group of one rank")
+    recs = [json.loads(line) for line in
+            open(workdir / "nccl1" / "metrics.jsonl")]
+    ms_a = [1e3 / r["iters_per_sec"] for r in recs if "iters_per_sec" in r]
+    if recs[-1].get("iter") != NCCL_STEPS or not all(
+            np.isfinite(v) for v in recs[-1].values() if v is not None):
+        raise AssertionError(f"nccl run ended at {recs[-1]}")
+    print(f"parallel (a) run.py under torchrun: backend {backend}, world 1, "
+          f"{NCCL_STEPS} stage-1 steps of spinnerf_scene (full width, "
+          f"N_rand {cfg.train.N_rand}) on the disk scene: ms a step by "
+          f"groups of {NCCL_PRINT} {[round(m, 3) for m in ms_a]}, "
+          f"img_loss {recs[-1]['img_loss']:.5g}, wall {wall_a:.1f} s "
+          f"(process start and kernel load included)")
+
+    # ---- (b) and (c): two gloo ranks on the card, one torchrun
+    H, W, focal = scene.hwf
+    banks = build_ray_banks(scene.images, scene.masks,
+                            scene.inpainted_depths, scene.poses, focal,
+                            depth_gts)
+    g = torch.Generator().manual_seed(11)
+
+    def draws(cut):
+        return {k: torch.randint(0, len(cut[b]["o"]), (PAR_N_RAND,),
+                                 generator=g)
+                for k, b in (("clf", "rgb_clf"), ("inp", "inp"),
+                             ("depth", "depth"))}
+
+    cfg1 = cfg.replace(train=dataclasses.replace(
+        cfg.train, first_stage=True, N_rand=PAR_N_RAND,
+        sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    cut_b = _sub_banks(banks, PAR_BANK, 0)
+    case_b = {"kind": "stage1", "cfg": cfg1, "near": scene.near,
+              "far": scene.far, "hwf": scene.hwf, "banks": cut_b, "seed": 1,
+              "idx": draws(cut_b), "mesh": (2,), "repeat": True,
+              "steps": PAR_STEPS}
+    k = PAR_VIEWS
+    sub = build_ray_banks(scene.images[:k], scene.masks[:k],
+                          scene.inpainted_depths[:k], scene.poses[:k], focal,
+                          depth_gts[:k])
+    cfg2 = cfg.replace(
+        train=dataclasses.replace(cfg.train, first_stage=False,
+                                  N_rand=PAR_N_RAND,
+                                  sigma_loss_weight=SIGMA_LOSS_WEIGHT),
+        guidance=dataclasses.replace(cfg.guidance, sd_allow_random=True,
+                                     normal_start_iter=0))
+    cut_c = _sub_banks(sub, PAR_BANK, 1)
+    case_c = {"kind": "stage2", "cfg": cfg2, "near": scene.near,
+              "far": scene.far, "hwf": scene.hwf,
+              "scene_dev": {
+                  "images": torch.from_numpy(scene.images[:k]),
+                  "masks": torch.from_numpy(scene.masks[:k]),
+                  "poses": torch.from_numpy(scene.poses[:k]),
+                  "mask_coords": torch.from_numpy(sub.mask_coords),
+                  "mask_valid": torch.from_numpy(sub.mask_valid)},
+              "banks": cut_c, "seed": 2, "idx": dict(draws(cut_c), img=1),
+              "guidance": {"sd": PAR_SD[0], "seed": 3,
+                           "latent_size": PAR_SD[1], "tp": True},
+              "mesh": (1, 2), "mesh_axes": ("data", "model")}
+    spec = workdir / "parallel_spec.pt"
+    torch.save({"cases": [case_b, case_c],
+                "out": str(workdir / "parallel_out.pt")}, spec)
+    t0 = time.perf_counter()
+    _run_group(_torchrun(2) + ["-m", "gbnerf_tpu_torch.tools.parallel_check",
+                               str(spec), "--dist_backend", "gloo", *on],
+               workdir / "parallel.log", PAR_TIMEOUT)
+    wall_bc = time.perf_counter() - t0
+    got_b, got_c = torch.load(workdir / "parallel_out.pt", weights_only=False)
+    # the one-process references, in this process (not main-path launches)
+    ref_b = pc.run_case(dict(case_b, repeat=False, steps=0), dev)
+    ref_c = pc.run_case(case_c, dev)
+    torch.cuda.empty_cache()
+
+    report = {}
+    for label, got, ref in (("b", got_b, ref_b), ("c", got_c, ref_c)):
+        rel = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+        cos = _cosines(got["grads"], ref["grads"])
+        worst = min(cos, key=cos.get)
+        report[label] = {"world": got["world"], "backend": got["backend"],
+                         "loss": got["loss"], "ref_loss": ref["loss"],
+                         "loss_rel_err": rel, "min_grad_cos": cos[worst],
+                         "min_grad_cos_at": worst,
+                         "step_s": got["first_step_s"],
+                         "case_s": got["seconds"],
+                         "launches": got["launches"]}
+        if rel > PAR_LOSS_RTOL or cos[worst] < PAR_COS:
+            raise AssertionError(f"parallel ({label}) differs from one "
+                                 f"process: {json.dumps(report[label])}")
+    ms_b = got_b["step_ms"]
+    report["b"].update(repeat_bit_equal=got_b["repeat_equal"],
+                       step_ms_median=float(np.median(ms_b)),
+                       last_loss=got_b["last_loss"])
+    if not got_b["repeat_equal"]:
+        raise AssertionError("the two-rank stage-1 step run twice is not "
+                             "bit-equal")
+    ratio = got_c["unet_bytes_max"] / ref_c["unet_bytes_max"]
+    report["c"].update(unet_bytes_rank=got_c["unet_bytes_max"],
+                       unet_bytes_whole=ref_c["unet_bytes_max"],
+                       unet_bytes_ratio=ratio,
+                       sds_loss=got_c["metrics"]["sds_loss"])
+    sds = got_c["metrics"]["sds_loss"]
+    if ratio > PAR_BYTES_MAX or not (np.isfinite(sds) and sds != 0.0):
+        raise AssertionError(f"parallel (c): {json.dumps(report['c'])}")
+    require_launches(report)
+    print(f"parallel (b) two gloo ranks on one card, stage 1 at full width, "
+          f"{PAR_N_RAND // 2} rays a stream a rank: "
+          f"{json.dumps(report['b'])}")
+    print(f"parallel (b) {PAR_STEPS} two-rank steps (contention of two "
+          f"processes on one card, not scaling): ms a step median "
+          f"{report['b']['step_ms_median']:.3f}, groups "
+          f"{[round(float(np.median(ms_b[i:i + 10])), 3) for i in range(0, len(ms_b), 10)]}")
+    print(f"parallel (c) two gloo ranks, data×model = 1×2, stage 2 with the "
+          f"full-size SD stack tensor-parallel: {json.dumps(report['c'])}")
+    print(f"parallel (c) UNet parameter bytes a rank {got_c['unet_bytes_max']}"
+          f" of {ref_c['unet_bytes_max']} ({ratio:.4f}); (b)+(c) wall "
+          f"{wall_bc:.1f} s")
+
+    # ---- (d) the SPMD demo twin at its micro size
+    t0 = time.perf_counter()
+    demo = workdir / "spmd_demo"
+    _run_group([sys.executable, "-m", "gbnerf_tpu_torch.tools.run_spmd_demo",
+                str(demo), "--nproc", "2", "--tp", "2", "--dist_backend",
+                "gloo", "--iters1", "8", "--iters2", "4", "--n_rand", "128",
+                *on],
+               workdir / "spmd_demo.log", PAR_TIMEOUT)
+    rep = json.loads((demo / "spmd_demo.json").read_text())
+    if rep["s1"].get("iter") != 8 or rep["s2"].get("iter") != 12:
+        raise AssertionError(f"spmd demo: {rep}")
+    print(f"parallel (d) run_spmd_demo --nproc 2 --tp 2 (gloo, micro): "
+          f"{json.dumps(rep)}, wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": [report["b"]["launches"], report["c"]["launches"]],
+            "report": report, "nccl_ms": ms_a}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -2851,6 +3146,7 @@ def main() -> None:
     check_field_widths(dev, np_rng)
     attn_res = check_attention(dev)
     cp_res = check_cp_encode(dev, np_rng)
+    check_cp_positions(dev)
     phase_done("build and kernel checks")
 
     # ---- 4. the eval render path: launches counted from here ...
@@ -3006,6 +3302,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         prof_launches = profile_paths(Path(workdir))
     phase_done("profilers")
+    # ---- 20. the parallel phase: torchrun on the card (ranks' own counts)
+    with tempfile.TemporaryDirectory() as workdir:
+        par = parallel_phase(cfg, dev, scene, depth_gts, disk["datadir"],
+                             Path(workdir))
+    phase_done("parallel")
 
     if args.profile is not None:
         profile_stage1_step(cfg, dev, state, scene, depth_gts, "train_step",
@@ -3019,7 +3320,7 @@ def main() -> None:
              colla_launches, perpneg_launches, frozen["launches"],
              disk["launches"], blender["launches"], guided["launches"],
              lora_res["launches"], *hash_res["launches"],
-             *prof_launches.values()]
+             *prof_launches.values(), *par["launches"]]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [
         {"name": "field_fused", "route": "cuda",

@@ -5,9 +5,10 @@ and ``typing``), kept here so that the port imports nothing of the JAX
 package. It has the same dataclasses, field names and defaults, the same
 ``load_reference_config`` key mapping and the same ``save_config`` format,
 so a config file loads identically in both packages
-(tests/test_torch_config.py holds the two against each other). Knobs that
-only the JAX package reads (``steps_per_dispatch``, ``mesh``,
-``guidance.tp``) are kept for that parity; ``field.compute_dtype`` is
+(tests/test_torch_config.py holds the two against each other). A knob
+that only the JAX package reads (``steps_per_dispatch``) is kept for that
+parity; ``mesh`` and ``guidance.tp`` shape the port's torchrun mesh
+(train/loop.py::build_mesh); ``field.compute_dtype`` is
 read by the MLP and hash fields (the CP field's kernels fix their own).
 
 It replaces the reference's ConfigArgParse flat namespace of ~140 flags
@@ -187,10 +188,10 @@ class GuidanceConfig:
     sd_lora_ckpt: Optional[str] = None
     # Tensor-parallel guidance: size of the mesh's `model` axis. When >1
     # (and devices % tp == 0) stage-2 builds a (data, model) mesh, shards
-    # the UNet/VAE kernels out-channel over `model` (parallel/tp.py) and
-    # rides GSPMD for the activation collectives — the multi-chip answer
-    # to the B=1 guidance wall-clock floor that data parallelism cannot
-    # shard. 0/1 = off (pure data parallelism).
+    # the UNet/VAE kernels out-channel over `model` (parallel/tp.py), each
+    # sharded layer gathering its channels — the multi-chip answer to the
+    # B=1 guidance wall-clock floor that data parallelism cannot shard.
+    # 0/1 = off (pure data parallelism).
     tp: int = 0
     # Guidance render/latent resolution override (default: 512 full SD,
     # 64 tiny). The tiny prior trains at 128 → 16² latents so the SDS
@@ -286,10 +287,10 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device mesh (the reference's DataParallel analog,
-    SURVEY §2.3); the port trains on one device and ignores it."""
+    """The device mesh over torchrun's ranks (the reference's DataParallel
+    analog, SURVEY §2.3; train/loop.py::build_mesh)."""
     data_axis: str = "data"
-    num_devices: int = 0           # 0 → all local devices
+    num_devices: int = 0           # 0 → the world size (all ranks)
 
 
 @dataclass(frozen=True)

@@ -186,16 +186,34 @@ def flax_to_state_dict(tree: Mapping, rules=_SD_RULES
     ``scale`` → ``weight``, Embed ``embedding`` → ``weight`` (by rule)."""
     out = {}
     for key, a in _flatten(tree):
-        for pat, rep in rules:
-            key = re.sub(pat, rep, key)
-        head, _, kind = key.rpartition(".")
-        if kind == "kernel":
+        if key.endswith(".kernel"):
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-            kind = "weight"
-        elif kind == "scale":
-            kind = "weight"
-        key = f"{head}.{kind}" if head else kind
-        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+        out[state_dict_key(key, rules)] = torch.from_numpy(
+            np.array(a, np.float32, order="C"))
+    return out
+
+
+def state_dict_key(key: str, rules=_SD_RULES) -> str:
+    """A flax path joined by "." → the port's parameter name: module names
+    by ``rules``, ``kernel`` and ``scale`` → ``weight``."""
+    for pat, rep in rules:
+        key = re.sub(pat, rep, key)
+    head, _, kind = key.rpartition(".")
+    if kind in ("kernel", "scale"):
+        kind = "weight"
+    return f"{head}.{kind}" if head else kind
+
+
+def tp_names_from_jax(specs: Mapping, prefix: str = "") -> set:
+    """The leaves that gbnerf_tpu/parallel/tp.py::tp_param_specs shards (a
+    PartitionSpec other than P()) → the port's names of those parameters,
+    which parallel/tp.py::tp_param_specs must shard alike."""
+    out = set()
+    for name, v in specs.items():
+        if isinstance(v, Mapping):
+            out |= tp_names_from_jax(v, f"{prefix}{name}.")
+        elif any(a is not None for a in v):
+            out.add(state_dict_key(prefix + name))
     return out
 
 

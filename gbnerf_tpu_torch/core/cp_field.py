@@ -66,6 +66,14 @@ def lecun_normal(shape: Tuple[int, int],
                                  generator=generator)
 
 
+def positions(pts: torch.Tensor, bound: float) -> torch.Tensor:
+    """Points → the grid's unit cube: (pts + bound) / (2·bound). The
+    divisor is a 0-d tensor on pts' device: CUDA divides by a Python
+    scalar as a product with its reciprocal, one ulp off the CPU's (and
+    the JAX package's) quotient where 2·bound is not a power of two."""
+    return (pts + bound) / pts.new_full((), 2.0 * bound)
+
+
 class CPGridField(nn.Module):
     """Multiresolution CP grid + tcnn-topology heads → raw [..., 4].
 
@@ -113,7 +121,7 @@ class CPGridField(nn.Module):
 
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                 sigma_only: bool = False) -> torch.Tensor:
-        x01 = (pts + self.bound) / (2.0 * self.bound)
+        x01 = positions(pts, self.bound)
         flat = x01.reshape(-1, 3).float().contiguous()
         Ws = {k: getattr(self, k) for k in W_KEYS}
         sh_dim = self.sh_degree ** 2

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.resample import merge_sorted_fast, sample_pdf_fast
 from ..ops.scan import cumprod_last_exclusive
+from ..parallel.mesh import draw
 from .sampling import merge_z_vals, sample_pdf, stratified_z_vals
 
 
@@ -56,8 +57,8 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     sigma = raw[..., 3]
     if raw_noise_std > 0.0:
         if noise is None:
-            noise = torch.randn(sigma.shape, generator=generator,
-                                dtype=sigma.dtype, device=sigma.device)
+            noise = draw("randn", sigma.shape, generator, sigma.dtype,
+                         sigma.device)
         sigma = sigma + noise * raw_noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import draw
+
 
 def stratified_z_vals(near, far, N_samples: int, *, lindisp: bool = False,
                       perturb: bool = False,
@@ -37,8 +39,7 @@ def stratified_z_vals(near, far, N_samples: int, *, lindisp: bool = False,
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
         if t_rand is None:
-            t_rand = torch.rand(z.shape, generator=generator, dtype=dtype,
-                                device=device)
+            t_rand = draw("rand", z.shape, generator, dtype, device)
         z = lower + (upper - lower) * t_rand
     return z
 
@@ -71,8 +72,7 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, N_samples: int, *,
         u = torch.linspace(0.0, 1.0, N_samples, dtype=bins.dtype,
                            device=bins.device).expand(shape)
     else:
-        u = torch.rand(shape, generator=generator, dtype=bins.dtype,
-                       device=bins.device)
+        u = draw("rand", shape, generator, bins.dtype, bins.device)
     u = u.contiguous()
 
     inds = searchsorted_right(cdf, u)

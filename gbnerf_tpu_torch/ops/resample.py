@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import draw
 from ._build import kernel_function
 from .scan import cumsum_last
 
@@ -57,8 +58,7 @@ def sample_pdf_fast(bins: torch.Tensor, weights: torch.Tensor,
         u = sorted_uniform(shape, generator=generator, dtype=bins.dtype,
                            device=bins.device)
     else:
-        u = torch.rand(shape, generator=generator, dtype=bins.dtype,
-                       device=bins.device)
+        u = draw("rand", shape, generator, bins.dtype, bins.device)
 
     dbins = bins[..., 1:] - bins[..., :-1]                       # [N, B-1]
     inv_pdf = 1.0 / torch.clamp(pdf, min=1e-12)
@@ -75,8 +75,8 @@ def sorted_uniform(shape, *, generator: Optional[torch.Generator] = None,
     cumsum of non-negative terms is monotone, which the bitonic merge
     downstream needs."""
     n = shape[-1]
-    e = torch.empty(tuple(shape[:-1]) + (n + 1,), dtype=dtype, device=device)
-    e.exponential_(generator=generator)
+    e = draw("exponential", tuple(shape[:-1]) + (n + 1,), generator, dtype,
+             device)
     s = torch.cumsum(e, dim=-1)
     return s[..., :-1] / s[..., -1:]
 

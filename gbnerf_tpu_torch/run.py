@@ -17,6 +17,17 @@ are read from PNGs without imageio; other image formats need it. Stage 2
 (``first_stage = False``) guides with the SD1.5-inpainting stack from
 ``guidance.sd_weights_dir`` (a local diffusers-layout checkpoint), or with
 random weights under ``guidance.sd_tiny`` / ``guidance.sd_allow_random``.
+
+Under torchrun it trains data-parallel, one rank a device (with
+``guidance.tp`` > 1 in stage 2, the SD towers tensor-parallel too);
+``--dist_backend`` picks the process group's backend (nccl by default on
+the card, gloo on the CPU; gloo on the card lets several ranks share one):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m gbnerf_tpu_torch.run --config configs/scene1.txt
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m gbnerf_tpu_torch.run --config configs/scene1.txt \
+        --dist_backend gloo                    # two ranks on one card
 """
 from __future__ import annotations
 
@@ -69,6 +80,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error without a card) or cpu "
                         "(the kernels' plain versions)")
+    p.add_argument("--dist_backend", default=None,
+                   help="under torchrun: nccl (the default on the card) or "
+                        "gloo (the default on the CPU; on the card it lets "
+                        "ranks share a card)")
     args = p.parse_args(argv)
 
     from gbnerf_tpu_torch.config import load_reference_config
@@ -82,16 +97,25 @@ def main(argv=None):
 
     import torch
 
+    from gbnerf_tpu_torch.parallel.mesh import (init_distributed, rank,
+                                                world_size)
     from gbnerf_tpu_torch.train.loop import (device_from_flag, render_only,
                                              train)
-    device = device_from_flag(args.device)
+    device = init_distributed(device_from_flag(args.device),
+                              args.dist_backend)
     print(f"[device] {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f" rank {rank()} of {world_size()} "
+             f"({torch.distributed.get_backend()})"
+             if torch.distributed.is_initialized() else ""))
     if cfg.train.render_only:
-        render_only(cfg, device=device)
+        if rank() == 0:          # one rank renders: nothing to split
+            render_only(cfg, device=device)
     else:
         train(cfg, device=device)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 

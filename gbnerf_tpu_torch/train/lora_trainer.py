@@ -42,6 +42,9 @@ from ..data.llff import _imread, resize_area, resize_nearest
 from ..guidance.lora import (TEXT_TARGETS, apply_lora, init_lora,
                              lora_param_count, save_lora)
 from ..guidance.stable import SDModules, _resize
+from ..parallel.mesh import (average_grads, data_sharding, gather,
+                             make_mesh, replicate, shard_batch, world_size)
+from ..parallel.mesh import rank as process_rank
 from ..utils import msgpack
 from ..utils.png import write_png
 
@@ -166,7 +169,8 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
                          lr: float = 1e-4, masked_loss: bool = False,
                          prior_preservation: bool = False,
                          prior_loss_weight: float = 1.0,
-                         text_tower=None, text_rank: int = 4):
+                         text_tower=None, text_rank: int = 4, mesh=None,
+                         mesh_axis="data"):
     """Build (init_fn, step) for LoRA training.
 
     init_fn(generator=None, a_init=None) → (adapters, optimizer): the
@@ -186,6 +190,12 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
     prior_loss_weight · the class term. text_tower: the CLIP text module;
     rank-4 (α 4) adapters on its q/k/v/out_proj, run inside the loss on
     batch["input_ids"].
+
+    mesh: a DeviceMesh (parallel/mesh.py), the reference's HF-Accelerate
+    DDP: the step takes the global batch (and draws it whole), each rank
+    computes the loss of its rows over ``mesh_axis``, the per-sample
+    errors are gathered so that the loss is the one-process loss on every
+    rank, and the adapter gradients are averaged before AdamW.
     """
     sched = mods.schedule
     unet, vae = mods.unet, mods.vae
@@ -205,6 +215,7 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
             ad.update({"text." + k: v for k, v in init_lora(
                 text_tower, rank=text_rank, targets=TEXT_TARGETS,
                 generator=generator, a_init=sub("text.")).items()})
+        replicate(mesh, ad)
         for v in ad.values():
             v.requires_grad_(True)
         opt = torch.optim.AdamW(list(ad.values()), lr=lr, betas=(0.9, 0.999),
@@ -220,6 +231,9 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
                  if k.startswith("text.")})
 
     def loss_fn(adapters, batch, draws):
+        B_all = batch["image"].shape[0]
+        batch = shard_batch(mesh, batch, mesh_axis)
+        draws = shard_batch(mesh, draws, mesh_axis)
         unet_ad, text_ad = _split(adapters)
         eff = apply_lora(unet, unet_ad, rank=rank)
         if text_ad is not None:
@@ -250,15 +264,22 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
                                  method="nearest")
 
         imask = batch.get("instance_mask")
-        if prior_preservation:
-            half = B // 2
-            err_i, err_p = err[:half], err[half:]
-            if masked_loss and imask is not None:
-                err_i = err_i * instance_weight(imask[:half])
-            return err_i.mean() + prior_loss_weight * err_p.mean()
         if masked_loss and imask is not None:
-            err = err * instance_weight(imask)
-        return err.mean()
+            # under prior preservation only the instance half is weighted
+            w = instance_weight(imask)
+            if prior_preservation:
+                rows = torch.arange(B, device=w.device) + data_sharding(
+                    mesh, B_all, mesh_axis).start
+                w = torch.where((rows < B_all // 2)[:, None, None, None], w,
+                                torch.ones_like(w))
+            err = err * w
+        # per-sample means, gathered: the loss of the whole batch on
+        # every rank (each sample holds as many elements)
+        per = gather(err.mean(dim=(1, 2, 3)), mesh, mesh_axis, n=B_all)
+        if prior_preservation:
+            half = B_all // 2
+            return per[:half].mean() + prior_loss_weight * per[half:].mean()
+        return per.mean()
 
     def step(adapters, optimizer, batch, generator=None, draws=None):
         if draws is None:
@@ -268,6 +289,7 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(adapters, batch, draws)
         loss.backward()
+        average_grads(adapters.values(), mesh)
         optimizer.step()
         return {"loss": loss.detach()}
 
@@ -412,17 +434,26 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
                class_dataset: Optional[DreamBoothInpaintDataset] = None,
                prior_loss_weight: float = 1.0, text_tower=None,
                tokenize: Optional[Callable] = None, text_rank: int = 4,
-               resume_from: Optional[str] = None, device=None):
+               resume_from: Optional[str] = None, device=None, mesh=None):
     """The LoRA fine-tune loop on ``device`` (default: the UNet's): writes
     ``lora_{step:06d}.safetensors`` and a resumable checkpoint every
     checkpointing_steps and at the end. encode_prompt(captions[, rng]) →
     [B, L, D] (it gets the checkpointed host rng when it takes ``rng``).
     class_dataset: prior preservation. text_tower / tokenize: the text
     module and captions → ids, for rank-4 text adapters. resume_from:
-    'latest' or a checkpoint dir. Returns the adapters."""
+    'latest' or a checkpoint dir. mesh: a DeviceMesh; under torchrun
+    with more than one rank, one over every rank is made: the batch is
+    split over the ranks (each draws the global batch from the same host
+    rng and keeps its rows), and rank 0 alone logs and writes. Returns the
+    adapters."""
     import inspect
 
     os.makedirs(output_dir, exist_ok=True)
+    lead = process_rank() == 0
+    if mesh is None and world_size() > 1:
+        mesh = make_mesh()
+        if lead:
+            print(f"[lora] data-parallel over {world_size()} devices")
     if text_tower is not None and tokenize is None:
         raise ValueError("text_tower requires a tokenize fn "
                          "(captions → input_ids)")
@@ -433,9 +464,11 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
         mods, rank=rank, lr=lr, masked_loss=masked_loss,
         prior_preservation=class_dataset is not None,
         prior_loss_weight=prior_loss_weight, text_tower=text_tower,
-        text_rank=text_rank)
+        text_rank=text_rank, mesh=mesh)
     adapters, opt = init_fn(torch.Generator(device=device).manual_seed(seed))
-    print(f"[lora] training {lora_param_count(adapters):,} adapter params")
+    if lead:
+        print(f"[lora] training {lora_param_count(adapters):,} adapter "
+              "params")
 
     host_rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -473,17 +506,18 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
             batch["embeds"] = dev(encode_prompt(captions, rng=host_rng)
                                   if accepts_rng else encode_prompt(captions))
         m = step(adapters, opt, batch, gen)
-        if i % log_every == 0:
+        if i % log_every == 0 and lead:
             loss = float(m["loss"])
             print(f"[lora {i}/{steps}] loss={loss:.4f} "
                   f"({log_every / (time.perf_counter() - t0):.1f} it/s)",
                   flush=True)
             t0 = time.perf_counter()
-        if i % checkpointing_steps == 0 or i == steps:
+        if (i % checkpointing_steps == 0 or i == steps) and lead:
             p = os.path.join(output_dir, f"lora_{i:06d}.safetensors")
             save_lora(adapters, p)
             save_lora_checkpoint(output_dir, i, adapters, opt, gen, host_rng)
             print(f"[lora] saved {p} (+ checkpoint-{i})")
-    print(f"[lora] {steps - start} steps in "
-          f"{time.perf_counter() - t_start:.3f} s")
+    if lead:
+        print(f"[lora] {steps - start} steps in "
+              f"{time.perf_counter() - t_start:.3f} s")
     return adapters

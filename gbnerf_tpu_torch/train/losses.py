@@ -14,6 +14,8 @@ from typing import Iterable, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw
+
 
 def cp_tv_loss(fields: Iterable[nn.Module]) -> torch.Tensor:
     """Total-variation + L1 regulariser on CP-grid factor lines.
@@ -58,15 +60,15 @@ def sigma_loss(field_fn, rays_o, rays_d, viewdirs, near, depths, *,
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
         if u is None:
-            u = torch.rand(z.shape, generator=generator, dtype=dt, device=dev)
+            u = draw("rand", z.shape, generator, dt, dev)
         z = lower + (upper - lower) * u
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
     raw = field_fn(pts, viewdirs)
     sig = raw[..., 3]
     if raw_noise_std > 0.0:
         if noise is None:
-            noise = torch.randn(sig.shape, generator=generator,
-                                dtype=sig.dtype, device=sig.device)
+            noise = draw("randn", sig.shape, generator, sig.dtype,
+                         sig.device)
         sig = sig + noise * raw_noise_std
     sig = torch.relu(sig)
     # −exp(σ_N) / (Σ exp(σ) + 1), evaluated shifted by the row max m:

@@ -6,8 +6,10 @@ non-NDC branches and the frozen-σ field, ``alpha=``),
 ``make_train_step_stage1``, and stage 2: ``Stage2Batch``,
 ``select_stage2_view``, ``_masked_rays`` and ``make_train_step_stage2``
 with the LPIPS patch loss (``lpips_fn``), ``gradient_clip`` (pwclip) and
-the collaborative neighbour views. Not ported yet: the data mesh
-(``mesh=``).
+the collaborative neighbour views; both steps over a data mesh (``mesh=``,
+parallel/mesh.py): every rank draws the whole batch, renders its rows and
+gathers the per-ray maps, so that the losses are computed whole on every
+rank, and the gradients are averaged before Adam.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from ..core.rays import ndc_rays
 from ..core.render import RenderOutputs, render_rays, render_rays_blocked
 from ..data.rays_bank import sample_batch
 from ..guidance.stable import _resize
+from ..parallel.mesh import (DeviceMesh, average_grads, data_sharding,
+                             gather, global_rows)
 from ..utils.metrics import img2mse, mse2psnr, weighted_mse
 from .losses import (cp_tv_loss, draw_patch_idx, extract_patches, pwclip,
                      sigma_loss)
@@ -77,6 +81,45 @@ def make_render_fn(cfg: Config, coarse_model, fine_model, near: float,
     return render
 
 
+# the per-ray maps a sharded render gathers back (the losses, the normal
+# map and the colla views read no per-sample output)
+_GATHERED = ("rgb", "disp", "acc", "depth", "rgb0", "disp0", "acc0",
+             "depth0")
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh "
+                        f"(parallel/mesh.py::make_mesh), got {type(mesh)}")
+
+
+def shard_render(render, mesh: Optional[DeviceMesh], axis="data"):
+    """``render`` over this rank's rows of each ray batch, with the draws
+    of the whole batch (``global_rows``), and the per-ray maps of
+    ``_GATHERED`` gathered back: every rank gets the maps one process
+    computes (the per-sample weights, z_vals and alpha are None). The
+    render itself without a mesh."""
+    if mesh is None:
+        return render
+
+    def sharded(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                train: bool) -> RenderOutputs:
+        shard = data_sharding(mesh, rays_o.shape[0], axis)
+        with global_rows(shard):
+            out = render(shard.take(rays_o), shard.take(rays_d), generator,
+                         train=train)
+        keys = [k for k in _GATHERED if getattr(out, k) is not None]
+        cols = [getattr(out, k).reshape(shard.rows, -1) for k in keys]
+        full = gather(torch.cat(cols, dim=1), mesh, axis, n=shard.n)
+        parts = torch.split(full, [c.shape[1] for c in cols], dim=1)
+        maps = {k: (p if c.shape[1] > 1 else p[:, 0]).to(c.dtype)
+                for k, p, c in zip(keys, parts, cols)}
+        return RenderOutputs(weights=None, z_vals=None, alpha=None, **maps)
+
+    return sharded
+
+
 def make_image_renderer(render_fn, *, block: int = 8192):
     """Full-image renderer: (rays_o [H,W,3], rays_d) → {rgb, disp, depth,
     acc} maps [H, W, ...], rendered block by block without gradients."""
@@ -113,7 +156,8 @@ def _full_view_rays(H: int, W: int, focal: float, pose: torch.Tensor):
 
 def _sigma_depth_loss(cfg: Config, coarse_model, fine_model, dep, near,
                       generator: Optional[torch.Generator] = None,
-                      alpha=None) -> torch.Tensor:
+                      alpha=None, mesh: Optional[DeviceMesh] = None,
+                      axis="data") -> torch.Tensor:
     """DS-NeRF σ-likelihood on COLMAP-depth rays, on the fine field (the
     reference's SigmaLoss, built at run.py:2122-2124 on the fine network).
 
@@ -123,24 +167,29 @@ def _sigma_depth_loss(cfg: Config, coarse_model, fine_model, dep, near,
     σ-only (K2 forward and K5 backward on the card): σ and its gradients
     are those of the full call, bit for bit, without the colour head. With
     a frozen alpha field, σ is the alpha field's and the term carries no
-    gradient, as in the JAX package.
+    gradient, as in the JAX package. With a mesh each rank scores its rows
+    (the draws of the whole batch) and the per-ray terms are gathered.
     """
     r = cfg.render
     fn = make_field_fn(fine_model if fine_model is not None else coarse_model)
     if alpha is not None:
         fn = make_frozen_sigma_field_fn(fn, make_field_fn(alpha))
-    viewdirs = dep["d"] / torch.linalg.norm(dep["d"], dim=-1, keepdim=True)
-    per_ray = sigma_loss(lambda pts, vd: fn(pts, vd, sigma_only=True),
-                         dep["o"], dep["d"], viewdirs, near,
-                         dep["target"][:, 0], N_samples=r.N_samples,
-                         perturb=r.perturb > 0.0,
-                         raw_noise_std=r.raw_noise_std, generator=generator)
-    return torch.mean(per_ray)
+    shard = data_sharding(mesh, dep["o"].shape[0], axis)
+    o, d = shard.take(dep["o"]), shard.take(dep["d"])
+    viewdirs = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    with global_rows(shard):
+        per_ray = sigma_loss(lambda pts, vd: fn(pts, vd, sigma_only=True),
+                             o, d, viewdirs, near,
+                             shard.take(dep["target"][:, 0]),
+                             N_samples=r.N_samples, perturb=r.perturb > 0.0,
+                             raw_noise_std=r.raw_noise_std,
+                             generator=generator)
+    return torch.mean(gather(per_ray, mesh, axis, n=shard.n))
 
 
 def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
                            near: float, far: float, alpha=None, mesh=None,
-                           hwf=None):
+                           mesh_axis="data", hwf=None):
     """DS-NeRF batched training step (the reference's first_stage path).
 
     step(state, banks, generator=None, idx=None) → (state, metrics):
@@ -151,15 +200,19 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
     (loss, metrics) is exposed for the loss tests, as in the JAX package.
     hwf: training intrinsics, required only for the NDC path. alpha: a
     frozen field that supplies σ (``make_render_fn``).
+    mesh: a DeviceMesh (parallel/mesh.py): the ray batches are split over
+    ``mesh_axis`` (``shard_render``), the parameters stay replicated and
+    the gradients are averaged over the ranks before Adam; the same step
+    runs in one process or N.
     """
-    if mesh is not None:
-        raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
-                                  "the port trains on one device")
-    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf,
-                            alpha=alpha)
+    _check_mesh(mesh)
+    render = shard_render(make_render_fn(cfg, coarse_model, fine_model, near,
+                                         far, hwf=hwf, alpha=alpha),
+                          mesh, mesh_axis)
     schedule = lr_schedule(cfg)
     t, d = cfg.train, cfg.data
     fields = [m for m in (coarse_model, fine_model) if m is not None]
+    params = [p for f in fields for p in f.parameters()]
 
     def loss_fn(batches: Dict[str, Optional[Dict[str, torch.Tensor]]],
                 generator: Optional[torch.Generator] = None):
@@ -191,7 +244,8 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
             loss = loss + d.sdepth_lambda * col_loss
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator, alpha)
+                                             dep, near, generator, alpha,
+                                             mesh, mesh_axis)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         if t.tv_loss_weight > 0:
@@ -215,6 +269,7 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batches, generator)
         loss.backward()
+        average_grads(params, mesh)
         adam_step(state, schedule)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
@@ -341,7 +396,8 @@ def _colla_views(render, batch: Stage2Batch, H_r: int, W_r: int,
 def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                            near: float, far: float, hwf, *,
                            guidance_fn: Optional[GuidanceFn] = None,
-                           lpips_fn=None, alpha=None, mesh=None):
+                           lpips_fn=None, alpha=None, mesh=None,
+                           mesh_axis="data"):
     """Masked-inpainting training step (the reference's second stage).
 
     step(state, scene_dev, banks, generator=None, idx=None, draws=None) →
@@ -366,19 +422,28 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
     (``extract_patches``'s idx).
     hwf: (H, W, focal) of the training views. alpha: a frozen field that
     supplies σ (``make_render_fn``).
+    mesh: a DeviceMesh (parallel/mesh.py). Every render's rays (the
+    streams, the masked pixels' coords and valid flags, the normal map's
+    and the colla views' rays) are split over ``mesh_axis`` and their maps
+    gathered (``shard_render``): the composite, the normal map, the
+    guidance and LPIPS terms are computed whole on every rank with the
+    same draws, as the JAX package keeps the guidance images replicated;
+    the gradients are averaged over the ranks before Adam. A (data, model)
+    mesh also carries the SD towers' tensor parallelism
+    (parallel/tp.py), which ``guidance_fn``'s modules hold.
 
     Divergence kept from the JAX package: the reference's shipped stage-2
     loop never calls backward; here the full loss is differentiated.
     """
-    if mesh is not None:
-        raise NotImplementedError("the data mesh (mesh=) is not ported yet: "
-                                  "the port trains on one device")
+    _check_mesh(mesh)
     t, d, g = cfg.train, cfg.data, cfg.guidance
     n_colla = 4 if (g.is_colla_guidance and guidance_fn is not None) else 0
-    render = make_render_fn(cfg, coarse_model, fine_model, near, far, hwf=hwf,
-                            alpha=alpha)
+    render = shard_render(make_render_fn(cfg, coarse_model, fine_model, near,
+                                         far, hwf=hwf, alpha=alpha),
+                          mesh, mesh_axis)
     schedule = lr_schedule(cfg)
     fields = [m for m in (coarse_model, fine_model) if m is not None]
+    params = [p for f in fields for p in f.parameters()]
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     nrf = g.normalmap_render_factor
     H_r, W_r, focal_r = H // nrf, W // nrf, focal / nrf
@@ -409,7 +474,8 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 out_d.depth, dep["target"][:, 0], dep["target"][:, 1])
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator, alpha)
+                                             dep, near, generator, alpha,
+                                             mesh, mesh_axis)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         sds_loss = lpips_loss = zero
@@ -468,6 +534,7 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, state.step, generator, draws)
         loss.backward()
+        average_grads(params, mesh)
         adam_step(state, schedule)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()

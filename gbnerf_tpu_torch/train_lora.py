@@ -13,6 +13,12 @@ runs); ``--sd_prior_ckpt`` fine-tunes on a prior of
 own embedding triple unless ``--caption_dir``); the adapters go to
 stage 2 through ``guidance.sd_lora_ckpt``. Without ``--sd_weights_dir``
 the full-size stack has random weights.
+
+Under ``torchrun`` the batch is split over the ranks (data parallel, one
+rank a device; ``--dist_backend`` as for gbnerf_tpu_torch.run):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m gbnerf_tpu_torch.train_lora --instance_data_dir D ...
 """
 from __future__ import annotations
 
@@ -54,6 +60,10 @@ def parse_args(argv=None):
                          "512 full; set to the prior's training res)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--dist_backend", default=None,
+                    help="under torchrun: nccl (default on the card) or "
+                         "gloo (the default on the CPU; on the card it "
+                         "lets ranks share a card)")
     args = ap.parse_args(argv)
     if args.with_prior_preservation and not (args.class_data_dir
                                              and args.class_prompt):
@@ -83,7 +93,11 @@ def main(argv=None):
     from .train.lora_trainer import (DreamBoothInpaintDataset,
                                      generate_class_images, train_lora)
 
-    device = device_from_flag(args.device)
+    from .parallel.mesh import init_distributed, world_size
+    from .parallel.mesh import rank as process_rank
+
+    device = init_distributed(device_from_flag(args.device),
+                              args.dist_backend)
     gcfg = GuidanceConfig(sd_weights_dir=args.sd_weights_dir)
     kw = {}
     if args.tiny:
@@ -139,15 +153,19 @@ def main(argv=None):
             embeds3 = mods.embeds_rgb
         else:
             embeds3 = encode_prompt(["", "", args.class_prompt])
-        generate_class_images(
-            mods, embeds3, args.class_data_dir, args.num_class_images,
-            torch.Generator(device=device).manual_seed(args.seed + 99),
-            num_inference_steps=args.sample_steps, resolution=resolution)
+        if process_rank() == 0:
+            generate_class_images(
+                mods, embeds3, args.class_data_dir, args.num_class_images,
+                torch.Generator(device=device).manual_seed(args.seed + 99),
+                num_inference_steps=args.sample_steps,
+                resolution=resolution)
+        if world_size() > 1:
+            torch.distributed.barrier()
         class_dataset = DreamBoothInpaintDataset(
             args.class_data_dir, resolution=resolution,
             default_caption=args.class_prompt)
 
-    return train_lora(
+    adapters = train_lora(
         mods, dataset, encode_prompt, steps=args.max_train_steps,
         batch_size=args.train_batch_size, rank=args.rank,
         lr=args.learning_rate, seed=args.seed, output_dir=args.output_dir,
@@ -158,6 +176,9 @@ def main(argv=None):
         text_tower=text if args.train_text_encoder else None,
         tokenize=tokenize if args.train_text_encoder else None,
         resume_from=args.resume_from_checkpoint, device=device)
+    if world_size() > 1:
+        torch.distributed.destroy_process_group()
+    return adapters
 
 
 if __name__ == "__main__":

@@ -383,3 +383,29 @@ def test_create_params_is_seeded_and_on_the_device():
     assert all(torch.equal(a, b) for a, b in zip(hc.state_dict().values(),
                                                  hf.state_dict().values()))
     assert float(hc.hash_table.detach().abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("bound", [8.0, 3.0, 1.5])
+def test_cp_positions_are_the_jax_fields_quotient(rng, bound):
+    """positions() (the CP field's x01) on the CPU is the JAX package's
+    f32 (pts + bound) / (2·bound), bit for bit."""
+    pts = (rng.standard_normal((4096, 3)) * bound).astype(np.float32)
+    ref = np.asarray((jnp.asarray(pts) + bound) / (2.0 * bound))
+    got = tcp.positions(torch.from_numpy(pts), bound).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cp_positions_on_the_card_equal_the_cpus():
+    """The CP field's x01 on the card is the CPU's bit for bit at the
+    shipped bound (8: 2·bound a power of two) and at bounds where the
+    reciprocal of 2·bound is inexact (3, 1.5): the divisor is a 0-d device
+    tensor, not a Python scalar (which CUDA turns into a product with the
+    reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA's division by a scalar)")
+    g = torch.Generator().manual_seed(0)
+    pts = torch.randn(1 << 16, 3, generator=g) * 4
+    for bound in (8.0, 3.0, 1.5):
+        assert torch.equal(tcp.positions(pts.cuda(), bound).cpu(),
+                           tcp.positions(pts, bound)), bound

@@ -233,16 +233,28 @@ def test_train_stage2_without_weights_warns_and_trains(tmp_path, scene,
     assert out["history"][-1][1]["sds_loss"] == 0.0
 
 
-def test_stage2_unported_options_raise(scene):
-    """Only the data mesh is refused; the frozen-σ field and colla build
-    their steps (held against the JAX package in
+def test_stage2_unported_options_raise(scene, tmp_path):
+    """A mesh builds the step (tests/test_torch_parallel.py runs it on N
+    ranks) and a mesh that is not a DeviceMesh is refused; the frozen-σ
+    field and colla build their steps (held against the JAX package in
     tests/test_torch_frozen_sigma.py and tests/test_torch_colla.py)."""
+    import torch.distributed as dist
+
+    from gbnerf_tpu_torch.parallel.mesh import make_mesh
+
     scene, _ = scene
     cfg = _cfg()
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
     args = (cfg, tc, tf, scene.near, scene.far, scene.hwf)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step_stage2(*args, mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        assert callable(tstep.make_train_step_stage2(*args,
+                                                     mesh=make_mesh()))
+    finally:
+        dist.destroy_process_group()
     assert callable(tstep.make_train_step_stage2(*args, alpha=tf))
     c = cfg.replace(guidance=dataclasses.replace(cfg.guidance,
                                                  is_colla_guidance=True))

@@ -15,7 +15,13 @@ against the JAX package's tools where both compute something:
 - ablation_lpips against tools/ablation_lpips.py on one run directory
   with the same random VGG npz: each arm's distances to rtol 1e-4 (the
   LPIPS tolerance of tests/test_torch_lpips.py) and atol 1e-5 (the JSON
-  keeps five decimals).
+  keeps five decimals);
+- comp_caption: the caption files byte-equal to tools/comp_caption.py's;
+- make_crops: the crop pixels equal tools/make_crops.py's (PIL); the
+  label band is the port's own bitmap font (checked for ink only);
+- run_spmd_demo: the two configs equal tools/run_spmd_demo.py's; the
+  micro run on two CPU ranks (slow: minutes of full-width CP renders);
+- dryrun_multichip on two CPU ranks: every "ok" line of a two-rank run.
 """
 import importlib.util
 import json
@@ -243,3 +249,109 @@ def test_ablation_lpips_matches_the_jax_tool(scene, tmp_path, vgg_npz,
                                        rtol=1e-4, atol=1e-5,
                                        err_msg=f"{arm} {k}")
     assert got["results"]["s1"]["full"] > got["results"]["nog"]["full"]
+
+
+def _captions(d, texts):
+    d.mkdir()
+    for i, t in enumerate(texts):
+        (d / f"{i:03d}.txt").write_text(t)
+    (d / "notes.md").write_text("skip me")
+
+
+def test_comp_caption_writes_the_jax_tools_bytes(tmp_path, monkeypatch):
+    from gbnerf_tpu_torch.tools import comp_caption
+
+    texts = ["a stone bench", "RGB image, already tagged", "  padded \n",
+             "ünïcode caption"]
+    _captions(tmp_path / "j", texts)
+    _captions(tmp_path / "t", texts)
+    jtool = _tool("comp_caption")
+    monkeypatch.setattr(sys, "argv", ["comp_caption", str(tmp_path / "j"),
+                                      "--prefix", "RGB image"])
+    jtool.main()
+    assert comp_caption.main([str(tmp_path / "t"), "--prefix",
+                              "RGB image"]) == 3
+    for f in sorted(os.listdir(tmp_path / "j")):
+        assert ((tmp_path / "t" / f).read_bytes()
+                == (tmp_path / "j" / f).read_bytes()), f
+
+
+def _ablation_dir(root):
+    rng = np.random.default_rng(3)
+    gt = root / "scene" / "images_4" / "test_gt"
+    gt.mkdir(parents=True)
+    H, W = 30, 40
+    for v, (y0, x0, h, w) in enumerate(((5, 6, 8, 9), (9, 12, 12, 15))):
+        m = np.zeros((H, W), np.uint8)
+        m[y0:y0 + h, x0:x0 + w] = 255
+        write_png(str(gt / f"mask_{v:03d}.png"), m)
+        write_png(str(gt / f"img_{v:03d}.png"),
+                  rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        for arm, it in (("s1", 10), ("nog", 20)):
+            d = root / "logs" / arm / f"eval_images_{it}" / "rgb"
+            d.mkdir(parents=True, exist_ok=True)
+            write_png(str(d / f"{v:03d}.png"),
+                      rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    # an earlier eval the tools must pass over
+    d = root / "logs" / "s1" / "eval_images_5" / "rgb"
+    d.mkdir(parents=True)
+    write_png(str(d / "000.png"), np.zeros((H, W, 3), np.uint8))
+    write_png(str(d / "001.png"), np.zeros((H, W, 3), np.uint8))
+
+
+def test_make_crops_matches_the_jax_tools_crops(tmp_path, monkeypatch):
+    from gbnerf_tpu_torch.tools import make_crops
+
+    _ablation_dir(tmp_path)
+    jtool = _tool("make_crops")
+    jpng, tpng = tmp_path / "j.png", tmp_path / "t.png"
+    monkeypatch.setattr(sys, "argv", ["make_crops", str(tmp_path), str(jpng),
+                                      "--arms", "s1,nog", "--pad", "3",
+                                      "--scale", "3"])
+    jtool.main()
+    make_crops.main([str(tmp_path), str(tpng), "--arms", "s1,nog", "--pad",
+                     "3", "--scale", "3"])
+    j, t = read_png(str(jpng)), read_png(str(tpng))
+    assert j.shape == t.shape
+    label_h = 16
+    np.testing.assert_array_equal(t[label_h:], j[label_h:])
+    # each tile's label band carries ink in both
+    tile = (t.shape[1] + 2) // 3
+    for i in range(3):
+        for img in (j, t):
+            band = img[:label_h, i * tile:(i + 1) * tile - 2]
+            assert (band < 128).any(), i
+
+
+def test_spmd_demo_twin_writes_the_jax_tools_configs(tmp_path):
+    from gbnerf_tpu_torch.tools import run_spmd_demo
+
+    jtool = _tool("run_spmd_demo")
+    kw = dict(scene="/s", logs="/l", n_rand=128, tp=2)
+    got = run_spmd_demo.write_configs(str(tmp_path), "/s", "/l", iters1=8,
+                                      iters2=4, n_rand=128, tp=2)
+    assert open(got[0]).read() == jtool.CFG_S1.format(iters1=8, **kw)
+    assert open(got[1]).read() == jtool.CFG_S2.format(iters2_total=12, **kw)
+
+
+@pytest.mark.slow
+def test_spmd_demo_twin_micro_on_two_cpu_ranks(tmp_path):
+    """Slow: the stages render the held-out views at full width on the
+    CPU (minutes); the card runs it in chip_smoke.py's parallel phase."""
+    r = _run("run_spmd_demo", tmp_path / "demo", "--nproc", "2", "--tp",
+             "2", "--iters1", "8", "--iters2", "4", "--n_rand", "128",
+             "--device", "cpu")
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    rep = json.load(open(tmp_path / "demo" / "spmd_demo.json"))
+    assert rep["devices"] == 2 and rep["tp"] == 2
+    assert rep["s1"]["iter"] == 8 and rep["s2"]["iter"] == 12
+
+
+def test_dryrun_multichip_on_two_cpu_ranks():
+    r = _run("dryrun_multichip", "2", "--device", "cpu")
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    for head in ("dryrun_multichip(2): ok", "dryrun_multichip stage2: ok",
+                 "dryrun_multichip tp-guidance: ok",
+                 "dryrun_multichip lora-dp: ok"):
+        assert r.stdout.count(head) == 1, (head, r.stdout)
+    assert "grad all-reduce present" in r.stdout

@@ -551,12 +551,25 @@ def test_train_nan_restarts_then_aborts(tmp_path):
 
 def test_unported_paths_raise(tmp_path):
     """Stage 2 trains now, with LPIPS (tests/test_torch_stage2.py), the
-    frozen-σ field runs (tests/test_torch_frozen_sigma.py), and every
-    loader reads (tests/test_torch_blender.py); the step's mesh does not."""
+    frozen-σ field runs (tests/test_torch_frozen_sigma.py), every loader
+    reads (tests/test_torch_blender.py), and a mesh builds the step
+    (tests/test_torch_parallel.py runs it on N ranks); a mesh that is not
+    a DeviceMesh is refused."""
+    import torch.distributed as dist
+
+    from gbnerf_tpu_torch.parallel.mesh import make_mesh
+
     cfg = _loop_cfg(tmp_path)
     st, tc, tf = tstate.create_train_state(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0, mesh=object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        assert callable(tstep.make_train_step_stage1(
+            cfg, tc, tf, 1.0, 4.0, mesh=make_mesh()))
+    finally:
+        dist.destroy_process_group()
     assert callable(tstep.make_train_step_stage1(cfg, tc, tf, 1.0, 4.0,
                                                  alpha=tf))
 
