@@ -18,12 +18,14 @@
    every cotangent; two calls on the same inputs must be bit-equal); and
    K1/K2/K4/K5 at other widths (F 16, 24 and the widest they take, 160).
 4. Drives the eval render path at the full width of configs/spinnerf_scene.txt
-   (CP fields 17…257 at rank 16, 64 + 64 samples, lindisp, white background)
-   with seeded random weights: bench.py's workload, 16384 rays, for rays/s,
-   and three full 189 × 252 views through render_pose_path. It checks that
-   every map is finite with acc in [0, 1], that every kernel of the path was
-   launched by that run, and that the path agrees with the plain path (the
-   same fields on the CPU) on a subset of rays.
+   (CP fields 17…257 at rank 16, coarse and fine alike, 64 + 64 samples,
+   lindisp, white background) with seeded random weights: 16384 rays for
+   rays/s (the "render" line; not bench.py's workload, whose coarse field
+   is smaller: that is the bench twin's, 21), and three full 189 × 252
+   views through render_pose_path. It checks that every map is finite
+   with acc in [0, 1], that every kernel of the path was launched by that
+   run, and that the path agrees with the plain path (the same fields on
+   the CPU) on a subset of rays.
 5. Drives stage-1 training through train() at the same full width
    (first_stage, N_rand 1024 for each of the three ray streams, Adam at
    lrate 3e-3, raw_noise_std 1, perturb on) on an in-memory scene of
@@ -132,9 +134,9 @@
    kernel; ms per step, the held-out PSNR), one step on the card against
    the CPU in f32 and in float64 (loss to 1e-3, every gradient, the
    table's too, to cosine 0.999), one full-width step twice from one
-   state (bit-equal: the gather's backward sums in sorted order), bench's
-   16384-ray render (rays/s), HASH_STAGE2_STEPS stage-2 steps from its checkpoint with the
-   full-size SD stack of 8 (K3 and K7 launched, sds_loss nonzero); and
+   state (bit-equal: the gather's backward sums in sorted order), the
+   render phase's 16384 rays (rays/s), HASH_STAGE2_STEPS stage-2 steps
+   from its checkpoint with the full-size SD stack of 8 (K3 and K7 launched, sds_loss nonzero); and
    the native host library (data/native.py, built from native/csrc into
    build/) available, its searchsorted equal to numpy's.
 20. The parallel phase, torchrun on the card (tools/parallel_check.py's
@@ -152,6 +154,19 @@
    most 0.6 of the whole; (d) tools/run_spmd_demo.py's twin at its micro
    size. Also, with the kernel checks, the CP field's x01 on the card
    against the CPU, bit for bit.
+21. The bench twin, right after the render phase: bench.py's workload
+   (its proposal-style coarse field (17, 33, 65) at rank 8, the Config()
+   defaults, 64 + 64 samples) through gbnerf_tpu_torch/tools/bench.py's
+   functions, in-process, at 16384 rays × 128 renders a loop, best of 3
+   by CUDA events; its JSON line (bench.py's keys); K1, K2 and K3
+   launched by one render; one render against the plain path of the same
+   fields on the card (the kernels off) at the map tolerances.
+22. The weights phase: the port's fake-checkpoint twin writes a
+   full-width SD1.5-inpainting checkpoint (≈ 1.07 G f32 values, ≈ 4.3 GB)
+   into a temporary directory, check_weights loads it in bf16 (strict
+   keys, every parameter overwritten) and runs a 2-step DDIM inpaint at
+   512² (K7 at the UNet's and the VAE's shapes); write, load and DDIM
+   seconds; the directory is deleted.
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -161,9 +176,11 @@ kernel's launches on the main paths, error, times and bound.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -188,7 +205,9 @@ FIELD_RTOL, FIELD_ATOL_FRAC = 3e-2, 5e-3
 MAP_ATOL = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2, "disp": 2e-2}
 ACC_SLACK = 1e-5        # Σ weights may pass 1 by f32 rounding
 
-BENCH_RAYS, NEAR, FAR = 16384, 1.2, 5.3      # bench.py's workload
+# the render phase: 16384 rays of the shipped config's fields (bench.py's
+# ray count, near and far; not its fields: the bench twin's phase runs those)
+BENCH_RAYS, NEAR, FAR = 16384, 1.2, 5.3
 VIEW_H, VIEW_W, N_VIEWS = 189, 252, 3         # factor-4 SPIn-NeRF views
 SUBSET_RAYS = 256
 N_RAND = 1024                # rays per stream per stage-1 step
@@ -357,10 +376,14 @@ LORA_MERGE_COS = 0.999
 # bf16 where the CPU does not, which moves ε by ≈ 1e-3 relative: the loss
 # to 1e-3 relative, every adapter's gradient to cosine 0.999
 LORA_TINY_LOSS_RTOL, LORA_TINY_GRAD_COS = 1e-3, 0.999
-# the hash phase: bench's render in groups, then stage-2 steps from its
-# stage-1 checkpoint
+# the hash phase: the render phase's 16384 rays in groups, then stage-2
+# steps from its stage-1 checkpoint
 HASH_BENCH_GROUPS, HASH_BENCH_REPS = 5, 3
 HASH_STAGE2_STEPS, HASH_STAGE2_PRINT = 20, 5
+# the bench twin (gbnerf_tpu_torch/tools/bench.py) at bench.py's workload:
+# TWIN_RAYS rays, TWIN_REPS renders a loop; the weights phase writes the
+# fake SD checkpoint at WEIGHTS_SD's widths ("full": SD1.5-inpainting)
+TWIN_RAYS, TWIN_REPS, WEIGHTS_SD = 16384, 128, "full"
 # the profiling entry points' reps in this script
 PROF_FIELD_REPS, PROF_TRAIN_REPS, PROF_GUIDANCE_REPS = 5, 5, 3
 # Peaks of an H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s, bf16
@@ -2722,7 +2745,7 @@ def hash_phase(cfg, dev, scene, depth_gts, workdir: Path, ro, rd,
     topology) at full width, f32, on the stage-1 phase's scene: stage 1
     through train() (TRAIN_STEPS steps, checkpoint save and restore, one
     eval render), the card's step against the CPU's, one step twice from
-    one state (bit-equal), bench's 16384-ray render, HASH_STAGE2_STEPS
+    one state (bit-equal), the render phase's 16384 rays, HASH_STAGE2_STEPS
     stage-2 steps from its checkpoint with the full-size SD stack, and the
     native host library. The hash encode is plain PyTorch (as in the JAX
     package); the paths' kernels are K3 (every render) and K7 (stage 2),
@@ -2759,7 +2782,7 @@ def hash_phase(cfg, dev, scene, depth_gts, workdir: Path, ro, rd,
                   f64=True)
     stage1_step_twice(hcfg, dev, state, scene, depth_gts, kernel="merge128",
                       label="hash stage1")
-    # ---- bench's workload with the trained hash fields (its own counts)
+    # ---- the render phase's rays with the trained hash fields (own counts)
     render = make_render_fn(hcfg, state.coarse, state.fine, near=NEAR,
                             far=FAR)
     torch.cuda.reset_peak_memory_stats()
@@ -2903,6 +2926,113 @@ def _sub_banks(banks, n: int, seed: int) -> dict:
         keep = torch.from_numpy(rng.choice(size, min(n, size), replace=False))
         out[name] = {k: v[keep].contiguous() for k, v in st.items()}
     return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The render's kernels off on the card: K1/K2 through ``field_plain``
+    and K3 through ``merge128_plain``, the ops' plain versions, on the
+    same CUDA tensors (no launch counted)."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+    from gbnerf_tpu_torch.ops import resample as rs
+
+    saved = ff._launch, rs._launch_merge
+
+    def field(x01, sh, ulines, Ws, *, sigma_only):
+        return ff.field_plain(x01, sh, ulines, Ws, sigma_only=sigma_only)
+
+    ff._launch, rs._launch_merge = field, rs.merge128_plain
+    try:
+        yield
+    finally:
+        ff._launch, rs._launch_merge = saved
+
+
+def bench_twin_phase(dev) -> dict:
+    """bench.py's workload through the port's benchmark
+    (gbnerf_tpu_torch/tools/bench.py), its functions called in-process:
+    TWIN_REPS renders of TWIN_RAYS rays a loop, best of 3 by CUDA events;
+    its JSON line; the K1, K2 and K3 launches of one render (each > 0);
+    one render against the plain path of the same fields on the card
+    (the kernels off), at MAP_ATOL."""
+    from gbnerf_tpu_torch.tools import bench
+
+    _, render, coarse, fine = bench.build(None, dev)
+    ro, rd = bench.rays(TWIN_RAYS, torch.Generator().manual_seed(1), dev)
+    zero_launches()
+    one = bench.one_render_launches(render, ro, rd)
+    res = bench.run(render, ro, rd, TWIN_REPS)
+    launches = all_launches()
+    print(f"bench twin: {TWIN_RAYS} rays x {TWIN_REPS} renders a loop, "
+          f"bench.py's fields (coarse {coarse.resolutions} r{coarse.rank}, "
+          f"fine {fine.resolutions} r{fine.rank}): "
+          f"{res['ms_per_render']:.4f} ms per render, loops "
+          f"{', '.join(f'{s:.4f}' for s in res['loop_s'])} s (CUDA events, "
+          f"best of {len(res['loop_s'])}), {res['rays_per_s']:.1f} rays/s; "
+          f"launches of one render {json.dumps(one)} | {nvidia_smi_line()}")
+    print(json.dumps(bench.result_line(res)))
+    idle = [k for k, v in one.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"bench twin: one render launched no {idle}")
+    if not (math.isfinite(res["rays_per_s"])
+            and math.isfinite(res["checksum"])):
+        raise AssertionError(f"bench twin: not finite {res}")
+    with torch.no_grad():
+        got = render(ro, rd, train=False)
+        with plain_kernels():
+            ref = render(ro, rd, train=False)
+    errs = {}
+    for k, atol in MAP_ATOL.items():
+        g, r = getattr(got, k), getattr(ref, k)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"bench twin {k} not finite")
+        d = (g - r).abs()
+        errs[k] = {"max_abs_err": float(d.max()),
+                   "mean_abs_err": float(d.mean()), "atol": atol}
+    print(f"bench twin vs plain ({TWIN_RAYS} rays, the kernels off on the "
+          f"card): {json.dumps(errs)}")
+    for k, e in errs.items():
+        if e["max_abs_err"] > e["atol"]:
+            raise AssertionError(f"bench twin {k} differs from the plain "
+                                 f"path by {e['max_abs_err']} > {e['atol']}")
+    return {"launches": launches}
+
+
+def weights_phase(dev, workdir: Path) -> dict:
+    """The real-weights check at WEIGHTS_SD's widths: the port's fake
+    checkpoint twin writes a diffusers-layout SD1.5-inpainting checkpoint
+    (≈ 1.07 G f32 values) into workdir, then check_weights' main loads it
+    in bf16 (strict keys, every parameter overwritten) and runs a 2-step
+    DDIM inpaint at 512² through K7; its failure exits (never caught).
+    The directory is deleted afterwards."""
+    import shutil
+
+    from gbnerf_tpu_torch.ops import attention as at
+    from gbnerf_tpu_torch.tools import check_weights, make_fake_sd_ckpt
+
+    tiny = WEIGHTS_SD == "tiny"
+    ckpt = workdir / "fake_sd"
+    t0 = time.perf_counter()
+    make_fake_sd_ckpt.save_ckpt(str(ckpt), tiny=tiny)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in ckpt.rglob("*.safetensors"))
+    zero_launches()
+    t0 = time.perf_counter()
+    times = check_weights.main(
+        [str(ckpt), "--allow_hash_tokenizer", "--device", str(dev)]
+        + (["--tiny"] if tiny else []))
+    check_s = time.perf_counter() - t0
+    launches, by_shape = all_launches(), dict(at.LAUNCHES_BY_SHAPE)
+    shutil.rmtree(ckpt)
+    print(f"weights: fake {WEIGHTS_SD} SD1.5-inpainting checkpoint, "
+          f"{nbytes / 1e9:.3f} GB, written in {write_s:.2f} s; check_weights "
+          f"{check_s:.2f} s: strict load {times['load_s']:.2f} s, 2-step "
+          f"DDIM inpaint {times['ddim_s']:.3f} s; K7 by (N, D) "
+          f"{json.dumps({f'{n}x{d}': c for (n, d), c in by_shape.items()})}"
+          f" | {nvidia_smi_line()}")
+    if launches["attention"] <= 0:
+        raise AssertionError("weights: the DDIM inpaint launched no K7")
+    return {"launches": launches}
 
 
 def require_launches(report: dict) -> None:
@@ -3089,7 +3219,7 @@ def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="trace one bench render and one train step into "
+                    help="trace one render and one train step into "
                          "this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3158,7 +3288,7 @@ def main() -> None:
     ro, rd = torch.from_numpy(ro_np).to(dev), torch.from_numpy(rd_np).to(dev)
     zero_launches()
     with torch.no_grad():
-        # (a) bench.py's workload
+        # (a) 16384 rays of the shipped config's fields
         out = render(ro, rd, train=False)                  # warm
         torch.cuda.synchronize()
         group_ms = []                 # host time shares its cores: 5 groups
@@ -3170,14 +3300,15 @@ def main() -> None:
             group_ms.append((time.perf_counter() - t0) * 1e3 / 5)
     ms = float(np.median(group_ms))
     rays_per_s = BENCH_RAYS / (ms / 1e3)
-    print(f"bench: {BENCH_RAYS} rays, 64+64 samples, fields "
-          f"{cfg.field.cp_resolutions} r{cfg.field.cp_rank}: {ms:.3f} ms "
-          f"per render (median of 5 groups of 5: "
+    print(f"render (configs/spinnerf_scene.txt fields): {BENCH_RAYS} rays, "
+          f"64+64 samples, coarse field {coarse.resolutions} "
+          f"r{coarse.rank}, fine {fine.resolutions} r{fine.rank}: {ms:.3f} "
+          f"ms per render (median of 5 groups of 5: "
           f"{', '.join(f'{g:.3f}' for g in group_ms)}), {rays_per_s:.1f} "
           f"rays/s")
     for k in ("rgb", "acc", "depth", "disp"):
         t = getattr(out, k)
-        assert bool(torch.isfinite(t).all()), f"bench {k} not finite"
+        assert bool(torch.isfinite(t).all()), f"render {k} not finite"
 
     # (b) full views through render_pose_path at the config's render_block
     focal = 0.5 * VIEW_W / np.tan(0.5 * np.deg2rad(60.0))
@@ -3231,6 +3362,15 @@ def main() -> None:
         with torch.no_grad():
             profile_once(lambda: render(ro, rd, train=False), "render",
                          args.profile, ms)
+    phase_done("render")
+    # ---- 21. the bench twin at bench.py's workload (its own counts)
+    twin = bench_twin_phase(dev)
+    phase_done("bench twin")
+    # ---- 22. a full-width fake SD checkpoint through check_weights (its
+    # own counts)
+    with tempfile.TemporaryDirectory() as wdir:
+        weights = weights_phase(dev, Path(wdir))
+    phase_done("weights")
 
     # ---- 5. stage-1 training through train() (its own launch counts)
     t0 = time.perf_counter()
@@ -3240,7 +3380,7 @@ def main() -> None:
           f"{sum(len(d['depth']) for d in depth_gts)} depth keypoints, "
           f"made in {time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as workdir:
-        phase_done("render, scene")
+        phase_done("scene")
         out, step_ms, step_launches, eval_launches = stage1_train(
             cfg, dev, scene, depth_gts, Path(workdir))
         phase_done("stage 1")
@@ -3263,7 +3403,7 @@ def main() -> None:
         frozen = frozen_sigma_phase(cfg, dev, scene, depth_gts,
                                     Path(workdir))
         phase_done("frozen σ")
-        # ---- 19. the hash-grid field: stage 1, the checks of 6, bench's
+        # ---- 19. the hash-grid field: stage 1, the checks of 6, the
         # render and stage 2 (each main path its own counts); native
         hash_res = hash_phase(cfg, dev, scene, depth_gts, Path(workdir),
                               ro, rd, args.profile)
@@ -3316,7 +3456,8 @@ def main() -> None:
         profile_prior_nl(dev, guided, args.profile)
     disk_dir.cleanup()
 
-    paths = [render_launches, step_launches, eval_launches, stage2_launches,
+    paths = [render_launches, twin["launches"], weights["launches"],
+             step_launches, eval_launches, stage2_launches,
              colla_launches, perpneg_launches, frozen["launches"],
              disk["launches"], blender["launches"], guided["launches"],
              lora_res["launches"], *hash_res["launches"],

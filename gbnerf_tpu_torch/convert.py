@@ -307,8 +307,9 @@ def clip_vision_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def lpips_params_from_jax(tree: Mapping):
     """LPIPS weights in the JAX package's layout (utils/lpips.py there, or
-    tools/convert_vgg.py's npz through ``load_vgg16_npz``) → (the port's
-    ``VGG16Features`` state dict, the five ``lin_k`` stage vectors or None).
+    the npz of the port's tools/convert_vgg.py through ``load_vgg16_npz``)
+    → (the port's ``VGG16Features`` state dict, the five ``lin_k`` stage
+    vectors or None).
     Conv kernels go from flax's HWIO to torch's OIHW."""
     sd, lins = {}, {}
     for name, v in tree.items():

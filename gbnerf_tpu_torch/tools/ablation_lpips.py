@@ -11,9 +11,9 @@ under OUT/logs/ with eval renders, the VGG feature distance of its last
 eval_images_*/rgb PNGs to the clean held-out views of OUT/scene/images_*/
 test_gt, over the full image and over the bounding box of the intruder
 masks (widened to 32 pixels for the VGG pyramid); the table goes to
-OUT/ablation_lpips.json. Without --vgg_npz (tools/convert_vgg.py's output)
-the VGG weights are random: a proxy perceptual distance, labelled so, not
-the paper's LPIPS. LPIPS runs on the first CUDA device unless --device
+OUT/ablation_lpips.json. Without --vgg_npz (the output of ``python -m
+gbnerf_tpu_torch.tools.convert_vgg``) the VGG weights are random: a proxy
+perceptual distance, labelled so, not the paper's LPIPS. LPIPS runs on the first CUDA device unless --device
 cpu.
 """
 from __future__ import annotations

@@ -17,17 +17,21 @@ What it proves, in order (any failure prints CHECK FAILED and exits 1):
   3. an optional PEFT LoRA dir merges into the UNet as it loads;
   4. a 2-step DDIM inpaint runs through the loaded weights (text tower,
      UNet, VAE) and gives finite pixels;
-  5. an optional VGG16 npz (tools/convert_vgg.py's) loads and one LPIPS
-     forward is finite.
+  5. an optional VGG16 npz (python -m gbnerf_tpu_torch.tools.convert_vgg)
+     loads and one LPIPS forward is finite.
 
---tiny takes the tiny topology of tools/make_fake_sd_ckpt.py --tiny (f32,
-latent 64); otherwise the SD1.5-inpainting widths in bf16. Runs on the
-first CUDA device unless --device cpu.
+--tiny takes the tiny topology of the port's fake checkpoint (python -m
+gbnerf_tpu_torch.tools.make_fake_sd_ckpt D --tiny; f32, latent 64);
+otherwise the SD1.5-inpainting widths in bf16 (that tool without --tiny
+writes them). Runs on the first CUDA device unless --device cpu. main()
+returns the seconds of the strict load (``load_s``, the towers' random
+init excluded) and of the 2-step inpaint (``ddim_s``).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 
 def fail(msg: str):
@@ -89,12 +93,16 @@ def main(argv=None):
                              torch.float32)}
     init = {name: {k: p.detach().clone() for k, p in m.named_parameters()}
             for name, m in towers.items()}
+    t0 = time.perf_counter()
     try:
         load_sd_weights(args.sd_dir, towers["unet"], towers["vae"],
                         towers["text"], lora_dir=args.lora,
                         lora_rank=args.lora_rank, strict=True)
     except ValueError as e:
         fail(f"unmatched checkpoint keys: {e}")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    times = {"load_s": time.perf_counter() - t0}
     for name, m in towers.items():
         total = len(init[name])
         changed = sum(not torch.equal(init[name][k], p.detach())
@@ -134,13 +142,16 @@ def main(argv=None):
     img = torch.full((S, S, 3), 0.5, device=device)
     mask = torch.zeros((S, S), device=device)
     mask[S // 4: 3 * S // 4, S // 4: 3 * S // 4] = 1.0
+    t0 = time.perf_counter()
     out = inpaint(mods, embeds, img, mask,
                   torch.Generator(device=device).manual_seed(1),
                   num_inference_steps=2).cpu().numpy()
+    times["ddim_s"] = time.perf_counter() - t0
     if not np.isfinite(out).all():
         fail("denoise step produced non-finite pixels")
     print(f"[check] denoise: 2-step inpaint OK, output {out.shape}, "
-          f"range [{out.min():.3f}, {out.max():.3f}]")
+          f"range [{out.min():.3f}, {out.max():.3f}], "
+          f"{times['ddim_s']:.3f} s (strict load {times['load_s']:.3f} s)")
 
     # ---- 5. an optional LPIPS forward
     if args.vgg:
@@ -156,6 +167,7 @@ def main(argv=None):
 
     print("PASS: checkpoint is fully mapped and runnable "
           f"({args.sd_dir}{' + ' + args.lora if args.lora else ''})")
+    return times
 
 
 if __name__ == "__main__":

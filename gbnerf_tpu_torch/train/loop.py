@@ -268,9 +268,10 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int):
 
 def build_lpips(cfg: Config, device):
     """The LPIPS network when ``lpips`` or ``lpips_weights`` is set, else
-    None: the VGG16 weights from ``lpips_weights`` (tools/convert_vgg.py's
-    npz), or random from a CPU generator seeded with train.seed, with the
-    JAX package's warning."""
+    None: the VGG16 weights from ``lpips_weights`` (the npz of
+    ``python -m gbnerf_tpu_torch.tools.convert_vgg``), or random from a
+    CPU generator seeded with train.seed, with the JAX package's
+    warning."""
     from ..utils.lpips import LPIPS, load_vgg16_npz
 
     t = cfg.train

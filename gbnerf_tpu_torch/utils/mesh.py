@@ -269,9 +269,11 @@ def extract_field_mesh(field_fn: Callable, *, resolution: int = 128,
 
     field_fn(pts [N, S, 3], viewdirs [N, 3] | None, sigma_only) → raw
     [N, S, 4], the make_field_fn contract, on ``device`` (default the
-    CPU). ``bound`` is a scalar half-width (the grid spans [−b, b]³) or
-    (lo, hi). iso is the raw-σ threshold (stable-dreamfusion's
-    density_thresh is 10). Without gradient throughout.
+    card, as every entry point of the port: an error without one; pass
+    ``device="cpu"`` for the CPU). ``bound`` is a scalar half-width (the
+    grid spans [−b, b]³) or (lo, hi). iso is the raw-σ threshold
+    (stable-dreamfusion's density_thresh is 10). Without gradient
+    throughout.
 
     Returns (verts, faces[, colors uint8]): with color=True each vertex's
     colour is the field's at the vertex, seen along the inward vertex
@@ -280,7 +282,11 @@ def extract_field_mesh(field_fn: Callable, *, resolution: int = 128,
     colours (``grid_s``, ``triangulate_s``, ``color_s``; each part ends in
     a copy to the host).
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    if device is None:
+        from ..train.loop import default_device
+
+        device = default_device()
+    device = torch.device(device)
     if np.isscalar(bound):
         lo, hi = (-float(bound),) * 3, (float(bound),) * 3
     else:

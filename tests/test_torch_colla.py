@@ -98,6 +98,36 @@ def test_sd_train_step_colla_loss_and_grad_match_jax(stack, rng, use_csd):
     assert all(float(np.abs(np.asarray(rg[i])).max()) > 0 for i in range(K))
 
 
+def test_colla_gradient_reaches_unmasked_pixels_as_in_jax(stack):
+    """The colla term injects its gradient at the latent mask, but the
+    views are encoded whole, so the VAE encoder's receptive field carries
+    part of it to pixels outside each view's mask. The JAX package does the
+    same: on views with a block mask, the gradient outside the masks is a
+    nonzero share of the whole in both packages, and the port's equals
+    JAX's there, pixel by pixel (the reference's own behaviour, not a
+    port's departure)."""
+    jm, tm = stack["mods"]()
+    gcfg = dataclasses.replace(stack["gcfg"], use_csd=False,
+                               colla_guidance_scale=5.0)
+    rng = np.random.default_rng(21)
+    rgbs = rng.random((K, 12, 16, 3)).astype(np.float32)
+    masks = np.zeros((K, 12, 16), np.float32)
+    masks[:, 4:8, 5:11] = 1.0
+    key = jax.random.PRNGKey(14)
+    rg = np.asarray(jax.jit(jax.grad(lambda r: jst.sd_train_step_colla(
+        jm, gcfg, 300, r, masks, key)))(rgbs))
+    x = t(rgbs).requires_grad_(True)
+    tst.sd_train_step_colla(tm, gcfg, 300, x, t(masks),
+                            **colla_draws(key, 8)).backward()
+    outside = masks[..., None] == 0
+    for g in (rg, x.grad.numpy()):
+        share = np.abs(g * outside).sum() / np.abs(g).sum()
+        assert 0.05 < share < 1.0, share
+    atol = GRAD_ATOL_FRAC * float(np.abs(rg).max())
+    np.testing.assert_allclose(x.grad.numpy() * outside, rg * outside,
+                               rtol=0, atol=atol)
+
+
 def test_guidance_fn_with_colla_matches_jax(stack, rng):
     """make_guidance_fn with the RGB and colla modalities: the colla term
     on rgbs4/masks4, its draws from the hook's third key."""

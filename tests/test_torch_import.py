@@ -1,6 +1,7 @@
 """The port imports no JAX and nothing of the JAX package: every module of
 gbnerf_tpu_torch, and chip_smoke.py, imported in a fresh interpreter leave
-``jax`` (and flax, optax, orbax), ``gbnerf_tpu``, and the file libraries
+``jax`` (and flax, optax, orbax), ``gbnerf_tpu``, the root ``tools/``
+scripts (the port keeps its own twins), and the file libraries
 the machine with the card lacks (msgpack, safetensors, imageio, cv2,
 matplotlib) out of ``sys.modules``. The machine with the card has no JAX
 installed."""
@@ -26,7 +27,8 @@ for name in sys.argv[1:]:
     out[name] = sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                               "optax", "orbax",
-                                              "gbnerf_tpu", "msgpack",
+                                              "gbnerf_tpu", "tools",
+                                              "msgpack",
                                               "safetensors", "imageio",
                                               "cv2", "matplotlib"))
 print(json.dumps(out))
@@ -56,7 +58,8 @@ def test_every_module_is_listed():
                  "guidance.perpneg", "guidance.directional",
                  "guidance.orchestrator", "guidance.clip_guidance",
                  "data.blender", "utils.gif", "utils.mesh", "utils.warp",
-                 "utils.gallery", "tools.export_mesh"):
+                 "utils.gallery", "tools.export_mesh", "tools.bench",
+                 "tools.make_fake_sd_ckpt", "tools.convert_vgg"):
         assert f"gbnerf_tpu_torch.{name}" in MODULES, name
 
 

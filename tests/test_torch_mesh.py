@@ -105,7 +105,7 @@ def test_extract_field_mesh_cp_grid_matches_jax():
     times = {}
     verts, faces, cols = tmesh.extract_field_mesh(
         tfn, resolution=res, bound=b, iso=iso, color=True, batch=500,
-        times=times)
+        times=times, device="cpu")
     assert set(times) == {"grid_s", "triangulate_s", "color_s"}
     # the port's mesh is marching tetrahedra of the port's grid, and close
     # to the JAX package's mesh of its own grid
@@ -132,15 +132,33 @@ def test_extract_field_mesh_analytic_sphere():
         return torch.cat([pts, (40.0 * (R_SPHERE - d))[..., None]], dim=-1)
 
     verts, faces, cols = tmesh.extract_field_mesh(
-        field_fn, resolution=24, bound=1.0, iso=0.0, color=True, batch=512)
+        field_fn, resolution=24, bound=1.0, iso=0.0, color=True, batch=512,
+        device="cpu")
     assert len(verts) > 100 and cols.shape == (len(verts), 3)
     r = np.linalg.norm(verts, axis=1)
     np.testing.assert_array_less(np.abs(r - R_SPHERE), 2.0 / 23)
     red = cols[:, 0].astype(np.float32)
     assert red[verts[:, 0] > 0.3].mean() > red[verts[:, 0] < -0.3].mean()
     v, f = tmesh.extract_field_mesh(field_fn, resolution=8, bound=1.0,
-                                    iso=100.0)
+                                    iso=100.0, device="cpu")
     assert len(v) == len(f) == 0
+
+
+def test_extract_field_mesh_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the σ grid goes to the card, as every entry point
+    of the port: an error naming ``device='cpu'`` where there is none; on
+    the CPU when asked."""
+    def field_fn(pts, viewdirs, sigma_only=False):
+        assert pts.device.type == "cpu"
+        d = torch.linalg.norm(pts, dim=-1)
+        return torch.cat([pts, (40.0 * (R_SPHERE - d))[..., None]], dim=-1)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.extract_field_mesh(field_fn, resolution=8, bound=1.0, iso=0.0)
+    v, f = tmesh.extract_field_mesh(field_fn, resolution=8, bound=1.0,
+                                    iso=0.0, device="cpu")
+    assert len(v) > 0 and len(f) > 0
 
 
 def _read_ply(path):

@@ -21,7 +21,12 @@ against the JAX package's tools where both compute something:
   label band is the port's own bitmap font (checked for ink only);
 - run_spmd_demo: the two configs equal tools/run_spmd_demo.py's; the
   micro run on two CPU ranks (slow: minutes of full-width CP renders);
-- dryrun_multichip on two CPU ranks: every "ok" line of a two-rank run.
+- dryrun_multichip on two CPU ranks: every "ok" line of a two-rank run;
+- make_fake_sd_ckpt at --tiny (with and without --vae_legacy_attn): the
+  same files and bit-equal tensors as tools/make_fake_sd_ckpt.py, the
+  full-width shape tables equal, and a strict load into the tiny towers;
+- convert_vgg on a seeded fake VGG16 with lpips heads, as .pth and as
+  .safetensors: the npz equal to tools/convert_vgg.py's.
 """
 import importlib.util
 import json
@@ -355,3 +360,108 @@ def test_dryrun_multichip_on_two_cpu_ranks():
                  "dryrun_multichip lora-dp: ok"):
         assert r.stdout.count(head) == 1, (head, r.stdout)
     assert "grad all-reduce present" in r.stdout
+
+
+@pytest.mark.parametrize("legacy", [False, True], ids=["to_q", "legacy"])
+def test_fake_sd_ckpt_twin_equals_the_jax_tool(tmp_path, legacy):
+    """--tiny (with and without --vae_legacy_attn): the same files, key set
+    and bit-equal tensors as tools/make_fake_sd_ckpt.py; the full-width
+    shape tables equal, key order included (the draws follow it), without
+    materialising them."""
+    from safetensors.numpy import load_file
+
+    from gbnerf_tpu_torch.tools import make_fake_sd_ckpt
+
+    jtool = _tool("make_fake_sd_ckpt")
+    jtool.save_ckpt(str(tmp_path / "jax"), tiny=True, legacy_attn=legacy)
+    argv = [str(tmp_path / "port"), "--tiny"]
+    make_fake_sd_ckpt.main(argv + (["--vae_legacy_attn"] if legacy else []))
+    files = sorted(p.relative_to(tmp_path / "jax")
+                   for p in (tmp_path / "jax").rglob("*.safetensors"))
+    assert len(files) == 3 and files == sorted(
+        p.relative_to(tmp_path / "port")
+        for p in (tmp_path / "port").rglob("*.safetensors"))
+    for f in files:
+        ref, got = load_file(tmp_path / "jax" / f), load_file(
+            tmp_path / "port" / f)
+        assert set(got) == set(ref), f
+        for k, v in ref.items():
+            assert got[k].dtype == v.dtype == np.float32, k
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{f} {k}")
+    vae_keys = load_file(tmp_path / "port" / "vae" /
+                         "diffusion_pytorch_model.safetensors")
+    assert any(".query." in k for k in vae_keys) == legacy
+    for name, kw in (("unet_state_shapes", {}),
+                     ("vae_state_shapes", {"legacy_attn": legacy}),
+                     ("text_state_shapes", {})):
+        got = getattr(make_fake_sd_ckpt, name)(**kw)
+        assert list(got.items()) == list(getattr(jtool, name)(**kw).items())
+    n_unet = sum(int(np.prod(s))
+                 for s in make_fake_sd_ckpt.unet_state_shapes().values())
+    assert 0.85e9 < n_unet < 0.87e9             # SD1.5-inpainting's UNet
+
+
+@pytest.mark.parametrize("legacy", [False, True], ids=["to_q", "legacy"])
+def test_fake_sd_ckpt_twin_loads_strictly(tmp_path, legacy):
+    """The twin's tiny checkpoint fills the tiny towers through
+    load_sd_weights(strict=True): every key matched, every parameter
+    overwritten."""
+    from gbnerf_tpu_torch.guidance.text import CLIPTextConfig, CLIPTextEncoder
+    from gbnerf_tpu_torch.guidance.unet import UNet2DCondition, UNetConfig
+    from gbnerf_tpu_torch.guidance.vae import AutoencoderKL, VAEConfig
+    from gbnerf_tpu_torch.guidance.weights import load_sd_weights
+    from gbnerf_tpu_torch.tools import make_fake_sd_ckpt
+
+    make_fake_sd_ckpt.save_ckpt(str(tmp_path), tiny=True, legacy_attn=legacy)
+    torch.manual_seed(0)
+    towers = (UNet2DCondition(UNetConfig.tiny()), AutoencoderKL(
+        VAEConfig.tiny()), CLIPTextEncoder(CLIPTextConfig(
+            vocab_size=49408, width=32, layers=2, heads=2)))
+    init = [{k: p.detach().clone() for k, p in m.named_parameters()}
+            for m in towers]
+    load_sd_weights(str(tmp_path), *towers, strict=True)
+    for m, before in zip(towers, init):
+        for k, p in m.named_parameters():
+            assert not torch.equal(before[k], p.detach()), k
+
+
+@pytest.mark.parametrize("suffix", [".pth", ".safetensors"])
+def test_convert_vgg_twin_equals_the_jax_tool(tmp_path, monkeypatch, suffix):
+    """A seeded fake VGG16 and lpips heads (``lin{k}`` keys in the .pth
+    case, ``lins.{k}`` in the .safetensors one) saved in either format:
+    the twin's npz equals tools/convert_vgg.py's, array for array."""
+    from safetensors.numpy import save_file
+
+    from gbnerf_tpu_torch.tools import convert_vgg
+
+    rng = np.random.default_rng(0)
+    widths = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+    vgg, cin = {}, 3
+    for idx, cout in zip(convert_vgg.TORCH_CONV_IDX, widths):
+        vgg[f"features.{idx}.weight"] = rng.normal(
+            0, 0.05, (cout, cin, 3, 3)).astype(np.float32)
+        vgg[f"features.{idx}.bias"] = rng.normal(0, 0.1, cout).astype(
+            np.float32)
+        cin = cout
+    head = "lin{}" if suffix == ".pth" else "lins.{}"
+    lp = {f"{head.format(k)}.model.1.weight": rng.random(
+        (1, c, 1, 1)).astype(np.float32)
+        for k, c in enumerate((64, 128, 256, 512, 512))}
+    for name, sd in (("vgg", vgg), ("lpips", lp)):
+        path = tmp_path / f"{name}{suffix}"
+        if suffix == ".pth":
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+        else:
+            save_file(sd, str(path))
+    src = str(tmp_path / f"vgg{suffix}")
+    heads = ["--lpips", str(tmp_path / f"lpips{suffix}")]
+    convert_vgg.main([src, str(tmp_path / "port.npz")] + heads)
+    monkeypatch.setattr(sys, "argv", ["convert_vgg.py", src,
+                                      str(tmp_path / "jax.npz")] + heads)
+    _tool("convert_vgg").main()
+    got, ref = np.load(tmp_path / "port.npz"), np.load(tmp_path / "jax.npz")
+    assert sorted(got.files) == sorted(ref.files)
+    assert len(ref.files) == 2 * 13 + 5
+    for k in ref.files:
+        assert got[k].dtype == ref[k].dtype == np.float32, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
