@@ -167,6 +167,22 @@
    keys, every parameter overwritten) and runs a 2-step DDIM inpaint at
    512² (K7 at the UNet's and the VAE's shapes); write, load and DDIM
    seconds; the directory is deleted.
+23. The jax-draws phase (utils/jax_random.py, the twin of jax.random, and
+   utils/jax_init.py, the JAX package's initial parameters), after 6: the
+   twin on the card against the twin on the CPU in both threefry layouts
+   (keys, bits, uniforms and randint bit-equal; normals, exponentials and
+   truncated normals within JAX_ULP) and against literal values that
+   jax 0.9.0 gave on a CPU (JAX_GOLDEN: the same bounds); the full-width
+   CP fields' init from PRNGKey(0) on the card against the CPU (JAX_ULP);
+   one stage-1 loss and gradient of a JAX-draw run (jitter, the fine
+   samples' sorted uniforms, the three streams' indices from one key; σ
+   noise off, as in 6) on the card against the CPU plain path: from those
+   fields at the bounds of 6, and from phase 5's trained fields with the
+   card's plain path at the bounds of 6 and with the kernels at
+   JAX_TRAINED_COS, beside the kernels against the card's plain path with
+   the JAX package's draws and with torch's; then ms a full-width stage-1
+   step with the JAX package's draws and with torch's, in turns (its own
+   launch counts).
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -397,6 +413,58 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # the two products of the axes
 ENC_OPS = 11
 DEVICE = "cuda:0"
+# the jax-draws phase: the twin's ulp bound for draws through log1p and
+# erf_inv (tests/test_torch_jax_random.py), its steps timed a draw kind,
+# and what jax 0.9.0 gave on a CPU from PRNGKey(42): split in 3, the
+# second key folded with 7, then 5 draws of each kind from that key
+JAX_ULP, JAX_STEP_REPS = 4, 20
+# the JAX-draw step on phase 5's trained fields, jitter on, card against
+# CPU with the kernels on: the fine lines' gradient cosine read 0.99590,
+# 0.99970 and 0.99962 for keys 5, 6 and 7 on an H100, the same as the
+# kernels against the card's plain path on the same draws, while the
+# card's plain path read ≥ 0.999987 against the CPU: the gap is the
+# kernels' bf16 on trained fields, which torch's draws show too (0.99965
+# to 0.99996, seeds 5 to 7). The bound leaves more than twice the worst
+# gap seen (0.0041, key 5, the key the phase runs).
+JAX_TRAINED_COS, JAX_STEP_SEED = 0.99, 5
+JAX_GOLDEN = {
+    True: {"split": [(1832780943, 270669613), (64467757, 2916123636),
+                     (2465931498, 255383827)],
+           "fold_in": (520833650, 68019029),
+           "bits": [1994246173, 1561166990, 1610240137, 747541974,
+                    1006511542],
+           "uniform": [0.4643216133117676, 0.36348748207092285,
+                       0.37491321563720703, 0.17405056953430176,
+                       0.23434662818908691],
+           "randint": [17459, 94754, 86192, 5550, 64789],
+           "normal": [-0.08955191820859909, -0.34915226697921753,
+                      -0.31886816024780273, -0.9382786154747009,
+                      -0.7246067523956299],
+           "exponential": [0.6242213249206543, 0.451751172542572,
+                           0.46986478567123413, 0.19122172892093658,
+                           0.26702573895454407],
+           "truncated_normal": [-0.08546718209981918, -0.3326511085033417,
+                                -0.3038930296897888, -0.882025957107544,
+                                -0.685754656791687]},
+    False: {"split": [(3134548294, 3733159049), (3746501087, 894150801),
+                      (801545058, 2363201431)],
+            "fold_in": (2256930989, 524940092),
+            "bits": [2055658885, 3916580167, 3238666461, 4245475352,
+                     3494230065],
+            "uniform": [0.4786202907562256, 0.9118998050689697,
+                        0.7540607452392578, 0.9884767532348633,
+                        0.8135638236999512],
+            "randint": [50503, 45658, 7421, 73748, 49870],
+            "normal": [-0.053616587072610855, 1.352547287940979,
+                       0.6873242259025574, 2.2726640701293945,
+                       0.8911060094833374],
+            "exponential": [0.651276707649231, 2.4292805194854736,
+                            1.4026707410812378, 4.463388919830322,
+                            1.67966628074646],
+            "truncated_normal": [-0.05117490142583847, 1.2435004711151123,
+                                 0.6510748267173767, 1.8283424377441406,
+                                 0.8391112685203552]},
+}
 
 
 def nvidia_smi_line() -> str:
@@ -2930,22 +2998,30 @@ def _sub_banks(banks, n: int, seed: int) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The render's kernels off on the card: K1/K2 through ``field_plain``
-    and K3 through ``merge128_plain``, the ops' plain versions, on the
-    same CUDA tensors (no launch counted)."""
+    """The render's kernels off on the card: K1/K2 through ``field_plain``,
+    K4/K5 through ``field_bwd_plain`` and K3 through ``merge128_plain``,
+    the ops' plain versions, on the same CUDA tensors (no launch
+    counted)."""
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops import resample as rs
 
-    saved = ff._launch, rs._launch_merge
+    saved = ff._launch, ff._launch_bwd, rs._launch_merge
 
     def field(x01, sh, ulines, Ws, *, sigma_only):
         return ff.field_plain(x01, sh, ulines, Ws, sigma_only=sigma_only)
 
-    ff._launch, rs._launch_merge = field, rs.merge128_plain
+    def field_bwd(x01, sh, ulines, Ws, g, *, sigma_only, need_dx, need_dsh):
+        dx, dsh, dul, dWs = ff.field_bwd_plain(x01, sh, ulines, Ws, g,
+                                               sigma_only=sigma_only)
+        return (dx if need_dx else None, dsh if need_dsh else None, dul,
+                dWs)
+
+    ff._launch, ff._launch_bwd, rs._launch_merge = (field, field_bwd,
+                                                    rs.merge128_plain)
     try:
         yield
     finally:
-        ff._launch, rs._launch_merge = saved
+        ff._launch, ff._launch_bwd, rs._launch_merge = saved
 
 
 def bench_twin_phase(dev) -> dict:
@@ -3216,6 +3292,209 @@ def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
             "report": report, "nccl_ms": ms_a}
 
 
+def _ulp32(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max |a − b| in f32 units in the last place."""
+    def ordered(x):
+        i = x.detach().float().cpu().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _twin_draws(key, dev) -> dict:
+    """Every draw kind of the twin from ``key`` on ``dev``."""
+    from gbnerf_tpu_torch.utils import jax_random as jr
+
+    shape = (1024, 65)
+    return {"bits": jr.random_bits(key, shape, dev),
+            "uniform": jr.uniform(key, shape, torch.float32, dev),
+            "uniform_span": jr.uniform(key, shape, torch.float32, dev,
+                                       -3.5, 7.25),
+            "randint": jr.randint(key, shape, 0, 100003, dev),
+            "normal": jr.normal(key, shape, torch.float32, dev),
+            "exponential": jr.exponential(key, shape, torch.float32, dev),
+            "truncated_normal": jr.truncated_normal(key, -2.0, 2.0, shape,
+                                                    torch.float32, dev)}
+
+
+def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
+    """The twin of jax.random and of the JAX package's init on the card
+    (see 23): card against CPU, against jax's literal values, the CP
+    fields' init, one stage-1 loss and gradient with the JAX package's
+    draws against the CPU plain path, and ms a step by draw kind."""
+    from gbnerf_tpu_torch.data.rays_bank import build_ray_banks, sample_batch
+    from gbnerf_tpu_torch.train.loop import banks_to_device
+    from gbnerf_tpu_torch.train.state import create_params, create_train_state
+    from gbnerf_tpu_torch.train.step import make_train_step_stage1
+    from gbnerf_tpu_torch.utils import jax_random as jr
+
+    cpu = torch.device("cpu")
+    worst_ulp = 0
+    for part in (True, False):
+        # (a) the card against the CPU
+        key = jr.key_fold_in(jr.PRNGKey(7, partitionable=part), 3)
+        card, host = _twin_draws(key, dev), _twin_draws(key, cpu)
+        for k in card:
+            if k in ("bits", "uniform", "uniform_span", "randint"):
+                if not torch.equal(card[k].cpu(), host[k]):
+                    raise AssertionError(f"twin {k} differs card vs CPU")
+            else:
+                u = _ulp32(card[k], host[k])
+                worst_ulp = max(worst_ulp, u)
+                if u > JAX_ULP:
+                    raise AssertionError(f"twin {k}: {u} ulp card vs CPU")
+        # (b) against jax's values
+        gold = JAX_GOLDEN[part]
+        k1, k2, k3 = jr.key_split(jr.PRNGKey(42, partitionable=part), 3)
+        f = jr.key_fold_in(k2, 7)
+        if ([x.words() for x in (k1, k2, k3)] != gold["split"]
+                or f.words() != tuple(gold["fold_in"])):
+            raise AssertionError(f"twin keys differ from jax's ({part})")
+        got = {"bits": jr.random_bits(f, (5,), dev),
+               "uniform": jr.uniform(f, (5,), torch.float32, dev),
+               "randint": jr.randint(f, (5,), 0, 100003, dev),
+               "normal": jr.normal(f, (5,), torch.float32, dev),
+               "exponential": jr.exponential(f, (5,), torch.float32, dev),
+               "truncated_normal": jr.truncated_normal(
+                   f, -2.0, 2.0, (5,), torch.float32, dev)}
+        for k, v in got.items():
+            ref = torch.tensor(gold[k], dtype=v.dtype)
+            if k in ("bits", "uniform", "randint"):
+                if not torch.equal(v.cpu(), ref):
+                    raise AssertionError(f"twin {k} differs from jax's")
+            elif _ulp32(v, ref) > JAX_ULP:
+                raise AssertionError(f"twin {k}: {_ulp32(v, ref)} ulp from "
+                                     "jax's")
+    # (c) the full-width CP fields' init from PRNGKey(0)
+    t0 = time.perf_counter()
+    card_f = create_params(cfg, jr.PRNGKey(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host_f = create_params(cfg, jr.PRNGKey(0), cpu)
+    init_ulp = max(_ulp32(a, b)
+                   for fc, fh in zip(card_f, host_f)
+                   for a, b in zip(fc.parameters(), fh.parameters()))
+    if init_ulp > JAX_ULP:
+        raise AssertionError(f"CP init: {init_ulp} ulp card vs CPU")
+    # (d) one stage-1 loss and gradient of a JAX-draw run, jitter on (the
+    # jitter, the fine samples' sorted uniforms and the streams' indices
+    # are the JAX package's draws; σ noise off, as in 6: with it,
+    # relu(σ + noise) sits on its kink for some samples, where the
+    # kernels' bf16 σ and the plain path's part; the noise itself is held
+    # in (a) and (b)), on the fields of (c) and on the trained fields of 5
+    banks = build_ray_banks(scene.images, scene.masks, scene.inpainted_depths,
+                            scene.poses, scene.hwf[2], depth_gts)
+    scfg = cfg.replace(
+        render=dataclasses.replace(cfg.render, perturb=1.0,
+                                   raw_noise_std=0.0),
+        train=dataclasses.replace(cfg.train, N_rand=STEP_RAYS,
+                                  sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+
+    def grads(fields, device, rng, plain=False):
+        fields = [copy.deepcopy(f).to(device) for f in fields]
+        for f in fields:
+            for p in f.parameters():
+                p.grad = None
+        step = make_train_step_stage1(scfg, fields[0], fields[1],
+                                      scene.near, scene.far, hwf=scene.hwf)
+        bank = banks_to_device(banks, device)
+        k_batch, k_loss = jr.split(rng)
+        ks = jr.split(k_batch, 3)
+        batches = {k: sample_batch(bank[name], STEP_RAYS, kk)
+                   for k, name, kk in (("clf", "rgb_clf", ks[0]),
+                                       ("inp", "inp", ks[1]),
+                                       ("depth", "depth", ks[2]))}
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss, _ = step.loss_fn(batches, k_loss)
+            loss.backward()
+        return loss.item(), {
+            f"{n}.{k}": p.grad.detach().cpu().double()
+            for n, f in zip(("coarse", "fine"), fields)
+            for k, p in f.named_parameters()}
+
+    def compare(a, b):
+        (l_a, g_a), (l_b, g_b) = a, b
+        cos = {k: float(torch.dot(g_a[k].ravel(), g_b[k].ravel())
+                        / (g_a[k].norm() * g_b[k].norm()).clamp_min(1e-300))
+               for k in g_b}
+        worst = min(cos, key=cos.get)
+        return abs(l_a - l_b) / abs(l_b), cos[worst], worst
+
+    key, trained = jr.PRNGKey(JAX_STEP_SEED), state.fields()
+    card_gen = lambda: torch.Generator(device=dev).manual_seed(  # noqa
+        JAX_STEP_SEED)
+    init_cmp = compare(grads(card_f, dev, key), grads(host_f, cpu, key))
+    jk, jp = grads(trained, dev, key), grads(trained, dev, key, plain=True)
+    cmp = {"init: card vs cpu": init_cmp,
+           "trained: card vs cpu": compare(jk, grads(trained, cpu, key)),
+           "trained: card plain vs cpu": compare(jp, grads(trained, cpu,
+                                                           key)),
+           "trained: card vs card plain": compare(jk, jp),
+           "trained, torch draws: card vs card plain": compare(
+               grads(trained, dev, card_gen()),
+               grads(trained, dev, card_gen(), plain=True))}
+    print("jax draws: stage-1 loss rel err / min gradient cosine, jitter on: "
+          + json.dumps({k: [v[0], v[1], v[2]] for k, v in cmp.items()}))
+    # the draws are the subject here: from the same fields, the card replays
+    # the CPU's run at the step bounds of 6, with the kernels (the JAX
+    # init) and with the card's plain path (the trained fields). The
+    # trained fields with the kernels on are held to JAX_TRAINED_COS: on
+    # those fields, with jitter, the kernels' bf16 σ moves the fine
+    # samples, and their gap to the card's own plain path is the whole
+    # card-vs-CPU gap (the last two cases; see JAX_TRAINED_COS)
+    for what, bound in (("init: card vs cpu", STEP_GRAD_COS),
+                        ("trained: card plain vs cpu", STEP_GRAD_COS),
+                        ("trained: card vs cpu", JAX_TRAINED_COS)):
+        rel, c, worst = cmp[what]
+        if rel > STEP_LOSS_RTOL or c < bound:
+            raise AssertionError(f"the JAX-draw step differs, {what}: loss "
+                                 f"rel {rel} (limit {STEP_LOSS_RTOL}), "
+                                 f"cosine {c} ({worst}, limit {bound})")
+    # (e) ms a full-width stage-1 step by draw kind, in turns (the step
+    # of 5)
+    tcfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, first_stage=True, sigma_loss_weight=SIGMA_LOSS_WEIGHT))
+    st, c, f = create_train_state(tcfg, torch.Generator().manual_seed(0),
+                                  dev)
+    step = make_train_step_stage1(tcfg, c, f, scene.near, scene.far,
+                                  hwf=scene.hwf)
+    bank = banks_to_device(banks, dev)
+    gen, key = torch.Generator(device=dev).manual_seed(0), jr.PRNGKey(0)
+    times = {"torch": [], "jax": []}
+    zero_launches()
+    for kind in ("torch", "jax", "jax", "torch"):
+        for i in range(JAX_STEP_REPS + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if kind == "jax":
+                key, sk = jr.split(key)
+            else:
+                sk = gen
+            st, m = step(st, bank, sk)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / JAX_STEP_REPS)
+    launches = all_launches()
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("the JAX-draw steps' loss is not finite")
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    rounded = {k: [round(x, 3) for x in v] for k, v in times.items()}
+    print(f"jax draws: the twin card vs CPU in both threefry layouts: keys, "
+          f"bits, uniforms, randint equal, the others within {worst_ulp} ulp "
+          f"(limit {JAX_ULP}); jax 0.9.0's literal values matched; the CP "
+          f"fields' init from PRNGKey(0) on the card in {init_s:.3f} s, "
+          f"{init_ulp} ulp from the CPU's; the stage-1 step with the JAX "
+          f"package's draws ({STEP_RAYS} rays a stream) within the bounds "
+          f"above; "
+          f"full-width stage-1 step ({cfg.train.N_rand} rays a stream) "
+          f"{ms['jax']:.3f} ms with the JAX package's draws, "
+          f"{ms['torch']:.3f} ms with torch's (means of {JAX_STEP_REPS} "
+          f"steps in turns torch, jax, jax, torch: {json.dumps(rounded)}); "
+          f"kernel launches {json.dumps(launches)}")
+    return {"launches": launches, "ms": ms, "init_ulp": init_ulp,
+            "steps": {k: {"loss_rel_err": v[0], "min_grad_cos": v[1]}
+                      for k, v in cmp.items()}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -3435,6 +3714,9 @@ def main() -> None:
     step_vs_plain(cfg, dev, state, scene, depth_gts)
     stage1_step_twice(cfg, dev, state, scene, depth_gts)
     phase_done("stage-1 step vs plain, twice")
+    # ---- 23. the JAX package's draws on the card (its own counts)
+    jax_res = jax_draws_phase(cfg, dev, state, scene, depth_gts)
+    phase_done("jax draws")
     # ---- 9. one stage-2 step on the card vs the CPU plain path
     stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(7))
     phase_done("stage-2 steps vs plain")
@@ -3460,7 +3742,8 @@ def main() -> None:
              step_launches, eval_launches, stage2_launches,
              colla_launches, perpneg_launches, frozen["launches"],
              disk["launches"], blender["launches"], guided["launches"],
-             lora_res["launches"], *hash_res["launches"],
+             lora_res["launches"], jax_res["launches"],
+             *hash_res["launches"],
              *prof_launches.values(), *par["launches"]]
     path_launches = {k: sum(p[k] for p in paths) for k in render_launches}
     kernels = [

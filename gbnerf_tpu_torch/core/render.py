@@ -19,6 +19,7 @@ import torch
 from ..ops.resample import merge_sorted_fast, sample_pdf_fast
 from ..ops.scan import cumprod_last_exclusive
 from ..parallel.mesh import draw
+from ..utils import jax_random as jr
 from .sampling import merge_z_vals, sample_pdf, stratified_z_vals
 
 
@@ -97,10 +98,13 @@ def render_rays(coarse_fn: FieldFn, fine_fn: Optional[FieldFn],
 
     rays_o, rays_d: [N, 3]; viewdirs: [N, 3] unit; near, far: [N, 1].
     fine_fn None reuses the coarse field for the fine pass. Random draws
-    (jitter, σ noise, fine-sample uniforms) come from ``generator``.
+    (jitter, σ noise, fine-sample uniforms) come from ``generator``, a
+    torch.Generator or a JaxKey, split as the JAX package splits its key:
+    (jitter, coarse noise, fine uniforms, fine noise).
     """
+    k_strat, k_noise0, k_pdf, k_noise1 = jr.split(generator, 4)
     z_vals = stratified_z_vals(near, far, N_samples, lindisp=lindisp,
-                               perturb=perturb, generator=generator,
+                               perturb=perturb, generator=k_strat,
                                dtype=rays_o.dtype)
     z_vals = z_vals.expand(rays_o.shape[:-1] + (N_samples,))
 
@@ -110,7 +114,7 @@ def render_rays(coarse_fn: FieldFn, fine_fn: Optional[FieldFn],
                     sigma_only=coarse_sigma_only and N_importance > 0)
     rgb, disp, acc, weights, depth, alpha = raw2outputs(
         raw, z_vals, rays_d, raw_noise_std=raw_noise_std,
-        generator=generator, white_bkgd=white_bkgd,
+        generator=k_noise0, white_bkgd=white_bkgd,
         detach_weights=detach_weights)
 
     if N_importance <= 0:
@@ -121,19 +125,19 @@ def render_rays(coarse_fn: FieldFn, fine_fn: Optional[FieldFn],
     if fast_resample:
         z_samples = sample_pdf_fast(
             z_mid, weights[..., 1:-1].detach(), N_importance,
-            det=not perturb, generator=generator, sorted_u=True).detach()
+            det=not perturb, generator=k_pdf, sorted_u=True).detach()
         z_all = merge_sorted_fast(z_vals, z_samples)
     else:
         z_samples = sample_pdf(
             z_mid, weights[..., 1:-1].detach(), N_importance,
-            det=not perturb, generator=generator).detach()
+            det=not perturb, generator=k_pdf).detach()
         z_all = merge_z_vals(z_vals, z_samples)
 
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
     raw = (fine_fn or coarse_fn)(pts, viewdirs)
     rgb, disp, acc, weights, depth, alpha = raw2outputs(
         raw, z_all, rays_d, raw_noise_std=raw_noise_std,
-        generator=generator, white_bkgd=white_bkgd,
+        generator=k_noise1, white_bkgd=white_bkgd,
         detach_weights=detach_weights)
     z_std = torch.std(z_samples, dim=-1, correction=0)
     return RenderOutputs(rgb, disp, acc, depth, weights, z_all, alpha,

@@ -1,10 +1,9 @@
 """Ray sampling: stratified coarse samples and the inverse-CDF oracle.
 
-Port of gbnerf_tpu/core/sampling.py. Randomness is injected: every random
-draw is an optional tensor argument (``t_rand``, ``u``), drawn from an
-explicit ``torch.Generator`` only when it is not given. JAX's threefry
-streams cannot be replayed in torch, so tests hand both packages the same
-numpy draws.
+Port of gbnerf_tpu/core/sampling.py. Every random draw is an optional
+tensor argument (``t_rand``, ``u``), drawn only when it is not given: from
+a ``torch.Generator``, or from a ``JaxKey`` (utils/jax_random.py), which
+draws what the JAX package draws from the same key.
 """
 from __future__ import annotations
 

@@ -22,6 +22,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils import jax_random as jr
+
 
 @dataclass
 class RayStream:
@@ -159,13 +161,13 @@ def sample_batch(stream: Dict[str, torch.Tensor], n: int,
                  ) -> Dict[str, torch.Tensor]:
     """A uniform with-replacement batch of ``n`` rays from a device stream.
 
-    The draw comes from ``generator`` (on the stream's device), or is
-    injected as ``idx`` [n] (tests hand both packages the same indices).
+    The draw comes from ``generator`` (a torch.Generator on the stream's
+    device, or a JaxKey: the JAX package's ``randint`` from that key), or
+    is injected as ``idx`` [n].
     """
     size = stream["o"].shape[0]
     if idx is None:
-        idx = torch.randint(0, size, (n,), generator=generator,
-                            device=stream["o"].device)
+        idx = jr.randint_(generator, 0, size, (n,), stream["o"].device)
     else:
         idx = torch.as_tensor(idx, device=stream["o"].device)
     return {k: v.index_select(0, idx) for k, v in stream.items()}

@@ -7,8 +7,9 @@ the directional prompts of Perp-Neg (stable.py).
 
 The three uniform draws of ``rand_poses`` (θ, φ, radius) come from a
 ``torch.Generator``, or are injected as ``u`` ([3, size] in [0, 1)): the
-JAX package's threefry streams cannot be replayed in torch, so the tests
-hand over its draws.
+tests hand over the JAX package's draws. Perp-Neg's key tree is not
+mirrored by utils/jax_random.py, so a run with the JAX package's draws
+refuses Perp-Neg.
 """
 from __future__ import annotations
 

@@ -14,8 +14,11 @@ the renders is differentiated.
 
 Every random draw is an optional argument (the noise ε, the VAE posterior
 ε of the render and of the masked image, Perp-Neg's orbit uniforms), else
-drawn from a ``torch.Generator``; the tests hand the port the JAX
-package's draws.
+drawn from a ``torch.Generator`` or, for the stack's init, the RGB and
+normal modalities and the masked-latents cache, from a ``JaxKey``
+(utils/jax_random.py), split as the JAX package splits its key so that
+the draws are that package's; Perp-Neg and colla raise with a JaxKey
+(their key trees are not mirrored).
 
 Resizing: ``jax.image.resize`` samples at half-pixel centres. Its
 "nearest" at the 512 → 64 mask downsample is torch's "nearest-exact"
@@ -41,6 +44,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import jax_random as jr
 from .blocks import init_weights_
 from .schedule import DiffusionSchedule
 from .directional import adjust_text_embeddings, wrap_azimuth
@@ -79,11 +83,13 @@ class SDModules:
 def _build(ctor, generator, device, dtype):
     """ctor() built without storage, placed on ``device``, initialised from
     ``generator`` there, then cast to ``dtype``: a full-size init on the
-    card takes a fraction of a second, on the host tens of seconds."""
+    card takes a fraction of a second, on the host tens of seconds. A
+    JaxKey leaves the storage for ``init_sd`` to fill."""
     with torch.device("meta"):
         module = ctor()
     module = module.to_empty(device=device)
-    init_weights_(module, generator)
+    if not jr.is_jax(generator):
+        init_weights_(module, generator)
     return module.to(dtype).eval().requires_grad_(False)
 
 
@@ -98,9 +104,10 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
     the prompt embeddings.
 
     generator: draws the random init, on ``device`` (default: one seeded
-    with 0). weights_dir: a local diffusers-layout checkpoint; without it
-    the models keep their random init — the pipeline runs, quality needs
-    real weights. The UNet and VAE compute in ``dtype`` (bf16 on the card;
+    with 0); a JaxKey gives the JAX package's init from that key
+    (utils/jax_init.py::init_sd). weights_dir: a local diffusers-layout
+    checkpoint; without it the models keep their random init — the
+    pipeline runs, quality needs real weights. The UNet and VAE compute in ``dtype`` (bf16 on the card;
     the JAX package keeps f32 params and computes in bf16, the same
     rounding); the text tower in f32.
     """
@@ -121,9 +128,14 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
     vae = _build(lambda: AutoencoderKL(vcfg), generator, device, dtype)
     text = _build(lambda: CLIPTextEncoder(tcfg), generator, device,
                   torch.float32)
-    with torch.no_grad():
-        text.text_model.embeddings.position_embedding.weight.normal_(
-            0.0, 0.01, generator=generator)
+    if jr.is_jax(generator):
+        from ..utils.jax_init import init_sd
+
+        init_sd(unet, vae, text, generator)
+    else:
+        with torch.no_grad():
+            text.text_model.embeddings.position_embedding.weight.normal_(
+                0.0, 0.01, generator=generator)
 
     tok_dir = weights_dir and os.path.join(weights_dir, "tokenizer")
     if tok_dir and not os.path.isdir(tok_dir):
@@ -196,7 +208,7 @@ def _gate_negative(embeds: torch.Tensor, gate_step: int, use_negative: int):
 
 
 def _randn(shape, generator, dtype, device) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    return jr.draw("randn", shape, generator, dtype, device)
 
 
 def sd_train_step(mods: SDModules, gcfg, step_i: int, rgb: torch.Tensor,
@@ -253,8 +265,10 @@ def _noised_latents(mods: SDModules, gcfg, step_i: int, rgbs, masks,
     without gradient unless ``masked_latents`` is given; unet_in [B, LR,
     LR, 9] is the UNet's input (noised latents without gradient, the
     latent mask, the masked latents). noise, enc_eps, enc_masked_eps: the
-    injected draws [B, LR, LR, 4], else drawn from ``generator``."""
+    injected draws [B, LR, LR, 4], else drawn from ``generator`` (a JaxKey
+    splits in three as the JAX package's: noise, render, masked image)."""
     S, LR = mods.latent_size, mods.latent_res
+    k_noise, k_enc1, k_enc2 = jr.split(generator, 3)
     sched = mods.schedule
     dev, vdt = rgbs.device, mods.vae.quant_conv.weight.dtype
     lat_shape = (rgbs.shape[0], LR, LR, mods.vae.config.latent_channels)
@@ -262,11 +276,11 @@ def _noised_latents(mods: SDModules, gcfg, step_i: int, rgbs, masks,
     rgb512 = _resize(rgbs, S) * 2.0 - 1.0                    # [B,S,S,3]
     mask512 = _resize(torch.abs(masks)[..., None], S)         # [B,S,S,1]
     if enc_eps is None:
-        enc_eps = _randn(lat_shape, generator, vdt, dev)
+        enc_eps = _randn(lat_shape, k_enc1, vdt, dev)
     init_latents = mods.vae.encode(rgb512, enc_eps)           # differentiable
     if masked_latents is None:
         if enc_masked_eps is None:
-            enc_masked_eps = _randn(lat_shape, generator, vdt, dev)
+            enc_masked_eps = _randn(lat_shape, k_enc2, vdt, dev)
         with torch.no_grad():
             masked_latents = mods.vae.encode(rgb512 * (mask512 < 0.5),
                                              enc_masked_eps)
@@ -274,7 +288,7 @@ def _noised_latents(mods: SDModules, gcfg, step_i: int, rgbs, masks,
 
     t = sched.annealed_t(step_i, gcfg.t_range, gcfg.anneal_iters)
     if noise is None:
-        noise = _randn(init_latents.shape, generator, torch.float32, dev)
+        noise = _randn(init_latents.shape, k_noise, torch.float32, dev)
     latents_t = sched.add_noise(init_latents, noise, t)
     unet_in = torch.cat([latents_t.detach(), mask_latent,
                          masked_latents.to(latents_t.dtype)], dim=-1)
@@ -312,6 +326,7 @@ def sd_train_step_colla(mods: SDModules, gcfg, step_i: int,
     per view in the same order. noise, enc_eps, enc_masked_eps: the
     injected draws [K, LR, LR, 4].
     """
+    jr.require_torch(generator, "collaborative guidance")
     K, LR = rgbs.shape[0], mods.latent_res
     mode = "csd" if gcfg.use_csd else "sds"
     nc = 3 if mode == "csd" else 2                            # CFG copies
@@ -351,6 +366,7 @@ def sd_train_step_perpneg(mods: SDModules, gcfg, step_i: int,
     text_z: [1+K, L, D] from adjust_text_embeddings; weights: [K];
     uncond: [L, D]. masked_latents and the draws as sd_train_step's.
     """
+    jr.require_torch(generator, "Perp-Neg guidance")
     latents_t, noise, mask_latent, unet_in, t = _noised_latents(
         mods, gcfg, step_i, rgb[None], mask[None], generator,
         masked_latents=masked_latents, noise=noise, enc_eps=enc_eps,
@@ -376,7 +392,8 @@ def precompute_masked_latents(mods: SDModules, images: torch.Tensor,
     [N, LR, LR, 4] (the RGB composite equals the GT outside the mask, so
     this is a per-view constant; the divergence from the reference's
     per-iteration encode is documented at the JAX helper). eps: the
-    injected posterior draws [N, LR, LR, 4], else drawn from generator."""
+    injected posterior draws [N, LR, LR, 4], else drawn from generator (a
+    JaxKey: view i's from fold_in(key, i), as the JAX package's)."""
     S, LR = mods.latent_size, mods.latent_res
     vdt = mods.vae.quant_conv.weight.dtype
     out = []
@@ -384,8 +401,8 @@ def precompute_masked_latents(mods: SDModules, images: torch.Tensor,
         rgb512 = _resize(images[i][None], S) * 2.0 - 1.0
         m512 = _resize(torch.abs(masks[i])[None, ..., None], S)
         e = (eps[i:i + 1] if eps is not None else
-             _randn((1, LR, LR, mods.vae.config.latent_channels), generator,
-                    vdt, images.device))
+             _randn((1, LR, LR, mods.vae.config.latent_channels),
+                    jr.fold_in(generator, i), vdt, images.device))
         out.append(mods.vae.encode(rgb512 * (m512 < 0.5), e))
     return torch.cat(out, dim=0)
 
@@ -426,6 +443,7 @@ def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
 
     def _perpneg_rgb(step_i, combin_rgb, mask, generator, *,
                      masked_latents, u=None, **draws):
+        jr.require_torch(generator, "Perp-Neg guidance")
         theta_r, phi_r, rad_r = progressive_ranges(step_i, gcfg, n_iters)
         _, _, _, phis, _ = rand_poses(
             1, generator, u=u, radius_range=rad_r, theta_range=theta_r,
@@ -447,24 +465,25 @@ def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
                     rgbs4=None, masks4=None, masked_latents=None,
                     draws=None):
         draws = draws or {}
+        k_rgb, k_n, k_c = jr.split(generator, 3)
         loss = torch.zeros((), device=combin_rgb.device)
         # masked_latents caches the RGB modality's conditioning encode
         # only: the composite is the GT outside the mask. The collaborative
         # and normal modalities' masked images come from the live renders.
         if gcfg.is_rgb_guidance and use_perpneg:
-            loss = loss + _perpneg_rgb(step_i, combin_rgb, mask, generator,
+            loss = loss + _perpneg_rgb(step_i, combin_rgb, mask, k_rgb,
                                        masked_latents=masked_latents,
                                        **draws.get("rgb", {}))
         elif gcfg.is_rgb_guidance:
             loss = loss + sd_train_step(
-                mods, gcfg, step_i, combin_rgb, mask, generator,
+                mods, gcfg, step_i, combin_rgb, mask, k_rgb,
                 embeds=mods.embeds_rgb,
                 guidance_scale=gcfg.guidance_scale,
                 w_triple=(gcfg.rgb_w1, gcfg.rgb_w2, gcfg.rgb_w3),
                 masked_latents=masked_latents, **draws.get("rgb", {}))
         if gcfg.is_colla_guidance and rgbs4 is not None:
             loss = loss + sd_train_step_colla(
-                mods, gcfg, step_i, rgbs4, masks4, generator,
+                mods, gcfg, step_i, rgbs4, masks4, k_c,
                 embeds=mods.embeds_rgb, **draws.get("colla", {}))
         if (gcfg.is_normal_guidance and normal_map is not None
                 and step_i > gcfg.normal_start_iter):
@@ -472,7 +491,7 @@ def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
             # i − normal_start_iter; the use_negative gate on the global i
             loss = loss + sd_train_step(
                 mods, gcfg, step_i - gcfg.normal_start_iter, normal_map, mask,
-                generator, embeds=mods.embeds_normal,
+                k_n, embeds=mods.embeds_normal,
                 guidance_scale=gcfg.normal_guidance_scale,
                 w_triple=(gcfg.normal_w1, gcfg.normal_w2, gcfg.normal_w3),
                 gate_step=step_i, **draws.get("normal", {}))

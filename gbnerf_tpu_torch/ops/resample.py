@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..parallel.mesh import draw
+from ..utils.jax_random import is_jax
 from ._build import kernel_function
 from .scan import cumsum_last
 
@@ -71,14 +72,38 @@ def sample_pdf_fast(bins: torch.Tensor, weights: torch.Tensor,
 def sorted_uniform(shape, *, generator: Optional[torch.Generator] = None,
                    dtype=torch.float32, device=None) -> torch.Tensor:
     """Per-row sorted uniforms: u_(i) = S_i / S_{n+1}, S_k = Σ_{j≤k} E_j,
-    E_j ~ Exp(1) — distributed as sorted iid U(0, 1) draws. A sequential
-    cumsum of non-negative terms is monotone, which the bitonic merge
-    downstream needs."""
+    E_j ~ Exp(1) — distributed as sorted iid U(0, 1) draws. A cumsum of
+    non-negative terms is monotone, which the bitonic merge downstream
+    needs. With a JaxKey the sums are added in the order of jax's CPU
+    cumsum (``scan_blocked``), so that u is the JAX package's bit for bit
+    on any device."""
     n = shape[-1]
     e = draw("exponential", tuple(shape[:-1]) + (n + 1,), generator, dtype,
              device)
-    s = torch.cumsum(e, dim=-1)
+    s = scan_blocked(e) if is_jax(generator) else torch.cumsum(e, dim=-1)
     return s[..., :-1] / s[..., -1:]
+
+
+def scan_blocked(x: torch.Tensor, block: int = 16) -> torch.Tensor:
+    """Inclusive cumsum along the last axis in XLA's CPU order (its
+    reduce-window rewrite): sequential sums within blocks of 16, the
+    blocks' totals scanned the same way and added to the next blocks.
+    Each sum is one elementwise add, so every device rounds alike."""
+    n = x.shape[-1]
+    nb = -(-n // block)
+    pad = x.new_zeros(x.shape[:-1] + (nb * block - n,))
+    blk = torch.cat([x, pad], -1).reshape(x.shape[:-1] + (nb, block))
+    cols = [blk[..., 0]]
+    for j in range(1, block):
+        cols.append(cols[-1] + blk[..., j])
+    inner = torch.stack(cols, -1)                     # [..., nb, block]
+    if nb > 1:
+        tot = inner[..., -1]
+        pre = scan_blocked(tot, block)
+        excl = torch.cat([torch.zeros_like(pre[..., :1]), pre[..., :-1]],
+                         -1)
+        inner = inner + excl[..., None]
+    return inner.reshape(x.shape[:-1] + (nb * block,))[..., :n]
 
 
 def merge_sorted_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

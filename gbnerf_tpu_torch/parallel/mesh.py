@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..utils import jax_random as jr
+
 
 def init_distributed(device="cuda", backend: Optional[str] = None
                      ) -> torch.device:
@@ -359,25 +361,21 @@ def global_rows(shard: Optional[RowShard]):
         _ROWS.reset(token)
 
 
-def draw(kind: str, shape, generator: Optional[torch.Generator],
-         dtype=torch.float32, device=None) -> torch.Tensor:
+def draw(kind: str, shape, generator, dtype=torch.float32, device=None
+         ) -> torch.Tensor:
     """A random tensor of ``shape`` from ``generator``: "rand" (uniform in
-    [0, 1)), "randn" or "exponential" (rate 1). Inside ``global_rows`` the
+    [0, 1)), "randn" or "exponential" (rate 1); a ``JaxKey`` draws the JAX
+    package's values (utils/jax_random.py). Inside ``global_rows`` the
     leading axis is this rank's rows of the batch: the draw is made at the
     global row count, as one process makes it, and rows [start, stop)
-    are kept (zero rows pad it to the rank's count)."""
+    are kept (zero rows pad it to the rank's count); the JAX package's
+    key tree is not mirrored there, so a ``JaxKey`` raises."""
     shard = _ROWS.get()
     shape = tuple(shape)
+    if shard is not None and shard.rows != shard.n:
+        jr.require_torch(generator, "a draw of the data-parallel mesh")
     full = shape if shard is None else (shard.n,) + shape[1:]
-    if kind == "rand":
-        x = torch.rand(full, generator=generator, dtype=dtype, device=device)
-    elif kind == "randn":
-        x = torch.randn(full, generator=generator, dtype=dtype, device=device)
-    elif kind == "exponential":
-        x = torch.empty(full, dtype=dtype, device=device)
-        x.exponential_(generator=generator)
-    else:
-        raise ValueError(f"unknown draw kind: {kind!r}")
+    x = jr.draw(kind, full, generator, dtype, device)
     if shard is None:
         return x
     if shape[0] != shard.rows:

@@ -8,6 +8,12 @@ The twin of the repository's run.py (same config files, same overrides):
         --set train.N_iters=2000 --set render.N_samples=64
     python -m gbnerf_tpu_torch.run --config configs/scene1.txt --render_only
     python -m gbnerf_tpu_torch.run --config configs/scene1.txt --device cpu
+    python -m gbnerf_tpu_torch.run --config configs/scene1.txt --draws jax
+
+``--draws jax`` replays the JAX package's random streams and initial
+fields (utils/jax_random.py): with it, ``train.seed`` gives the run the
+JAX package makes from that seed. The default, ``torch``, draws from
+torch generators seeded with it.
 
 It runs on the first CUDA device (``--device cuda``, the default) and
 exits with an error when there is none: it never falls back to the CPU by
@@ -84,6 +90,10 @@ def main(argv=None):
                    help="under torchrun: nccl (the default on the card) or "
                         "gloo (the default on the CPU; on the card it lets "
                         "ranks share a card)")
+    p.add_argument("--draws", default="torch", choices=("torch", "jax"),
+                   help="torch (default): torch generators seeded with "
+                        "train.seed; jax: the JAX package's draws and "
+                        "initial fields for train.seed")
     args = p.parse_args(argv)
 
     from gbnerf_tpu_torch.config import load_reference_config
@@ -113,7 +123,7 @@ def main(argv=None):
         if rank() == 0:          # one rank renders: nothing to split
             render_only(cfg, device=device)
     else:
-        train(cfg, device=device)
+        train(cfg, device=device, draws=args.draws)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return 0

@@ -3,7 +3,7 @@
     python -m gbnerf_tpu_torch.tools.run_ablation OUT [--arms s1,nog]
         [--combine sds|csd|csd_ref] [--iters1 10000] [--iters2 10000]
         [--prior_steps 6000] [--lora_steps 1000] [--skip_prior]
-        [--device cuda] [--check]
+        [--device cuda] [--draws torch|jax] [--check]
 
 The port's twin of tools/run_ablation.py at the settings of
 ``tools/run_ablation.py OUT --production --colmap --lindisp`` (the
@@ -43,7 +43,11 @@ the one card: a guided arm leaves the card idle most of a step, and each
 run is the same computation either way. Guided arms' names carry the
 combine's tag (``prior-sds``), as in the original. ``--smoke``
 swaps in the original's small-MLP field (its non-production default) for
-quick CPU runs, and ``--latent`` a smaller guidance resolution. Results:
+quick CPU runs, and ``--latent`` a smaller guidance resolution.
+``--draws jax`` passes on to the prior's trainer and to every arm: each
+then draws what the JAX package draws for its seed (utils/jax_random.py);
+the LoRA arms (priorL, priorNL) refuse it, their trainer's key tree is not
+mirrored. Results:
 OUT/ablation.json and a table of masked, unmasked and full held-out PSNR.
 """
 from __future__ import annotations
@@ -306,6 +310,9 @@ def main(argv=None):
                     help="passed to every command (cpu without a card)")
     ap.add_argument("--smoke", action="store_true",
                     help="the original's small-MLP field, for CPU runs")
+    ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
+                    help="passed to the prior's trainer and every arm: "
+                         "torch generators, or the JAX package's draws")
     ap.add_argument("--check", action="store_true",
                     help="write and check the arm configs, train nothing")
     args = ap.parse_args(argv)
@@ -315,6 +322,11 @@ def main(argv=None):
     if bad:
         raise SystemExit(f"unknown arms {bad}: the ablation's arms are "
                          f"{ARMS}")
+    lora_arms = [a for a in arms if a in ("priorL", "priorNL")]
+    if args.draws == "jax" and lora_arms:
+        raise SystemExit(f"--draws jax: the arms {lora_arms} train a LoRA, "
+                         "whose key tree is not mirrored; run them with "
+                         "--draws torch")
     out = os.path.abspath(args.out)
     logs = os.path.join(out, "logs")
     os.makedirs(logs, exist_ok=True)
@@ -358,8 +370,8 @@ def main(argv=None):
             raise SystemExit(f"--skip_prior but no prior at {prior}")
         return start([py, "-m", "gbnerf_tpu_torch.tools.train_tiny_prior",
                       prior, "--res", str(args.latent), "--steps_unet",
-                      str(args.prior_steps), "--device", args.device],
-                     "prior_train.log")
+                      str(args.prior_steps), "--device", args.device,
+                      "--draws", args.draws], "prior_train.log")
 
     def train_lora():
         if not any(a in ("priorL", "priorNL") for a in arms) or _check_meta(
@@ -395,7 +407,8 @@ def main(argv=None):
         elif os.path.isdir(os.path.join(logs, "s1", "ckpt")):
             return None
         return start([py, "-m", "gbnerf_tpu_torch.run", "--config",
-                      paths[arm], "--device", args.device], f"{name}.log")
+                      paths[arm], "--device", args.device, "--draws",
+                      args.draws], f"{name}.log")
 
     try:
         prior_job = train_prior()

@@ -6,6 +6,7 @@ scene prior).
         [--res 128] [--n_domain 384] [--steps_vae 1500] [--steps_unet 4000]
         [--batch auto] [--lr 2e-3] [--chunk 50] [--seed 0]
         [--family spheres|hard] [--prompt ...] [--device cuda]
+        [--draws torch|jax]
 
 The port's twin of tools/train_tiny_prior.py, with its flags, defaults and
 auto batch. It trains the tiny UNet/VAE stack (guidance/unet.py and vae.py
@@ -31,7 +32,12 @@ Phases (Adam each, as optax.adam):
 The JAX tool runs ``--chunk`` steps per jitted fori_loop; here the steps
 are a plain loop on the device and ``--chunk`` is the logging interval
 (the loss of the chunk's last step). Every draw of ``vae_loss`` and
-``unet_loss`` is an argument.
+``unet_loss`` is an argument. ``--draws jax`` replays the JAX tool's
+draws (utils/jax_random.py): the stack's init from PRNGKey(seed), the
+steps' key chain from PRNGKey(seed + 10), split as its loops split it,
+and its step counts (whole chunks: ceil(steps / chunk) · chunk); its log
+lines then report what the JAX tool's do, the loss of a fresh batch drawn
+from the chain's key after the chunk (which leaves the chain as it is).
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import torch
 
 from ..core.normals import depth2normal_geo, depth2xyz
 from ..guidance.stable import _resize
-from ..train.lora_trainer import draw_step, random_mask
+from ..train.lora_trainer import random_mask
+from ..utils import jax_random as jr
 from .make_synthetic_scene import (look_at, random_hard_params,
                                    render_scene, render_scene_hard)
 
@@ -104,14 +111,19 @@ def vae_loss(vae, batch: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
             + 1e-3 * torch.mean(torch.mean(z, dim=(1, 2)) ** 2))
 
 
-def unet_draws(generator, batch: int, lr_res: int, device
+def unet_draws(rng, batch: int, lr_res: int, device
                ) -> Dict[str, torch.Tensor]:
-    """The LoRA step's draws (t, ε, the two posterior ε) and the
-    conditioning slot of each image in its modality's triple."""
-    draws = draw_step(generator, batch, lr_res, device)
-    draws["cond"] = torch.randint(0, 3, (batch,), generator=generator,
-                                  device=device)
-    return draws
+    """The LoRA step's draws (t, ε, the image's and the masked image's
+    posterior ε) and the conditioning slot of each image in its modality's
+    triple, in that order; a JaxKey splits in five as the JAX tool's
+    ``unet_loss``."""
+    k_t, k_n, k_e1, k_e2, k_c = jr.split(rng, 5)
+    shape = (batch, lr_res, lr_res, 4)
+    return {"t": jr.randint_(k_t, 0, 1000, (batch,), device),
+            "noise": jr.draw("randn", shape, k_n, device=device),
+            "enc_eps": jr.draw("randn", shape, k_e1, device=device),
+            "enc_masked_eps": jr.draw("randn", shape, k_e2, device=device),
+            "cond": jr.randint_(k_c, 0, 3, (batch,), device)}
 
 
 def unet_loss(unet, vae, sched, embeds6: torch.Tensor, batch_img, batch_mask,
@@ -152,6 +164,9 @@ def parse_args(argv=None):
                          "scene's --family)")
     ap.add_argument("--prompt", default="a photo of a sphere")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
+                    help="torch (default) or the JAX tool's draws for "
+                         "--seed")
     args = ap.parse_args(argv)
     if args.batch is None:
         # constant pixel footprint: 16·256² pixels a batch
@@ -173,9 +188,11 @@ def main(argv=None):
     from ..train.loop import device_from_flag
 
     device = device_from_flag(args.device)
+    jax_draws = args.draws == "jax"
     gcfg = GuidanceConfig(prompt=args.prompt, prompt_normal=args.prompt)
     mods = build_sd_modules(
-        gcfg, torch.Generator(device=device).manual_seed(args.seed),
+        gcfg, jr.PRNGKey(args.seed) if jax_draws else
+        torch.Generator(device=device).manual_seed(args.seed),
         unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
         text_config=CLIPTextConfig(vocab_size=49408, width=32, layers=2,
                                    heads=2),
@@ -209,32 +226,52 @@ def main(argv=None):
     masks = torch.as_tensor(make_domain_masks(args.n_domain, args.res,
                                               args.seed), device=device)
     embeds6 = torch.cat([mods.embeds_rgb, mods.embeds_normal])   # [6,L,D]
-    gen = torch.Generator(device=device).manual_seed(args.seed + 10)
+    if jax_draws:
+        rng = jr.PRNGKey(args.seed + 10)
+        whole = lambda n: -(-n // args.chunk) * args.chunk      # noqa: E731
+        steps_vae, steps_unet = whole(args.steps_vae), whole(args.steps_unet)
+    else:
+        rng = torch.Generator(device=device).manual_seed(args.seed + 10)
+        steps_vae, steps_unet = args.steps_vae, args.steps_unet
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def vae_batch_loss(k_b, k_l):
+        return vae_loss(
+            vae, imgs[jr.randint_(k_b, 0, n_pool, (args.batch,), device)],
+            jr.draw("randn", (args.batch, lr_res, lr_res, 4), k_l,
+                    device=device))
+
+    def unet_batch_loss(k_b, k_m, k_l):
+        idx = jr.randint_(k_b, 0, n_pool, (args.batch,), device)
+        midx = jr.randint_(k_m, 0, args.n_domain, (args.batch,), device)
+        return unet_loss(unet, vae, sched, embeds6, imgs[idx], masks[midx],
+                         idx, args.n_domain,
+                         unet_draws(k_l, args.batch, lr_res, device))
+
     # ---- phase A: the VAE as an autoencoder ----
     vae.requires_grad_(True)
     opt = torch.optim.Adam(vae.parameters(), lr=args.lr, eps=1e-8)
     t0 = t_phase = time.perf_counter()
-    for i in range(1, args.steps_vae + 1):
-        idx = torch.randint(0, n_pool, (args.batch,), generator=gen,
-                            device=device)
-        eps = torch.randn((args.batch, lr_res, lr_res, 4), generator=gen,
-                          device=device)
+    for i in range(1, steps_vae + 1):
+        rng, k_b, k_l = jr.split(rng, 3)
         opt.zero_grad(set_to_none=True)
-        loss = vae_loss(vae, imgs[idx], eps)
+        loss = vae_batch_loss(k_b, k_l)
         loss.backward()
         opt.step()
-        if i % args.chunk == 0 or i == args.steps_vae:
-            print(f"[vae {i}/{args.steps_vae}] loss={loss.item():.4f} "
+        if jax_draws and i % args.chunk == 0:
+            # the JAX tool logs a fresh batch from the chain's key
+            with torch.no_grad():
+                loss = vae_batch_loss(*jr.split(rng))
+        if i % args.chunk == 0 or i == steps_vae:
+            print(f"[vae {i}/{steps_vae}] loss={loss.item():.4f} "
                   f"({args.chunk / (time.perf_counter() - t0):.0f} it/s)",
                   flush=True)
             t0 = time.perf_counter()
     sync()
-    print(f"[prior] phase A: {args.steps_vae} VAE steps in "
+    print(f"[prior] phase A: {steps_vae} VAE steps in "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
     vae.requires_grad_(False)
 
@@ -242,24 +279,22 @@ def main(argv=None):
     unet.requires_grad_(True)
     opt = torch.optim.Adam(unet.parameters(), lr=args.lr * 0.5, eps=1e-8)
     t0 = t_phase = time.perf_counter()
-    for i in range(1, args.steps_unet + 1):
-        idx = torch.randint(0, n_pool, (args.batch,), generator=gen,
-                            device=device)
-        midx = torch.randint(0, args.n_domain, (args.batch,), generator=gen,
-                             device=device)
-        draws = unet_draws(gen, args.batch, lr_res, device)
+    for i in range(1, steps_unet + 1):
+        rng, k_b, k_m, k_l = jr.split(rng, 4)
         opt.zero_grad(set_to_none=True)
-        loss = unet_loss(unet, vae, sched, embeds6, imgs[idx], masks[midx],
-                         idx, args.n_domain, draws)
+        loss = unet_batch_loss(k_b, k_m, k_l)
         loss.backward()
         opt.step()
-        if i % args.chunk == 0 or i == args.steps_unet:
-            print(f"[unet {i}/{args.steps_unet}] loss={loss.item():.4f} "
+        if jax_draws and i % args.chunk == 0:
+            with torch.no_grad():
+                loss = unet_batch_loss(*jr.split(rng, 3))
+        if i % args.chunk == 0 or i == steps_unet:
+            print(f"[unet {i}/{steps_unet}] loss={loss.item():.4f} "
                   f"({args.chunk / (time.perf_counter() - t0):.0f} it/s)",
                   flush=True)
             t0 = time.perf_counter()
     sync()
-    print(f"[prior] phase B: {args.steps_unet} UNet steps in "
+    print(f"[prior] phase B: {steps_unet} UNet steps in "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
     unet.requires_grad_(False)
 

@@ -49,6 +49,7 @@ from .state import create_params, create_train_state
 from .step import (make_render_fn, make_train_step_stage1,
                    make_train_step_stage2, shard_render)
 from ..parallel import mesh as pmesh
+from ..utils import jax_random as jr
 
 
 _NO_CARD = ("no CUDA device (torch.cuda.is_available() is False): the "
@@ -202,7 +203,8 @@ def load_prior(mods, g) -> None:
           "prior unet")
 
 
-def build_guidance(cfg: Config, scene_dev, device, seed: int):
+def build_guidance(cfg: Config, scene_dev, device, seed: int,
+                   next_key=None):
     """The SD guidance hook of stage 2 → (guidance_fn, mods, times), or
     (None, None, {}) with the JAX package's warning when guidance is asked
     for but no weights source (sd_weights_dir, sd_tiny, sd_allow_random)
@@ -212,8 +214,11 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int):
     from a device generator seeded with ``seed``, unless sd_weights_dir;
     sd_tiny → the tiny f32 stack; sd_prior_ckpt and sd_lora_ckpt through
     ``load_prior``) and, with cache_masked_latents, writes
-    the per-view masked-conditioning latents into ``scene_dev``. times:
-    {"sd_build_s", "masked_latents_s"}, each ending in a device sync.
+    the per-view masked-conditioning latents into ``scene_dev``.
+    next_key: the JAX package's draws instead (a callable splitting the
+    loop's key, as the JAX loop does: once for the init, once more for the
+    cache). times: {"sd_build_s", "masked_latents_s"}, each ending in a
+    device sync.
     """
     from ..guidance import build_sd_modules, make_guidance_fn
     from ..guidance.stable import precompute_masked_latents
@@ -239,7 +244,8 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int):
                   latent_size=g.sd_latent_size or 64, dtype=torch.float32)
     elif g.sd_latent_size:
         kw = dict(latent_size=g.sd_latent_size)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (next_key() if next_key is not None else
+           torch.Generator(device=device).manual_seed(seed))
     times = {}
     t0 = time.perf_counter()
     mods = build_sd_modules(g, gen, weights_dir=g.sd_weights_dir,
@@ -251,6 +257,8 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int):
     guidance_fn = make_guidance_fn(mods, g, n_iters=t.N_iters)
     if g.is_rgb_guidance and g.cache_masked_latents:
         t0 = time.perf_counter()
+        if next_key is not None:
+            gen = next_key()
         scene_dev["masked_latents"] = precompute_masked_latents(
             mods, scene_dev["images"], scene_dev["masks"], generator=gen)
         _sync(device)
@@ -266,20 +274,20 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int):
     return guidance_fn, mods, times
 
 
-def build_lpips(cfg: Config, device):
+def build_lpips(cfg: Config, device, key=None):
     """The LPIPS network when ``lpips`` or ``lpips_weights`` is set, else
     None: the VGG16 weights from ``lpips_weights`` (the npz of
-    ``python -m gbnerf_tpu_torch.tools.convert_vgg``), or random from a
-    CPU generator seeded with train.seed, with the JAX package's
-    warning."""
+    ``python -m gbnerf_tpu_torch.tools.convert_vgg``), or random, with the
+    JAX package's warning: from a CPU generator seeded with train.seed, or
+    from ``key`` (a JaxKey: the JAX package's random VGG)."""
     from ..utils.lpips import LPIPS, load_vgg16_npz
 
     t = cfg.train
     if not (t.lpips or t.lpips_weights):
         return None
     weights = load_vgg16_npz(t.lpips_weights) if t.lpips_weights else None
-    fn = LPIPS(torch.Generator().manual_seed(t.seed), weights=weights,
-               device=device)
+    gen = key if key is not None else torch.Generator().manual_seed(t.seed)
+    fn = LPIPS(gen, weights=weights, device=device)
     if weights is None:
         print("[lpips] WARNING: no lpips_weights given — VGG features "
               "are RANDOM. Usable as a patch-loss regularizer, but "
@@ -395,9 +403,34 @@ def build_mesh(cfg: Config, mods):
     return None, 0
 
 
+def _check_jax_draws(cfg: Config) -> None:
+    """The paths whose key trees the port does not mirror raise under
+    draws="jax" (they would otherwise mix in torch's draws)."""
+    g, t = cfg.guidance, cfg.train
+    stage2 = not t.first_stage
+    # the stack that build_guidance makes: bf16 unless sd_tiny, and the
+    # JAX package draws the VAE posterior's ε in the stack's dtype
+    full_sd = (stage2 and "SD" in g.guidance and not g.sd_tiny
+               and (g.is_rgb_guidance or g.is_normal_guidance)
+               and bool(g.sd_weights_dir or g.sd_allow_random))
+    for on, what in ((stage2 and g.perpneg, "Perp-Neg"),
+                     (stage2 and g.is_colla_guidance,
+                      "collaborative guidance"),
+                     (pmesh.world_size() > 1, "the data-parallel mesh"),
+                     (t.steps_per_dispatch != 1,
+                      "steps_per_dispatch > 1 (a split a chunk, then "
+                      "split(rng, n) inside it)"),
+                     (full_sd, "the bfloat16 SD stack's posterior draws")):
+        if on:
+            raise NotImplementedError(
+                f"draws='jax': the JAX package's key tree of {what} is not "
+                "mirrored; run it with draws='torch'")
+
+
 def train(cfg: Config, *, guidance_fn=None,
           log_fn: Callable[[int, dict], None] = None,
-          scene=None, depth_gts=None, device=None) -> dict:
+          scene=None, depth_gts=None, device=None,
+          draws: str = "torch") -> dict:
     """Run the training loop, stage 1 or (first_stage = False) stage 2;
     returns the final state + summary.
 
@@ -410,8 +443,19 @@ def train(cfg: Config, *, guidance_fn=None,
     With several ranks under torchrun (parallel/mesh.py::init_distributed
     joined), every rank trains its rows of each batch and rank 0 alone
     writes the config, metrics, checkpoints and renders.
+    draws: "torch" (the port's own draws: torch generators seeded with
+    train.seed) or "jax" (the JAX package's: its key tree from
+    PRNGKey(train.seed), replayed by utils/jax_random.py, and its initial
+    fields, so that train.seed means the JAX package's run; Perp-Neg,
+    colla, the data-parallel mesh, steps_per_dispatch > 1 and the bf16
+    SD stack (any but sd_tiny) raise).
     """
     t = cfg.train
+    if draws not in ("torch", "jax"):
+        raise ValueError(f"draws must be 'torch' or 'jax', not {draws!r}")
+    jax_draws = draws == "jax"
+    if jax_draws:
+        _check_jax_draws(cfg)
     device = torch.device(device) if device is not None else default_device()
     expdir = os.path.join(t.basedir, t.expname)
     lead = pmesh.rank() == 0
@@ -432,11 +476,23 @@ def train(cfg: Config, *, guidance_fn=None,
                             scene.poses, focal, depth_gts)
     banks_dev = banks_to_device(banks, device)
 
-    # init draws on the CPU (the same fields on every device); the step's
-    # draws (batches, jitter, σ noise, fine samples) on the device
-    state, coarse, fine = create_train_state(
-        cfg, torch.Generator().manual_seed(t.seed), device)
-    gen = torch.Generator(device=device).manual_seed(t.seed)
+    if jax_draws:
+        # the JAX loop's key: rng, k_init = split(PRNGKey(seed)); then the
+        # guidance's and LPIPS's keys, then one split a step
+        rng, k_init = jr.split(jr.PRNGKey(t.seed))
+        state, coarse, fine = create_train_state(cfg, k_init, device)
+
+        def next_key():
+            nonlocal rng
+            rng, key = jr.split(rng)
+            return key
+    else:
+        # init draws on the CPU (the same fields on every device); the
+        # step's draws (batches, jitter, σ noise, fine samples) on the
+        # device (jr.split passes the generator through)
+        state, coarse, fine = create_train_state(
+            cfg, torch.Generator().manual_seed(t.seed), device)
+        rng = torch.Generator(device=device).manual_seed(t.seed)
 
     ckpt = CheckpointManager(os.path.join(expdir, "ckpt"))
     if t.ft_path:
@@ -461,13 +517,15 @@ def train(cfg: Config, *, guidance_fn=None,
     alpha = load_alpha_model(cfg, device)
     render_fn = make_render_fn(cfg, coarse, fine, scene.near, scene.far,
                                hwf=scene.hwf, alpha=alpha)
-    lpips_fn = build_lpips(cfg, device)
     mods, setup_times = None, {}
     if not t.first_stage:
         scene_dev = scene_to_device(scene, banks, device)
         if guidance_fn is None:
             guidance_fn, mods, setup_times = build_guidance(
-                cfg, scene_dev, device, t.seed + 1)
+                cfg, scene_dev, device, t.seed + 1,
+                next_key if jax_draws else None)
+    lpips_fn = build_lpips(cfg, device, next_key() if jax_draws and (
+        t.lpips or t.lpips_weights) else None)
     mesh, tp = build_mesh(cfg, mods)
     data_axis = cfg.mesh.data_axis
     # one state on every rank (the same seeded init or checkpoint)
@@ -482,14 +540,14 @@ def train(cfg: Config, *, guidance_fn=None,
         step_fn = make_train_step_stage1(cfg, coarse, fine, scene.near,
                                          scene.far, alpha=alpha, mesh=mesh,
                                          mesh_axis=data_axis, hwf=scene.hwf)
-        step_args = (banks_dev, gen)
+        step_args = (banks_dev,)
     else:
         step_fn = make_train_step_stage2(cfg, coarse, fine, scene.near,
                                          scene.far, scene.hwf,
                                          guidance_fn=guidance_fn,
                                          lpips_fn=lpips_fn, alpha=alpha,
                                          mesh=mesh, mesh_axis=data_axis)
-        step_args = (scene_dev, banks_dev, gen)
+        step_args = (scene_dev, banks_dev)
     params = [p for f in state.fields() for p in f.parameters()]
 
     # Optional EMA of the params (the reference's stable-dreamfusion
@@ -529,7 +587,8 @@ def train(cfg: Config, *, guidance_fn=None,
                           "continue)")
                 break
             it += 1
-            state, metrics = step_fn(state, *step_args)
+            rng, key = jr.split(rng)
+            state, metrics = step_fn(state, *step_args, key)
             i = it - 1          # the cadence checks below use i + 1 == it
 
             # Failure recovery: a non-finite loss would poison every later
@@ -551,8 +610,10 @@ def train(cfg: Config, *, guidance_fn=None,
                 if prev is not None:
                     ckpt.restore(state)
                 else:
-                    c, f = create_params(cfg, torch.Generator().manual_seed(
-                        t.seed + nan_restores), device)
+                    c, f = create_params(cfg, jr.PRNGKey(
+                        t.seed + nan_restores) if jax_draws else
+                        torch.Generator().manual_seed(t.seed + nan_restores),
+                        device)
                     coarse.load_state_dict(c.state_dict())
                     if fine is not None:
                         fine.load_state_dict(f.state_dict())
@@ -561,7 +622,10 @@ def train(cfg: Config, *, guidance_fn=None,
                 # the EMA may have blended non-finite params: reset it
                 if ema_params is not None:
                     ema_params = [p.detach().clone() for p in params]
-                gen.manual_seed(t.seed + 1000 + nan_restores)
+                if jax_draws:
+                    rng = jr.fold_in(rng, 1000 + nan_restores)
+                else:
+                    rng.manual_seed(t.seed + 1000 + nan_restores)
                 continue
             if ema_params is not None:
                 with torch.no_grad():

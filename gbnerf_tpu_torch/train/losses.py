@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import draw
+from ..utils import jax_random as jr
 
 
 def cp_tv_loss(fields: Iterable[nn.Module]) -> torch.Tensor:
@@ -48,7 +49,8 @@ def sigma_loss(field_fn, rays_o, rays_d, viewdirs, near, depths, *,
     whose form turns NaN for σ ≳ 88).
     u: optional injected jitter uniforms [N, N_samples]; noise: optional
     injected standard-normal σ noise [N, N_samples]; otherwise both are
-    drawn from ``generator``.
+    drawn from ``generator`` (a JaxKey splits as the JAX package's: the
+    jitter from the first half, the noise from the second).
     """
     dt, dev = rays_o.dtype, rays_o.device
     t = torch.linspace(0.0, 1.0, N_samples, dtype=dt, device=dev)
@@ -59,8 +61,9 @@ def sigma_loss(field_fn, rays_o, rays_d, viewdirs, near, depths, *,
         mids = 0.5 * (z[..., 1:] + z[..., :-1])
         upper = torch.cat([mids, z[..., -1:]], -1)
         lower = torch.cat([z[..., :1], mids], -1)
+        k_u, generator = jr.split(generator)
         if u is None:
-            u = draw("rand", z.shape, generator, dt, dev)
+            u = draw("rand", z.shape, k_u, dt, dev)
         z = lower + (upper - lower) * u
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
     raw = field_fn(pts, viewdirs)
@@ -150,8 +153,10 @@ def draw_patch_idx(mask: torch.Tensor, n_patches: int,
                    ) -> torch.Tensor:
     """n_patches uniform draws from [0, count of mask pixels > 0) (from
     [0, 1) when the mask is empty): the positions in the mask's pixel table
-    of the patch centres."""
+    of the patch centres. A JaxKey draws the JAX package's ``randint``."""
     count = torch.sum(mask > 0).clamp_min(1)
+    if jr.is_jax(generator):
+        return jr.randint(generator, (n_patches,), 0, count, mask.device)
     u = torch.rand(n_patches, generator=generator, device=mask.device)
     return torch.minimum((u * count).long(), count - 1)
 

@@ -18,6 +18,7 @@ from torch import nn
 from ..config import Config
 from ..core.cp_field import CPGridField
 from ..core.fields import HashGridField, NeRFMLP
+from ..utils import jax_random as jr
 
 
 def build_field(cfg: Config, fine: bool = False, *, device=None,
@@ -48,14 +49,23 @@ def build_field(cfg: Config, fine: bool = False, *, device=None,
                        device=device, generator=generator)
 
 
-def create_params(cfg: Config, generator: torch.Generator, device=None
+def create_params(cfg: Config, generator, device=None
                   ) -> Tuple[nn.Module, Optional[nn.Module]]:
     """Init the coarse and fine fields → (coarse, fine); fine is None when
-    N_importance == 0 (the coarse field is then reused)."""
+    N_importance == 0 (the coarse field is then reused). generator: a
+    torch.Generator, or a JaxKey for the JAX package's
+    ``create_train_state(cfg, key)`` fields (utils/jax_init.py)."""
+    key = generator if jr.is_jax(generator) else None
+    if key is not None:
+        generator = torch.Generator().manual_seed(0)
     coarse = build_field(cfg, fine=False, device=device, generator=generator)
     fine = None
     if cfg.render.N_importance > 0:
         fine = build_field(cfg, fine=True, device=device, generator=generator)
+    if key is not None:
+        from ..utils.jax_init import init_train_fields
+
+        init_train_fields(coarse, fine, key)
     return coarse, fine
 
 
@@ -117,9 +127,9 @@ def adam_step(state: TrainState, schedule: Callable[[int], float]) -> None:
 
 def create_train_state(cfg: Config, generator: torch.Generator, device=None
                        ) -> Tuple[TrainState, nn.Module, Optional[nn.Module]]:
-    """Init the fields (drawn from ``generator``, moved to ``device``) and
-    the optimizer → (state, coarse, fine), as the JAX package returns
-    (state, coarse_model, fine_model)."""
+    """Init the fields (drawn from ``generator``, a torch.Generator or a
+    JaxKey, on ``device``) and the optimizer → (state, coarse, fine), as
+    the JAX package returns (state, coarse_model, fine_model)."""
     coarse, fine = create_params(cfg, generator, device)
     params = list(coarse.parameters())
     if fine is not None:

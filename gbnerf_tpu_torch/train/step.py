@@ -26,6 +26,7 @@ from ..data.rays_bank import sample_batch
 from ..guidance.stable import _resize
 from ..parallel.mesh import (DeviceMesh, average_grads, data_sharding,
                              gather, global_rows)
+from ..utils import jax_random as jr
 from ..utils.metrics import img2mse, mse2psnr, weighted_mse
 from .losses import (cp_tv_loss, draw_patch_idx, extract_patches, pwclip,
                      sigma_loss)
@@ -216,8 +217,9 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
 
     def loss_fn(batches: Dict[str, Optional[Dict[str, torch.Tensor]]],
                 generator: Optional[torch.Generator] = None):
+        k1, k2, k3 = jr.split(generator, 3)
         clf = batches["clf"]
-        out = render(clf["o"], clf["d"], generator, train=True)
+        out = render(clf["o"], clf["d"], k1, train=True)
         img_loss = img2mse(out.rgb, clf["target"])
         loss = img_loss
         if out.rgb0 is not None:
@@ -231,21 +233,21 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
         inp = batches.get("inp")
         depth_loss = zero
         if inp is not None:
-            out_i = render(inp["o"], inp["d"], generator, train=True)
+            out_i = render(inp["o"], inp["d"], k2, train=True)
             depth_loss = img2mse(out_i.disp, inp["target"][:, 0])
             loss = loss + d.depth_lambda * depth_loss
 
         dep = batches.get("depth")
         sig_loss = col_loss = zero
         if dep is not None:
-            out_d = render(dep["o"], dep["d"], generator, train=True)
+            out_d = render(dep["o"], dep["d"], k3, train=True)
             col_loss = weighted_mse(out_d.depth, dep["target"][:, 0],
                                     dep["target"][:, 1])
             loss = loss + d.sdepth_lambda * col_loss
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator, alpha,
-                                             mesh, mesh_axis)
+                                             dep, near, jr.fold_in(k3, 1),
+                                             alpha, mesh, mesh_axis)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         if t.tv_loss_weight > 0:
@@ -257,17 +259,19 @@ def make_train_step_stage1(cfg: Config, coarse_model, fine_model,
 
     def step(state: TrainState, banks, generator=None, idx=None):
         idx = idx or {}
+        k_batch, k_loss = jr.split(generator)
+        ks = jr.split(k_batch, 3)
         batches = {
-            "clf": sample_batch(banks["rgb_clf"], t.N_rand, generator,
+            "clf": sample_batch(banks["rgb_clf"], t.N_rand, ks[0],
                                 idx.get("clf")),
-            "inp": sample_batch(banks["inp"], t.N_rand, generator,
+            "inp": sample_batch(banks["inp"], t.N_rand, ks[1],
                                 idx.get("inp")),
-            "depth": (sample_batch(banks["depth"], t.N_rand, generator,
+            "depth": (sample_batch(banks["depth"], t.N_rand, ks[2],
                                    idx.get("depth"))
                       if banks.get("depth") is not None else None),
         }
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batches, generator)
+        loss, metrics = loss_fn(batches, k_loss)
         loss.backward()
         average_grads(params, mesh)
         adam_step(state, schedule)
@@ -306,12 +310,13 @@ def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
     guidance. The view index (``img_i``), the stream draws (``idx``:
     {"clf", "inp", "depth"} → [n_rand] indices) and the collaborative
     views (``idx["colla"]`` → [n_colla] indices) may be injected;
-    otherwise they come from ``generator``."""
+    otherwise they come from ``generator`` (a JaxKey splits in five as the
+    JAX package's: view, clf, inp, depth, colla views)."""
     idx = idx or {}
     images = scene_dev["images"]
+    k_img, k_clf, k_inp, k_dep, k_col = jr.split(generator, 5)
     if img_i is None:
-        img_i = torch.randint(0, images.shape[0], (1,), generator=generator,
-                              device=images.device)
+        img_i = jr.randint_(k_img, 0, images.shape[0], (1,), images.device)
     else:
         img_i = torch.as_tensor(img_i, device=images.device).reshape(1)
 
@@ -323,18 +328,18 @@ def select_stage2_view(scene_dev: Dict[str, torch.Tensor], banks_dev,
     batch = Stage2Batch(
         image=take("images"), mask=take("masks"), coords=take("mask_coords"),
         valid=take("mask_valid"), pose=take("poses")[:3, :4],
-        clf=sample_batch(banks_dev["rgb_clf"], n_rand, generator,
+        clf=sample_batch(banks_dev["rgb_clf"], n_rand, k_clf,
                          idx.get("clf")),
-        inp=sample_batch(banks_dev["inp"], n_rand, generator, idx.get("inp")),
-        depth=(sample_batch(depth, n_rand, generator, idx.get("depth"))
+        inp=sample_batch(banks_dev["inp"], n_rand, k_inp, idx.get("inp")),
+        depth=(sample_batch(depth, n_rand, k_dep, idx.get("depth"))
                if depth is not None else None),
         masked_latents=ml.index_select(0, img_i) if ml is not None else None)
     if not n_colla:
         return batch
     ci = idx.get("colla")
     if ci is None:
-        ci = torch.randint(0, images.shape[0], (n_colla,),
-                           generator=generator, device=images.device)
+        ci = jr.randint_(k_col, 0, images.shape[0], (n_colla,),
+                         images.device)
     ci = torch.as_tensor(ci, device=images.device)
     return batch._replace(
         colla_poses=scene_dev["poses"].index_select(0, ci)[:, :3, :4],
@@ -453,13 +458,14 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 generator: Optional[torch.Generator] = None, draws=None):
         dev = batch.image.device
         zero = torch.zeros((), device=dev)
-        out2 = render(batch.clf["o"], batch.clf["d"], generator, train=True)
+        k_m, k_c, k_i, k_d, k_n, k_g = jr.split(generator, 6)
+        out2 = render(batch.clf["o"], batch.clf["d"], k_c, train=True)
         img_loss = img2mse(out2.rgb, batch.clf["target"])
         loss = img_loss
         if out2.rgb0 is not None:
             loss = loss + img2mse(out2.rgb0, batch.clf["target"])
 
-        out_i = render(batch.inp["o"], batch.inp["d"], generator, train=True)
+        out_i = render(batch.inp["o"], batch.inp["d"], k_i, train=True)
         depth_loss = img2mse(out_i.disp, batch.inp["target"][:, 0])
         loss = loss + d.depth_lambda * depth_loss
 
@@ -469,13 +475,13 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
         sig_loss = zero
         if batch.depth is not None and d.colmap_depth:
             dep = batch.depth
-            out_d = render(dep["o"], dep["d"], generator, train=True)
+            out_d = render(dep["o"], dep["d"], k_d, train=True)
             loss = loss + d.sdepth_lambda * weighted_mse(
                 out_d.depth, dep["target"][:, 0], dep["target"][:, 1])
             if t.sigma_loss_weight > 0:
                 sig_loss = _sigma_depth_loss(cfg, coarse_model, fine_model,
-                                             dep, near, generator, alpha,
-                                             mesh, mesh_axis)
+                                             dep, near, jr.fold_in(k_d, 1),
+                                             alpha, mesh, mesh_axis)
                 loss = loss + t.sigma_loss_weight * sig_loss
 
         sds_loss = lpips_loss = zero
@@ -483,14 +489,14 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
         if guidance_fn is not None or use_lpips:
             # render the masked pixels and composite them into the GT view
             ro, rd = _masked_rays(H, W, focal, batch.pose, batch.coords)
-            out_m = render(ro, rd, generator, train=True)
+            out_m = render(ro, rd, k_m, train=True)
             rgb_m = pwclip(out_m.rgb) if t.gradient_clip else out_m.rgb
             combin = _composite(batch.image, batch.coords, batch.valid, rgb_m)
             normal_map = None
             if g.is_normal_guidance and guidance_fn is not None:
                 ro_n, rd_n = _full_view_rays(H_r, W_r, focal_r, batch.pose)
                 out_n = render(ro_n.reshape(-1, 3), rd_n.reshape(-1, 3),
-                               generator, train=True)
+                               k_n, train=True)
                 depth_n = out_n.depth.reshape(H_r, W_r)
                 pts = depth2xyz(depth_n, torch.tensor(K_r, device=dev))
                 normal_map = (depth2normal_geo(pts) + 1.0) / 2.0
@@ -501,7 +507,8 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 # the GT view, cut at the same positions
                 pidx = (draws or {}).get("patches")
                 if pidx is None:
-                    pidx = draw_patch_idx(batch.mask, t.n_patches, generator)
+                    pidx = draw_patch_idx(batch.mask, t.n_patches,
+                                          jr.fold_in(k_g, 7))
                 pr = extract_patches(combin, batch.mask, t.patch_len,
                                      t.n_patches, idx=pidx)
                 pg = extract_patches(batch.image, batch.mask, t.patch_len,
@@ -513,7 +520,7 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
                 if n_colla and batch.colla_poses is not None:
                     kw = _colla_views(render, batch, H_r, W_r, focal_r)
                 sds_loss = guidance_fn(step_i, combin, normal_map,
-                                       batch.mask, generator,
+                                       batch.mask, k_g,
                                        masked_latents=batch.masked_latents,
                                        draws=draws, **kw)
                 loss = loss + g.sds_loss_weight * sds_loss
@@ -528,11 +535,12 @@ def make_train_step_stage2(cfg: Config, coarse_model, fine_model,
     def step(state: TrainState, scene_dev, banks, generator=None, idx=None,
              draws=None):
         idx = idx or {}
-        batch = select_stage2_view(scene_dev, banks, t.N_rand, generator,
+        k_sel, k_loss = jr.split(generator)
+        batch = select_stage2_view(scene_dev, banks, t.N_rand, k_sel,
                                    img_i=idx.get("img"), idx=idx,
                                    n_colla=n_colla)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, state.step, generator, draws)
+        loss, metrics = loss_fn(batch, state.step, k_loss, draws)
         loss.backward()
         average_grads(params, mesh)
         adam_step(state, schedule)

@@ -4,7 +4,8 @@ gbnerf_tpu/utils/lpips.py).
 The standard LPIPS recipe: per-stage unit-normalised feature differences,
 spatially averaged, summed over the 5 conv stages with learned per-channel
 weights (``lin_k``) or, without them, the channel mean. Without VGG
-weights on disk the features are those of a random convnet (seeded), a
+weights on disk the features are those of a random convnet (seeded, or
+from a JaxKey the JAX package's ``VGG16Features().init(key, …)``), a
 perceptual proxy; with ``load_vgg16_npz``'s weights it is LPIPS.
 
 The public layout is the JAX package's, NHWC [B, H, W, 3] in [0, 1]; the
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..guidance.stable import _resize
+from . import jax_random as jr
 
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512)
@@ -74,10 +76,11 @@ class LPIPS:
     """Perceptual distance between [B, H, W, 3] images in [0, 1] → [B].
 
     generator: draws the random VGG weights when ``weights`` is None (a
-    CPU generator: the same weights on every device). weights: a tree in
-    the JAX package's layout (``load_vgg16_npz``): ``conv_{i}`` {kernel
-    HWIO, bias} and optionally ``lin_0`` … ``lin_4`` per-channel stage
-    weights. device: where the network lives.
+    CPU generator: the same weights on every device; a JaxKey: the JAX
+    package's random VGG from that key, ``jax_vgg16_params``). weights: a
+    tree in the JAX package's layout (``load_vgg16_npz``): ``conv_{i}``
+    {kernel HWIO, bias} and optionally ``lin_0`` … ``lin_4`` per-channel
+    stage weights. device: where the network lives.
     """
 
     MIN_SIZE = 32  # below this, the 4 max-pools collapse stages to 0×0
@@ -87,6 +90,9 @@ class LPIPS:
                  weights: Optional[Mapping] = None, device=None):
         from ..convert import lpips_params_from_jax
 
+        if weights is None and jr.is_jax(generator):
+            weights = jax_vgg16_params(generator, device)
+            generator = None
         self.net = VGG16Features(generator)
         self.lins = None
         if weights is not None:
@@ -118,6 +124,24 @@ class LPIPS:
             else:
                 total = total + torch.mean(d2, dim=(1, 2, 3))
         return total
+
+
+def jax_vgg16_params(key, device=None) -> dict:
+    """The JAX package's random VGG16 (``VGG16Features().init(key, …)``,
+    flax's Conv init: lecun-normal kernels, zero biases) in its layout,
+    drawn on ``device``, as numpy arrays."""
+    from .jax_init import fill_tree
+
+    template, c_in, i = {}, 3, 0
+    for v in VGG16_CFG:
+        if v == "M":
+            continue
+        template[f"conv_{i}"] = {"kernel": np.zeros((3, 3, c_in, v)),
+                                 "bias": np.zeros((v,))}
+        c_in, i = v, i + 1
+    tree = fill_tree(template, key, device=device)
+    return {k: {n: a.cpu().numpy() for n, a in v.items()}
+            for k, v in tree.items()}
 
 
 def load_vgg16_npz(path: str) -> dict:

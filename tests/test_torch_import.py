@@ -59,7 +59,8 @@ def test_every_module_is_listed():
                  "guidance.orchestrator", "guidance.clip_guidance",
                  "data.blender", "utils.gif", "utils.mesh", "utils.warp",
                  "utils.gallery", "tools.export_mesh", "tools.bench",
-                 "tools.make_fake_sd_ckpt", "tools.convert_vgg"):
+                 "tools.make_fake_sd_ckpt", "tools.convert_vgg",
+                 "utils.jax_random", "utils.jax_init"):
         assert f"gbnerf_tpu_torch.{name}" in MODULES, name
 
 
