@@ -171,8 +171,10 @@
    utils/jax_init.py, the JAX package's initial parameters), after 6: the
    twin on the card against the twin on the CPU in both threefry layouts
    (keys, bits, uniforms and randint bit-equal; normals, exponentials and
-   truncated normals within JAX_ULP) and against literal values that
-   jax 0.9.0 gave on a CPU (JAX_GOLDEN: the same bounds); the full-width
+   truncated normals within JAX_ULP; bf16's 8-bit words and uniforms
+   bit-equal, bf16 normals within 1 bf16 ulp) and against literal values
+   that jax 0.9.0 gave on a CPU (JAX_GOLDEN: the same bounds, the bf16
+   draws bit-equal); the full-width
    CP fields' init from PRNGKey(0) on the card against the CPU (JAX_ULP);
    one stage-1 loss and gradient of a JAX-draw run (jitter, the fine
    samples' sorted uniforms, the three streams' indices from one key; σ
@@ -180,9 +182,14 @@
    fields at the bounds of 6, and from phase 5's trained fields with the
    card's plain path at the bounds of 6 and with the kernels at
    JAX_TRAINED_COS, beside the kernels against the card's plain path with
-   the JAX package's draws and with torch's; then ms a full-width stage-1
-   step with the JAX package's draws and with torch's, in turns (its own
-   launch counts).
+   the JAX package's draws and with torch's; a tiny LoRA step (the
+   adapters' A and the step's draws from a JaxKey on each device; the
+   LoRA bounds of 15) and stage 9's colla and Perp-Neg steps (their
+   guidance draws from a JaxKey on each device; the bounds of 9), card
+   against CPU; then ms a full-width stage-1 step and a full-width LoRA
+   step (the SD1.5 stack in bf16, JAX_LORA_REPS steps a turn) with the
+   JAX package's draws and with torch's, in turns (its own launch
+   counts).
 
 Every failure raises, so the script exits nonzero. The last line is
 {"ok": true, "device": {...}}; the line before it names the card and its
@@ -343,10 +350,26 @@ DISK_S1_PRINT, DISK_NOG_PRINT = 50, 20
 # tensor-parallel over model = 2, against the unsharded step, on the first
 # PAR_VIEWS views; (d) the SPMD demo twin at its micro size. The bf16 step
 # tolerance of PERF.md §2: loss PAR_LOSS_RTOL, every gradient's cosine
-# PAR_COS; a rank holds at most PAR_BYTES_MAX of the UNet
+# PAR_COS; a rank holds at most PAR_BYTES_MAX of the UNet. In (c) the
+# loss carries the score-distillation term w·Σ latents·g, whose terms
+# partly cancel and whose g (the CFG-combined bf16 UNet outputs, the CFG
+# scale amplifying their rounding) the step uses through its gradient
+# alone. S = w·Σ|latents·g| is the scale of those terms. (c) holds: the
+# whole loss, |Δloss| ≤ PAR_LOSS_RTOL·(|loss − w·sds| + S); the loss
+# without the SDS term, relative, at PAR_LOSS_RTOL; the SDS term,
+# |Δ(w·sds)| ≤ PAR_SDS_RTOL·S; and g, each modality's cosine ≥ PAR_G_COS.
+# PAR_SDS_RTOL and PAR_G_COS come from the one-process step's own noise
+# floor, read in every run beside (c): the bf16 step against the same step
+# in f32 read 1.68e-3 on the SDS term and g at cosine 0.99934 on an H100
+# (two bf16 roundings of one f32 step sit ≈ √2 as far apart); the bounds
+# are twice that (2·√2·1.68e-3; 1 − 4·6.6e-4). The controls, the CFG
+# scales 1.1× (9.35e-3, and the whole loss 2.7e-3) and other draws, must
+# fail them; the same step with cuDNN's benchmarked algorithms and cuBLAS's
+# other bf16 reduction must pass (PERF.md §2)
 NCCL_STEPS, NCCL_PRINT = 50, 25
 PAR_N_RAND, PAR_BANK, PAR_STEPS, PAR_VIEWS = 1024, 65536, 50, 4
 PAR_LOSS_RTOL, PAR_COS, PAR_BYTES_MAX = 1e-3, 0.999, 0.6
+PAR_SDS_RTOL, PAR_G_COS = 5e-3, 0.997
 PAR_SD = ("full", 512)           # (c)'s SD stack and its latent size
 PAR_TIMEOUT = 600
 # the CP field's x01 on the card against the CPU at CP_POS_POINTS points
@@ -427,6 +450,10 @@ JAX_ULP, JAX_STEP_REPS = 4, 20
 # to 0.99996, seeds 5 to 7). The bound leaves more than twice the worst
 # gap seen (0.0041, key 5, the key the phase runs).
 JAX_TRAINED_COS, JAX_STEP_SEED = 0.99, 5
+# the full-width LoRA step timed by draw kind (batch LORA_BATCH, rank
+# LORA_RANK, 512²): JAX_LORA_REPS steps a turn, in turns torch, jax, jax,
+# torch, after one warm-up step of each
+JAX_LORA_REPS = 4
 JAX_GOLDEN = {
     True: {"split": [(1832780943, 270669613), (64467757, 2916123636),
                      (2465931498, 255383827)],
@@ -445,7 +472,11 @@ JAX_GOLDEN = {
                            0.26702573895454407],
            "truncated_normal": [-0.08546718209981918, -0.3326511085033417,
                                 -0.3038930296897888, -0.882025957107544,
-                                -0.685754656791687]},
+                                -0.685754656791687],
+           # bf16 (bit patterns): 8-bit words, uniform, normal
+           "bits8": [29, 142, 137, 214, 182],
+           "uniform_bf16": [15840, 16142, 16136, 16214, 16182],
+           "normal_bf16": [49052, 15890, 15786, 16252, 16144]},
     False: {"split": [(3134548294, 3733159049), (3746501087, 894150801),
                       (801545058, 2363201431)],
             "fold_in": (2256930989, 524940092),
@@ -463,7 +494,10 @@ JAX_GOLDEN = {
                             1.67966628074646],
             "truncated_normal": [-0.05117490142583847, 1.2435004711151123,
                                  0.6510748267173767, 1.8283424377441406,
-                                 0.8391112685203552]},
+                                 0.8391112685203552],
+            "bits8": [199, 7, 203, 186, 111],
+            "uniform_bf16": [16198, 15552, 16202, 16186, 16092],
+            "normal_bf16": [16194, 49146, 16208, 16156, 48688]},
 }
 
 
@@ -1143,12 +1177,15 @@ def sds_gradient_check(cfg, dev, out, scene):
     return norms
 
 
-def stage2_step_vs_plain(cfg, dev, state, np_rng):
+def stage2_step_vs_plain(cfg, dev, state, np_rng, key=None,
+                         variants=("rgb+normal", "rgb", "colla", "perpneg")):
     """One stage-2 loss and gradient on the card vs the CPU plain path, at
     the tiny SD widths in f32 and sd_latent_size 512, on a small view: RGB
     + normal, RGB alone, RGB + colla (the four neighbour views injected,
     rendered with gradient), and Perp-Neg's RGB (its orbit uniforms
-    injected)."""
+    injected). key: a JaxKey, whose guidance draws (the SDS steps' ε and
+    posterior ε, Perp-Neg's orbit) replace the injected ones, drawn on
+    each device."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks
     from gbnerf_tpu_torch.guidance import build_sd_modules, make_guidance_fn
     from gbnerf_tpu_torch.guidance.text import CLIPTextConfig
@@ -1198,6 +1235,8 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
              draws),
             ("perpneg", dataclasses.replace(rgb_only, perpneg=True),
              draws_pn)):
+        if variant not in variants:
+            continue
         res, before = {}, all_launches()
         for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
             fields = [copy.deepcopy(f).to(device) for f in state.fields()]
@@ -1215,7 +1254,8 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
                 scene_to_device(scene, banks, device),
                 banks_to_device(banks, device), STEP_RAYS, img_i=1, idx=idx,
                 n_colla=4 if gcfg.is_colla_guidance else 0)
-            loss, m = step.loss_fn(batch, state.step, draws={
+            loss, m = step.loss_fn(batch, state.step, key, draws=None
+                                   if key is not None else {
                 mod: {k: v.to(device) for k, v in d.items()}
                 for mod, d in vdraws.items()})
             loss.backward()
@@ -1233,7 +1273,8 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
                             1e-300))
                for k in g_cpu}
         worst = min(cos, key=cos.get)
-        print(f"stage2 step vs plain [{variant}] (tiny SD at {STEP2_LATENT}², "
+        tag = variant + (", jax draws" if key is not None else "")
+        print(f"stage2 step vs plain [{tag}] (tiny SD at {STEP2_LATENT}², "
               f"{H}x{W} view, {STEP_RAYS} rays a stream): loss card "
               f"{l_card!r} cpu {l_cpu!r} (rel err {rel:.3e}, limit "
               f"{STEP2_LOSS_RTOL}); sds_loss card {s_card!r} cpu {s_cpu!r} "
@@ -1247,7 +1288,7 @@ def stage2_step_vs_plain(cfg, dev, state, np_rng):
             raise AssertionError("the card's stage-2 step launched no K7")
         if (rel > STEP2_LOSS_RTOL or sds_rel > STEP2_SDS_RTOL
                 or cos[worst] < STEP2_GRAD_COS[variant]):
-            raise AssertionError(f"the card's stage-2 step [{variant}] "
+            raise AssertionError(f"the card's stage-2 step [{tag}] "
                                  "differs from the plain path")
         out[variant] = {"loss_rel_err": rel, "sds_rel_err": sds_rel,
                         "min_grad_cos": cos[worst]}
@@ -2505,10 +2546,13 @@ def _lora_batch(ds, host_rng, mods, batch: int, dev) -> dict:
             "embeds": embeds}
 
 
-def _tiny_lora_vs_cpu(dev) -> dict:
+def _tiny_lora_vs_cpu(dev, key=None) -> dict:
     """One tiny LoRA step's loss and adapter gradients, card against CPU:
     the same weights (the CPU's init, copied), adapters (B drawn), batch
-    and draws; latent 512, so K7 runs in the UNet and the VAE."""
+    and draws; latent 512, so K7 runs in the UNet and the VAE. key: a
+    JaxKey for the JAX package's draws: the stack's init from it, and
+    the adapters' A and the step's t, ε and posterior ε drawn from its
+    two splits on each device (within JAX_ULP card vs CPU, t equal)."""
     from gbnerf_tpu_torch.config import GuidanceConfig
     from gbnerf_tpu_torch.guidance import lora
     from gbnerf_tpu_torch.guidance.stable import build_sd_modules
@@ -2517,18 +2561,21 @@ def _tiny_lora_vs_cpu(dev) -> dict:
     from gbnerf_tpu_torch.guidance.vae import VAEConfig
     from gbnerf_tpu_torch.ops import attention as at
     from gbnerf_tpu_torch.train import lora_trainer as lt
+    from gbnerf_tpu_torch.utils import jax_random as jr
 
     S, B = 512, 2
     cpu = build_sd_modules(
-        GuidanceConfig(prompt="a photo"), torch.Generator().manual_seed(0),
+        GuidanceConfig(prompt="a photo"),
+        torch.Generator().manual_seed(0) if key is None else jr.PRNGKey(0),
         unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
         text_config=CLIPTextConfig(vocab_size=49408, width=32, layers=2,
                                    heads=2), latent_size=S,
         dtype=torch.float32)
     card = dataclasses.replace(cpu, unet=copy.deepcopy(cpu.unet).to(dev),
                                vae=copy.deepcopy(cpu.vae).to(dev))
+    k_init, k_step = jr.key_split(key) if key is not None else (None, None)
     gen = torch.Generator().manual_seed(1)
-    ad = lora.init_lora(cpu.unet, rank=4, generator=gen)
+    ad = lora.init_lora(cpu.unet, rank=4, generator=k_init or gen)
     ad = {k: (v if k.endswith("lora_A") else
               0.05 * torch.randn(v.shape, generator=gen))
           for k, v in ad.items()}
@@ -2545,17 +2592,26 @@ def _tiny_lora_vs_cpu(dev) -> dict:
     for name, mods, d in (("cpu", cpu, torch.device("cpu")),
                           ("card", card, dev)):
         _, step = lt.make_lora_train_step(mods, rank=4)
-        a = {k: v.detach().clone().to(d).requires_grad_(True)
-             for k, v in ad.items()}
+        if key is None:
+            a = {k: v.to(d) for k, v in ad.items()}
+            dd = {k: v.to(d) for k, v in draws.items()}
+        else:       # A and the draws from the key on this device
+            a = {k: (ad[k].to(d) if k.endswith("lora_B") else v) for k, v in
+                 lora.init_lora(mods.unet, rank=4, generator=k_init).items()}
+            dd = lt.draw_step(k_step, B, S // 8, d)
+        a = {k: v.detach().clone().requires_grad_(True) for k, v in a.items()}
         b = {k: (v.to(d) if v is not None else None)
              for k, v in batch.items()}
         before = at.LAUNCHES["attention"]
-        loss = step.loss_fn(a, b, {k: v.to(d) for k, v in draws.items()})
+        loss = step.loss_fn(a, b, dd)
         loss.backward()
         res[name] = (loss.item(), {k: v.grad.detach().cpu()
                                    for k, v in a.items()},
+                     {k: v.detach().cpu() for k, v in a.items()},
+                     {k: v.cpu() for k, v in dd.items()},
                      at.LAUNCHES["attention"] - before)
-    (l_cpu, g_cpu, _), (l_card, g_card, k7) = res["cpu"], res["card"]
+    (l_cpu, g_cpu, a_cpu, d_cpu, _), (l_card, g_card, a_card, d_card, k7) = (
+        res["cpu"], res["card"])
     cos = {k: float(torch.nn.functional.cosine_similarity(
         g_card[k].flatten().double(), g_cpu[k].flatten().double(), dim=0))
         for k in g_cpu}
@@ -2564,8 +2620,17 @@ def _tiny_lora_vs_cpu(dev) -> dict:
          "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
          "grad_cos_min": cos[worst], "worst": worst, "k7_calls": k7,
          "adapters": len(cos)}
-    print(f"lora tiny step vs cpu: {json.dumps(r)}")
-    if (r["loss_rel_err"] > LORA_TINY_LOSS_RTOL
+    ok = True
+    if key is not None:
+        r.update(a_ulp=max(_ulp32(a_card[k], a_cpu[k]) for k in a_cpu),
+                 draws_ulp=max(_ulp32(d_card[k], d_cpu[k])
+                               for k in d_cpu if k != "t"),
+                 t_equal=bool(torch.equal(d_card["t"], d_cpu["t"])))
+        ok = (r["a_ulp"] <= JAX_ULP and r["draws_ulp"] <= JAX_ULP
+              and r["t_equal"])
+    print(f"lora tiny step vs cpu{'' if key is None else ', jax draws'}: "
+          f"{json.dumps(r)}")
+    if (not ok or r["loss_rel_err"] > LORA_TINY_LOSS_RTOL
             or r["grad_cos_min"] < LORA_TINY_GRAD_COS or k7 <= 0):
         raise AssertionError(f"tiny LoRA step, card vs CPU: {r}")
     return r
@@ -2983,6 +3048,43 @@ def _cosines(got: dict, ref: dict) -> dict:
     return out
 
 
+def _sds_readings(got: dict, ref: dict, w: float) -> dict:
+    """A stage-2 step with ``sds_record`` against another: the loss's
+    relative error; its error against the scale of its terms, the rest of
+    the loss plus S = w·Σ|latents·g| (the SDS scalar's terms, which cancel);
+    the rest's relative error; the SDS term's error against S; each
+    modality's g by cosine; the field gradients' least cosine."""
+    sds, ref_sds = got["metrics"]["sds_loss"], ref["metrics"]["sds_loss"]
+    rest, ref_rest = got["loss"] - w * sds, ref["loss"] - w * ref_sds
+    scale = w * sum(ref["sds_abs"])
+    cos_g = []
+    for a, b in zip(got["sds_g"], ref["sds_g"]):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        cos_g.append(float(a @ b / max(float(torch.linalg.norm(a)
+                                             * torch.linalg.norm(b)),
+                                       1e-300)))
+    d = abs(got["loss"] - ref["loss"])
+    return {"loss_rel_err": d / max(abs(ref["loss"]), 1e-30),
+            "loss_cond_err": d / max(abs(ref_rest) + scale, 1e-30),
+            "rest_rel_err": abs(rest - ref_rest) / max(abs(ref_rest), 1e-30),
+            "sds_cond_err": w * abs(sds - ref_sds) / max(scale, 1e-30),
+            "sds_rel_err": abs(sds - ref_sds) / max(abs(ref_sds), 1e-30),
+            "sds_terms_scale": scale, "sds_term": w * ref_sds,
+            "g_min_cos": min(cos_g) if cos_g else 0.0,
+            "n_injections": len(cos_g),
+            "min_grad_cos": min(_cosines(got["grads"], ref["grads"])
+                                .values())}
+
+
+def _sds_within(r: dict) -> bool:
+    """(c)'s bounds on _sds_readings (see PAR_LOSS_RTOL's note)."""
+    return (r["loss_cond_err"] <= PAR_LOSS_RTOL
+            and r["rest_rel_err"] <= PAR_LOSS_RTOL
+            and r["sds_cond_err"] <= PAR_SDS_RTOL
+            and r["g_min_cos"] >= PAR_G_COS and r["n_injections"] > 0
+            and r["min_grad_cos"] >= PAR_COS)
+
+
 def _sub_banks(banks, n: int, seed: int) -> dict:
     """Each stream of a RayBanks cut to n rays (a seeded draw), on the
     host."""
@@ -2996,32 +3098,14 @@ def _sub_banks(banks, n: int, seed: int) -> dict:
     return out
 
 
-@contextlib.contextmanager
 def plain_kernels():
-    """The render's kernels off on the card: K1/K2 through ``field_plain``,
-    K4/K5 through ``field_bwd_plain`` and K3 through ``merge128_plain``,
-    the ops' plain versions, on the same CUDA tensors (no launch
+    """The render's kernels off on the card (tools/plain_path.py): K1/K2
+    through ``field_plain``, K4/K5 through ``field_bwd_plain`` and K3
+    through ``merge128_plain``, on the same CUDA tensors (no launch
     counted)."""
-    from gbnerf_tpu_torch.ops import field_fused as ff
-    from gbnerf_tpu_torch.ops import resample as rs
+    from gbnerf_tpu_torch.tools.plain_path import plain_kernels as plain
 
-    saved = ff._launch, ff._launch_bwd, rs._launch_merge
-
-    def field(x01, sh, ulines, Ws, *, sigma_only):
-        return ff.field_plain(x01, sh, ulines, Ws, sigma_only=sigma_only)
-
-    def field_bwd(x01, sh, ulines, Ws, g, *, sigma_only, need_dx, need_dsh):
-        dx, dsh, dul, dWs = ff.field_bwd_plain(x01, sh, ulines, Ws, g,
-                                               sigma_only=sigma_only)
-        return (dx if need_dx else None, dsh if need_dsh else None, dul,
-                dWs)
-
-    ff._launch, ff._launch_bwd, rs._launch_merge = (field, field_bwd,
-                                                    rs.merge128_plain)
-    try:
-        yield
-    finally:
-        ff._launch, ff._launch_bwd, rs._launch_merge = saved
+    return plain()
 
 
 def bench_twin_phase(dev) -> dict:
@@ -3216,6 +3300,7 @@ def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
               "banks": cut_c, "seed": 2, "idx": dict(draws(cut_c), img=1),
               "guidance": {"sd": PAR_SD[0], "seed": 3,
                            "latent_size": PAR_SD[1], "tp": True},
+              "sds_record": True,
               "mesh": (1, 2), "mesh_axes": ("data", "model")}
     spec = workdir / "parallel_spec.pt"
     torch.save({"cases": [case_b, case_c],
@@ -3230,10 +3315,29 @@ def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
     ref_b = pc.run_case(dict(case_b, repeat=False, steps=0), dev)
     ref_c = pc.run_case(case_c, dev)
     torch.cuda.empty_cache()
+    # the same one-process step: another order of summation, f32, and two
+    # controls that must fail (the CFG scales 1.1×, other draws)
+    g2 = cfg2.guidance
+    cfg_x = cfg2.replace(guidance=dataclasses.replace(
+        g2, guidance_scale=1.1 * g2.guidance_scale,
+        normal_guidance_scale=1.1 * g2.normal_guidance_scale))
+    others = {"order": dict(case_c, sd_order="alt"),
+              "f32": dict(case_c, guidance=dict(case_c["guidance"],
+                                                dtype="float32")),
+              "cfg_x1.1": dict(case_c, cfg=cfg_x),
+              "draws": dict(case_c, seed=case_c["seed"] + 1)}
+    floor = {}
+    for name, case in others.items():
+        floor[name] = _sds_readings(pc.run_case(case, dev), ref_c,
+                                    cfg2.guidance.sds_loss_weight)
+        torch.cuda.empty_cache()
+
+    def rel_err(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
 
     report = {}
     for label, got, ref in (("b", got_b, ref_b), ("c", got_c, ref_c)):
-        rel = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+        rel = rel_err(got["loss"], ref["loss"])
         cos = _cosines(got["grads"], ref["grads"])
         worst = min(cos, key=cos.get)
         report[label] = {"world": got["world"], "backend": got["backend"],
@@ -3243,7 +3347,22 @@ def parallel_phase(cfg, dev, scene, depth_gts, disk_datadir: str,
                          "step_s": got["first_step_s"],
                          "case_s": got["seconds"],
                          "launches": got["launches"]}
-        if rel > PAR_LOSS_RTOL or cos[worst] < PAR_COS:
+        bad = cos[worst] < PAR_COS
+        if label == "c":        # the SDS term against its terms' scale
+            r = _sds_readings(got, ref, cfg2.guidance.sds_loss_weight)
+            report[label].update(r)
+            bad = bad or not _sds_within(r)
+            for name, rf in floor.items():
+                rf["within"] = _sds_within(rf)
+            print(f"parallel (c) the one-process step against itself "
+                  f"(order: another order of summation; f32; the controls "
+                  f"cfg_x1.1 and draws must fail): {json.dumps(floor)}")
+            bad = bad or not (floor["order"]["within"]
+                              and not floor["cfg_x1.1"]["within"]
+                              and not floor["draws"]["within"])
+        else:
+            bad = bad or rel > PAR_LOSS_RTOL
+        if bad:
             raise AssertionError(f"parallel ({label}) differs from one "
                                  f"process: {json.dumps(report[label])}")
     ms_b = got_b["step_ms"]
@@ -3316,11 +3435,86 @@ def _twin_draws(key, dev) -> dict:
                                                     torch.float32, dev)}
 
 
+def _twin_draws_bf16(key, dev) -> dict:
+    """The twin's bf16 draws from ``key`` on ``dev``: the 8-bit words of a
+    bf16 uniform, the uniform, the normal (as int16 bit patterns)."""
+    from gbnerf_tpu_torch.utils import jax_random as jr
+
+    shape = (1024, 65)
+    return {"bits8": jr.random_bits(key, shape, dev, 8),
+            "uniform_bf16": jr.uniform(key, shape, torch.bfloat16,
+                                       dev).view(torch.int16),
+            "normal_bf16": jr.normal(key, shape, torch.bfloat16,
+                                     dev).view(torch.int16)}
+
+
+def _bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max |a − b| in bf16 units in the last place, a and b int16 bit
+    patterns."""
+    def ordered(x):
+        i = x.cpu().to(torch.int64) & 0xFFFF
+        return torch.where(i >= 0x8000, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _lora_steps_by_draws(dev) -> dict:
+    """ms a full-width LoRA step (the SD1.5-inpainting stack in bf16, rank
+    LORA_RANK, batch LORA_BATCH at 512²) with torch's draws and with the
+    JAX package's (a JaxKey split once a step as the JAX trainer's loop:
+    t, ε and the bf16 posterior ε from the twin), JAX_LORA_REPS steps a
+    turn in turns torch, jax, jax, torch."""
+    from gbnerf_tpu_torch.config import GuidanceConfig
+    from gbnerf_tpu_torch.guidance.stable import build_sd_modules
+    from gbnerf_tpu_torch.train import lora_trainer as lt
+    from gbnerf_tpu_torch.utils import jax_random as jr
+
+    mods = build_sd_modules(GuidanceConfig(prompt="a photo of a scene"),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    init_fn, step = lt.make_lora_train_step(mods, rank=LORA_RANK, lr=1e-4,
+                                            masked_loss=True)
+    adapters, opt = init_fn(jr.PRNGKey(0))
+    rng, S = np.random.default_rng(3), mods.latent_size
+    with torch.no_grad():
+        embeds = mods.text_model(mods.tokenizer(["a photo of a scene"]
+                                                * LORA_BATCH))
+    batch = {"image": torch.as_tensor(rng.integers(
+                 0, 256, (LORA_BATCH, S, S, 3), dtype=np.uint8), device=dev),
+             "mask": torch.as_tensor(np.stack([
+                 lt.random_mask(rng, S, S) for _ in range(LORA_BATCH)]),
+                 device=dev),
+             "instance_mask": torch.as_tensor(np.stack([
+                 lt.random_mask(rng, S, S) for _ in range(LORA_BATCH)]),
+                 device=dev),
+             "embeds": embeds}
+    gen, key = torch.Generator(device=dev).manual_seed(1), jr.PRNGKey(1)
+    times, losses = {"torch": [], "jax": []}, []
+    for kind in ("torch", "jax", "jax", "torch"):
+        for i in range(JAX_LORA_REPS + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if kind == "jax":
+                key, sk = jr.split(key)
+            else:
+                sk = gen
+            losses.append(step(adapters, opt, batch, sk)["loss"])
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3 / JAX_LORA_REPS)
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError("a full-width LoRA step's loss is not finite")
+    del mods, adapters, opt
+    torch.cuda.empty_cache()
+    return times, S
+
+
 def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
     """The twin of jax.random and of the JAX package's init on the card
-    (see 23): card against CPU, against jax's literal values, the CP
-    fields' init, one stage-1 loss and gradient with the JAX package's
-    draws against the CPU plain path, and ms a step by draw kind."""
+    (see 23): card against CPU, against jax's literal values (f32 and
+    bf16), the CP fields' init, one stage-1 loss and gradient with the
+    JAX package's draws against the CPU plain path; a tiny LoRA step, a
+    colla step and a Perp-Neg step with the JAX draws against the CPU; ms
+    a stage-1 and a full-width LoRA step by draw kind."""
     from gbnerf_tpu_torch.data.rays_bank import build_ray_banks, sample_batch
     from gbnerf_tpu_torch.train.loop import banks_to_device
     from gbnerf_tpu_torch.train.state import create_params, create_train_state
@@ -3342,6 +3536,14 @@ def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
                 worst_ulp = max(worst_ulp, u)
                 if u > JAX_ULP:
                     raise AssertionError(f"twin {k}: {u} ulp card vs CPU")
+        card, host = _twin_draws_bf16(key, dev), _twin_draws_bf16(key, cpu)
+        for k in ("bits8", "uniform_bf16"):
+            if not torch.equal(card[k].cpu(), host[k]):
+                raise AssertionError(f"twin {k} differs card vs CPU")
+        bf16_ulp = _bf16_ulp(card["normal_bf16"], host["normal_bf16"])
+        if bf16_ulp > 1:
+            raise AssertionError(f"twin bf16 normal: {bf16_ulp} ulp card vs "
+                                 "CPU")
         # (b) against jax's values
         gold = JAX_GOLDEN[part]
         k1, k2, k3 = jr.key_split(jr.PRNGKey(42, partitionable=part), 3)
@@ -3364,6 +3566,15 @@ def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
             elif _ulp32(v, ref) > JAX_ULP:
                 raise AssertionError(f"twin {k}: {_ulp32(v, ref)} ulp from "
                                      "jax's")
+        got = {"bits8": jr.random_bits(f, (5,), dev, 8),
+               "uniform_bf16": jr.uniform(f, (5,), torch.bfloat16,
+                                          dev).view(torch.int16),
+               "normal_bf16": jr.normal(f, (5,), torch.bfloat16,
+                                        dev).view(torch.int16)}
+        for k, v in got.items():
+            ref = torch.tensor(gold[k], dtype=torch.int64)
+            if not torch.equal(v.cpu().to(torch.int64) & 0xFFFF, ref):
+                raise AssertionError(f"twin {k} differs from jax's")
     # (c) the full-width CP fields' init from PRNGKey(0)
     t0 = time.perf_counter()
     card_f = create_params(cfg, jr.PRNGKey(0), dev)
@@ -3449,6 +3660,12 @@ def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
             raise AssertionError(f"the JAX-draw step differs, {what}: loss "
                                  f"rel {rel} (limit {STEP_LOSS_RTOL}), "
                                  f"cosine {c} ({worst}, limit {bound})")
+    # (f) a tiny LoRA step, a colla step and a Perp-Neg step with the JAX
+    # package's draws, card against CPU, at the step bounds of 6 and 9
+    lora_jax = _tiny_lora_vs_cpu(dev, jr.PRNGKey(JAX_STEP_SEED))
+    s2_jax = stage2_step_vs_plain(cfg, dev, state, np.random.default_rng(8),
+                                  key=jr.PRNGKey(JAX_STEP_SEED),
+                                  variants=("colla", "perpneg"))
     # (e) ms a full-width stage-1 step by draw kind, in turns (the step
     # of 5)
     tcfg = cfg.replace(train=dataclasses.replace(
@@ -3473,14 +3690,24 @@ def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
             st, m = step(st, bank, sk)
         torch.cuda.synchronize()
         times[kind].append((time.perf_counter() - t0) * 1e3 / JAX_STEP_REPS)
-    launches = all_launches()
     if not math.isfinite(float(m["loss"])):
         raise AssertionError("the JAX-draw steps' loss is not finite")
+    # (g) ms a full-width LoRA step by draw kind
+    lora_times, lora_res = _lora_steps_by_draws(dev)
+    launches = all_launches()
     ms = {k: float(np.mean(v)) for k, v in times.items()}
     rounded = {k: [round(x, 3) for x in v] for k, v in times.items()}
+    lora_ms = {k: float(np.mean(v)) for k, v in lora_times.items()}
+    print(f"jax draws: full-width LoRA step (rank {LORA_RANK}, batch "
+          f"{LORA_BATCH} at {lora_res}², bf16) {lora_ms['jax']:.3f} ms with the "
+          f"JAX package's draws, {lora_ms['torch']:.3f} ms with torch's "
+          f"(means of {JAX_LORA_REPS} steps in turns torch, jax, jax, "
+          f"torch: {json.dumps({k: [round(x, 3) for x in v] for k, v in lora_times.items()})})")
     print(f"jax draws: the twin card vs CPU in both threefry layouts: keys, "
           f"bits, uniforms, randint equal, the others within {worst_ulp} ulp "
-          f"(limit {JAX_ULP}); jax 0.9.0's literal values matched; the CP "
+          f"(limit {JAX_ULP}); bf16 words and uniforms equal, bf16 normals "
+          f"within 1 bf16 ulp; jax 0.9.0's literal values matched (f32 and "
+          f"bf16); the CP "
           f"fields' init from PRNGKey(0) on the card in {init_s:.3f} s, "
           f"{init_ulp} ulp from the CPU's; the stage-1 step with the JAX "
           f"package's draws ({STEP_RAYS} rays a stream) within the bounds "
@@ -3490,7 +3717,8 @@ def jax_draws_phase(cfg, dev, state, scene, depth_gts) -> dict:
           f"{ms['torch']:.3f} ms with torch's (means of {JAX_STEP_REPS} "
           f"steps in turns torch, jax, jax, torch: {json.dumps(rounded)}); "
           f"kernel launches {json.dumps(launches)}")
-    return {"launches": launches, "ms": ms, "init_ulp": init_ulp,
+    return {"launches": launches, "ms": ms, "lora_ms": lora_ms,
+            "init_ulp": init_ulp, "lora_tiny": lora_jax, "stage2": s2_jax,
             "steps": {k: {"loss_rel_err": v[0], "min_grad_cos": v[1]}
                       for k, v in cmp.items()}}
 

@@ -297,6 +297,18 @@ _CLIP_VISION_RULES = [
 ]
 
 
+_CLIP_VISION_RULES_INV = [
+    (r"^layers\.(\d+)\.(self_attn|mlp)\.", r"layers_\1."),
+    (r"^layers\.(\d+)\.", r"layers_\1."),
+]
+
+
+def clip_vision_params_to_jax(module: nn.Module) -> Dict:
+    """The inverse of ``clip_vision_params_from_jax``: the port's
+    ``CLIPVisionEncoder`` → the JAX package's flax tree (numpy)."""
+    return state_dict_to_flax(module.state_dict(), _CLIP_VISION_RULES_INV)
+
+
 def clip_vision_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's CLIP vision tower (guidance/clip_guidance.py
     there) → the state dict of the port's ``CLIPVisionEncoder``: the

@@ -229,21 +229,31 @@ class Upsample2D(nn.Module):
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random init in the flax defaults' family, drawn from ``generator``
-    (which lies on the parameters' device): Linear and Conv weights
-    normal(0, 1/√fan_in) (lecun), biases 0, norms' scale 1 and shift 0,
-    embeddings normal(0, 0.02). Not the JAX package's bits: a parity test
-    carries the JAX weights across (convert.sd_params_from_jax)."""
+    """Flax's default inits, drawn from ``generator`` (which lies on the
+    parameters' device): Linear and Conv kernels ``lecun_normal``, a normal
+    truncated at ±2 of its σ with σ = (1/√fan_in) / 0.87962566 so that the
+    std is 1/√fan_in (fan_in = kh·kw·c_in for a conv, flax's HWIO fan-in);
+    biases 0; norms' scale 1 and shift 0; embeddings ``nn.Embed``'s normal
+    of std 1/√width. A module with parameters of its own initializer (the
+    JAX package's explicit ``self.param``) sets them in ``init_own_``,
+    called after this pass. The distributions are the JAX package's, not
+    its bits: utils/jax_init.py replays those from a JaxKey."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
-                                 generator=generator)
+                std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
-                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
+                                 generator=generator)
+        for m in module.modules():
+            own = getattr(m, "init_own_", None)
+            if own is not None:
+                own(generator)

@@ -13,7 +13,8 @@ Parameter names are the flax module's (``patch_embedding``,
 ``visual_projection``), so ``convert.clip_vision_params_from_jax`` loads the
 JAX package's tree one to one. Random towers keep the path runnable; the
 random text projection is an argument (``text_projection``) or a draw from
-the generator, so the tests can hand over the JAX package's.
+the generator. A JaxKey gives the JAX package's towers and projection
+(split in three: vision init, text init, projection; utils/jax_init.py).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import jax_random as jr
 from .blocks import LAYER_NORM_EPS, init_weights_
 from .text import CLIPLayer, CLIPTextConfig, CLIPTextEncoder, Tokenizer
 
@@ -63,10 +65,10 @@ class CLIPVisionEncoder(nn.Module):
         self.visual_projection = nn.Linear(c.width, c.projection_dim,
                                            bias=False)
 
-    def init_weights_(self, generator: torch.Generator) -> None:
-        """flax's inits in kind: lecun-normal kernels, the class embedding
-        normal(0.02) and the positions normal(0.01)."""
-        init_weights_(self, generator)
+    def init_own_(self, generator: torch.Generator) -> None:
+        """The JAX tower's own parameters (blocks.init_weights_ draws the
+        layers): the class embedding normal(0.02), the positions
+        normal(0.01)."""
         with torch.no_grad():
             self.class_embedding.normal_(0.0, 0.02, generator=generator)
             self.position_embedding.normal_(0.0, 0.01, generator=generator)
@@ -95,7 +97,8 @@ class CLIPGuidance:
     the image.
 
     generator: draws the vision tower's init and whatever is not given
-    (the text tower's init, the text projection), on ``device``.
+    (the text tower's init, the text projection), on ``device``; a
+    JaxKey draws the JAX package's.
     text_model: a built text tower (default: a random one);
     text_projection: [text width, projection_dim] (default: normal / √width,
     as the JAX package draws). Weights load into ``vision`` afterwards.
@@ -115,11 +118,21 @@ class CLIPGuidance:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.vision = CLIPVisionEncoder(vcfg).to(device)
-        self.vision.init_weights_(generator)
-        self.vision.eval().requires_grad_(False)
-        if text_model is None:
+        new_text = text_model is None
+        if new_text:
             text_model = CLIPTextEncoder(tcfg).to(device)
-            init_weights_(text_model, generator)
+        if jr.is_jax(generator):
+            from ..utils.jax_init import init_clip_guidance
+
+            k_proj = init_clip_guidance(self.vision,
+                                        text_model if new_text else None,
+                                        generator)
+        else:
+            init_weights_(self.vision, generator)
+            if new_text:
+                init_weights_(text_model, generator)
+            k_proj = generator
+        self.vision.eval().requires_grad_(False)
         tok = Tokenizer(tokenizer_dir, max_length=tcfg.max_length,
                         vocab_size=tcfg.vocab_size)
         ids = tok([prompt])
@@ -129,8 +142,8 @@ class CLIPGuidance:
         eos_pos = int((ids[0] == tok.eos).argmax())
         pooled = hidden[0, eos_pos]
         if text_projection is None:
-            text_projection = torch.randn(
-                (tcfg.width, vcfg.projection_dim), generator=generator,
+            text_projection = jr.draw(
+                "randn", (tcfg.width, vcfg.projection_dim), k_proj,
                 device=device) / tcfg.width ** 0.5
         z = pooled @ text_projection.to(pooled.device)
         self.text_embed = z / torch.linalg.norm(z)

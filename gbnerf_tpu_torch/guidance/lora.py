@@ -23,7 +23,8 @@ add in bf16 would lose updates below W's half-ulp).
 Training is functional, as in the JAX package: ``apply_lora`` returns the
 effective weights {name: W'} for ``torch.func.functional_call`` over the
 frozen module, and gradients flow only into A and B. The A init is an
-argument (``init_lora(..., a_init=)``) or drawn from a generator.
+argument (``init_lora(..., a_init=)``) or drawn from a generator or, as
+the JAX package draws it, from a JaxKey.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 from torch import nn
 
 from .. import convert
+from ..utils import jax_random as jr
 
 DEFAULT_TARGETS = (
     r".*/attn[12]/to_q/kernel$",
@@ -90,20 +92,34 @@ def lora_targets(module: nn.Module, targets=DEFAULT_TARGETS
 
 
 def init_lora(module: nn.Module, *, rank: int = 32, targets=DEFAULT_TARGETS,
-              generator: Optional[torch.Generator] = None,
-              a_init: Optional[Adapters] = None) -> Adapters:
+              generator=None, a_init: Optional[Adapters] = None
+              ) -> Adapters:
     """The adapters of every selected kernel: A [I_flat, r] normal/√r (or
     ``a_init[path + ".lora_A"]``), B [r, O] zeros (identity at init), f32,
-    on the module's device."""
+    on the module's device. generator: a torch.Generator, or a JaxKey: the
+    JAX package's A, ``normal(keys[i % 4096])`` of ``split(key, 4096)``
+    with i the kernel's rank among the selected ones in the order of the
+    JAX tree's leaves (its dicts' keys sorted, as jit returns them), so by
+    flax path, not by the port's module order."""
+    sel = [(name, path, p) for name, path, p in _kernel_params(module)
+           if _match(path, targets)]
+    keys = {}
+    if jr.is_jax(generator):
+        split = jr.key_split(generator, 4096)
+        order = sorted(sel, key=lambda s: tuple(s[1].split(".")))
+        keys = {path: split[i % 4096] for i, (_, path, _) in
+                enumerate(order)}
     out: Adapters = {}
-    for name, path, p in _kernel_params(module):
-        if not _match(path, targets):
-            continue
+    for name, path, p in sel:
         i_flat, o = _fan(p)
         key = path + ".lora_A"
         if a_init is not None:
             a = torch.as_tensor(a_init[key], dtype=torch.float32,
                                 device=p.device).clone()
+        elif keys:
+            a = jr.normal(keys[path], (i_flat, rank), torch.float32,
+                          p.device) / torch.tensor(
+                              rank ** 0.5, dtype=torch.float32)
         else:
             a = torch.randn((i_flat, rank), generator=generator,
                             device=p.device) / rank ** 0.5

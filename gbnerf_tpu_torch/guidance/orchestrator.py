@@ -6,10 +6,9 @@ ranges widened with the step) and ``ProgressiveViews``. The azimuth feeds
 the directional prompts of Perp-Neg (stable.py).
 
 The three uniform draws of ``rand_poses`` (θ, φ, radius) come from a
-``torch.Generator``, or are injected as ``u`` ([3, size] in [0, 1)): the
-tests hand over the JAX package's draws. Perp-Neg's key tree is not
-mirrored by utils/jax_random.py, so a run with the JAX package's draws
-refuses Perp-Neg.
+``torch.Generator``, from a ``JaxKey`` (the JAX package's three bounded
+``uniform``s, utils/jax_random.py), or are injected as ``u`` ([3, size]
+in [0, 1)).
 """
 from __future__ import annotations
 
@@ -19,32 +18,51 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import jax_random as jr
+
 
 def rand_poses(size: int, generator: Optional[torch.Generator] = None, *,
                u: Optional[torch.Tensor] = None, radius_range=(1.0, 1.5),
                theta_range=(0.0, 120.0), phi_range=(0.0, 360.0),
                angle_overhead: float = 30.0, angle_front: float = 60.0,
-               device=None):
+               device=None, ranges_f32: bool = False):
     """Random orbit camera poses on a spherical shell around the origin →
     (poses [size, 4, 4], dirs [size] direction classes, thetas, phis,
     radii). Classes: 0 front, 1 side, 2 back, 3 side, 4 top, 5 bottom.
 
     u: the injected uniforms [3, size] (θ, φ, radius), else drawn from
-    ``generator`` on ``device``. The ranges may be numbers or 0-d tensors
+    ``generator`` on ``device``; a JaxKey splits in three and draws each
+    with jax's bounded ``uniform``, the bounds in degrees scaled to
+    radians in f32 when ``ranges_f32`` (the JAX package's traced ranges
+    under progressive_view), else in f64 then rounded, as its Python
+    floats are. The ranges may be numbers or 0-d tensors
     (progressive_ranges).
     """
-    if u is None:
-        u = torch.rand((3, size), generator=generator, device=device)
-    dev = u.device
     to_rad = math.pi / 180.0
+    if u is None and jr.is_jax(generator):
+        def rad(v):
+            return (float(torch.tensor(float(v), dtype=torch.float32)
+                          * to_rad) if ranges_f32 else float(v) * to_rad)
 
-    def uniform(ui, lo, hi):
-        # jax.random.uniform's affine map: lo + u·(hi − lo)
-        return lo + ui * (hi - lo)
+        bounds = ((rad(theta_range[0]), rad(theta_range[1])),
+                  (rad(phi_range[0]), rad(phi_range[1])),
+                  (float(radius_range[0]), float(radius_range[1])))
+        thetas, phis, radii = (
+            jr.uniform(k, (size,), torch.float32, device, lo, hi)
+            for k, (lo, hi) in zip(jr.key_split(generator, 3), bounds))
+    else:
+        if u is None:
+            u = torch.rand((3, size), generator=generator, device=device)
 
-    thetas = uniform(u[0], theta_range[0] * to_rad, theta_range[1] * to_rad)
-    phis = uniform(u[1], phi_range[0] * to_rad, phi_range[1] * to_rad)
-    radii = uniform(u[2], radius_range[0], radius_range[1])
+        def uniform(ui, lo, hi):
+            # jax.random.uniform's affine map: lo + u·(hi − lo)
+            return lo + ui * (hi - lo)
+
+        thetas = uniform(u[0], theta_range[0] * to_rad,
+                         theta_range[1] * to_rad)
+        phis = uniform(u[1], phi_range[0] * to_rad, phi_range[1] * to_rad)
+        radii = uniform(u[2], radius_range[0], radius_range[1])
+    dev = thetas.device
 
     centers = torch.stack([radii * torch.sin(thetas) * torch.sin(phis),
                            radii * torch.cos(thetas),

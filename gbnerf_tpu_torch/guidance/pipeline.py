@@ -7,7 +7,8 @@ and a DDIM update, then the VAE decode) and the txt2img sanity path
 ``prompt_to_img``. The JAX package runs the loop as one ``fori_loop`` in a
 jit; here it is a plain Python loop on the device, under ``no_grad``.
 
-The draws are arguments, else drawn from ``generator``: ``noise`` (the
+The draws are arguments, else drawn from ``generator`` (a torch.Generator,
+or a JaxKey split in three as the JAX package splits it): ``noise`` (the
 initial latents at strength 1, else the noise ``add_noise`` puts on the
 encoded image; the JAX package's ``k_lat``), ``enc_masked_eps`` and
 ``enc_init_eps`` (the VAE posterior draws of the masked and of the whole
@@ -20,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import jax_random as jr
 from .sds import cfg_combine_bsd, cfg_combine_sds
 from .stable import SDModules, _randn, _resize
 
@@ -57,20 +59,24 @@ def inpaint(mods: SDModules, embeds: torch.Tensor, image: torch.Tensor,
     img512 = _resize(image[None].float(), S) * 2.0 - 1.0
     mask512 = _resize(torch.abs(mask.float())[None, ..., None], S)
     masked_image = img512 * (mask512 < 0.5)
+    # a JaxKey splits in three as the JAX package's: the latents' noise,
+    # the masked image's posterior ε, the init image's (a generator is
+    # drawn in the order masked image, noise, init image)
+    k_lat, k_enc1, k_enc2 = jr.split(generator, 3)
     if enc_masked_eps is None:
-        enc_masked_eps = _randn(lat_shape, generator, vdt, dev)
+        enc_masked_eps = _randn(lat_shape, k_enc1, vdt, dev)
     masked_latents = mods.vae.encode(masked_image, enc_masked_eps)
     mask_lat = _resize(mask512, LR, method="nearest")
 
     ts = get_timesteps(num_inference_steps, strength,
                        sched.num_train_timesteps)
     if noise is None:
-        noise = _randn(lat_shape, generator, torch.float32, dev)
+        noise = _randn(lat_shape, k_lat, torch.float32, dev)
     if strength >= 1.0:
         latents = noise.float()
     else:
         if enc_init_eps is None:
-            enc_init_eps = _randn(lat_shape, generator, vdt, dev)
+            enc_init_eps = _randn(lat_shape, k_enc2, vdt, dev)
         init_latents = mods.vae.encode(img512, enc_init_eps)
         latents = sched.add_noise(init_latents, noise.float(), int(ts[0]))
 

@@ -14,11 +14,12 @@ the renders is differentiated.
 
 Every random draw is an optional argument (the noise ε, the VAE posterior
 ε of the render and of the masked image, Perp-Neg's orbit uniforms), else
-drawn from a ``torch.Generator`` or, for the stack's init, the RGB and
-normal modalities and the masked-latents cache, from a ``JaxKey``
-(utils/jax_random.py), split as the JAX package splits its key so that
-the draws are that package's; Perp-Neg and colla raise with a JaxKey
-(their key trees are not mirrored).
+drawn from a ``torch.Generator`` or from a ``JaxKey`` (utils/jax_random.py),
+split as the JAX package splits its key so that the draws are that
+package's: the stack's init, every modality (RGB, Perp-Neg, colla,
+normal) and the masked-latents cache. The VAE posterior's ε is drawn in
+the modules' dtype, the latents' (bf16 in the bf16 stack), as the JAX
+package's encode draws it.
 
 Resizing: ``jax.image.resize`` samples at half-pixel centres. Its
 "nearest" at the 512 → 64 mask downsample is torch's "nearest-exact"
@@ -132,10 +133,6 @@ def build_sd_modules(gcfg, generator: Optional[torch.Generator] = None, *,
         from ..utils.jax_init import init_sd
 
         init_sd(unet, vae, text, generator)
-    else:
-        with torch.no_grad():
-            text.text_model.embeddings.position_embedding.weight.normal_(
-                0.0, 0.01, generator=generator)
 
     tok_dir = weights_dir and os.path.join(weights_dir, "tokenizer")
     if tok_dir and not os.path.isdir(tok_dir):
@@ -324,9 +321,9 @@ def sd_train_step_colla(mods: SDModules, gcfg, step_i: int,
     images come from the renders, so they are encoded every call. The
     UNet's batch is [null×K,] uncond×K, text×K, the embeddings repeated
     per view in the same order. noise, enc_eps, enc_masked_eps: the
-    injected draws [K, LR, LR, 4].
+    injected draws [K, LR, LR, 4]; a JaxKey splits in three over the K
+    views as the JAX package's (noise, renders, masked images).
     """
-    jr.require_torch(generator, "collaborative guidance")
     K, LR = rgbs.shape[0], mods.latent_res
     mode = "csd" if gcfg.use_csd else "sds"
     nc = 3 if mode == "csd" else 2                            # CFG copies
@@ -366,7 +363,6 @@ def sd_train_step_perpneg(mods: SDModules, gcfg, step_i: int,
     text_z: [1+K, L, D] from adjust_text_embeddings; weights: [K];
     uncond: [L, D]. masked_latents and the draws as sd_train_step's.
     """
-    jr.require_torch(generator, "Perp-Neg guidance")
     latents_t, noise, mask_latent, unet_in, t = _noised_latents(
         mods, gcfg, step_i, rgb[None], mask[None], generator,
         masked_latents=masked_latents, noise=noise, enc_eps=enc_eps,
@@ -443,19 +439,21 @@ def make_guidance_fn(mods: SDModules, gcfg, n_iters: int = 10000):
 
     def _perpneg_rgb(step_i, combin_rgb, mask, generator, *,
                      masked_latents, u=None, **draws):
-        jr.require_torch(generator, "Perp-Neg guidance")
+        # a JaxKey: (orbit, SDS step), as the JAX package splits k_rgb
+        k_az, k_sd = jr.split(generator)
         theta_r, phi_r, rad_r = progressive_ranges(step_i, gcfg, n_iters)
         _, _, _, phis, _ = rand_poses(
-            1, generator, u=u, radius_range=rad_r, theta_range=theta_r,
+            1, k_az, u=u, radius_range=rad_r, theta_range=theta_r,
             phi_range=phi_r, angle_overhead=gcfg.angle_overhead,
-            angle_front=gcfg.angle_front, device=combin_rgb.device)
+            angle_front=gcfg.angle_front, device=combin_rgb.device,
+            ranges_f32=gcfg.progressive_view)
         az = wrap_azimuth(phis * (180.0 / math.pi) - gcfg.default_azimuth)
         text_z, weights = adjust_text_embeddings(
             mods.embeds_dir, az, front_decay_factor=gcfg.front_decay_factor,
             side_decay_factor=gcfg.side_decay_factor,
             negative_w=gcfg.negative_w)
         return sd_train_step_perpneg(
-            mods, gcfg, step_i, combin_rgb, mask, generator, text_z=text_z,
+            mods, gcfg, step_i, combin_rgb, mask, k_sd, text_z=text_z,
             weights=weights, guidance_scale=gcfg.guidance_scale,
             uncond=mods.embeds_rgb[1], masked_latents=masked_latents,
             **draws)

@@ -111,6 +111,13 @@ class CLIPTextEncoder(nn.Module):
         self.cfg = cfg
         self.text_model = _TextModel(cfg)
 
+    def init_own_(self, generator: torch.Generator) -> None:
+        """The JAX tower's own ``position_embedding`` parameter,
+        normal(0.01) (blocks.init_weights_ draws the layers)."""
+        with torch.no_grad():
+            self.text_model.embeddings.position_embedding.weight.normal_(
+                0.0, 0.01, generator=generator)
+
     def forward(self, input_ids):
         """[B, L] token ids → last_hidden_state [B, L, width]."""
         tm = self.text_model

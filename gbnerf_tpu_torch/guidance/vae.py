@@ -152,7 +152,10 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x, eps: Optional[torch.Tensor] = None):
         """Posterior sample mean + σ·eps (the mode when eps is None),
-        scaled by 0.18215. eps: standard normal, the latents' shape."""
+        scaled by 0.18215. eps: standard normal, the latents' shape (the
+        callers draw it in the modules' dtype, the latents' dtype, as the
+        JAX package's encode draws ``normal(key, mean.shape,
+        mean.dtype)``: bf16 in the bf16 stack)."""
         mean, logvar = self.encode_moments(x)
         if eps is not None:
             mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)

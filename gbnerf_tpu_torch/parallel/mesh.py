@@ -368,12 +368,11 @@ def draw(kind: str, shape, generator, dtype=torch.float32, device=None
     package's values (utils/jax_random.py). Inside ``global_rows`` the
     leading axis is this rank's rows of the batch: the draw is made at the
     global row count, as one process makes it, and rows [start, stop)
-    are kept (zero rows pad it to the rank's count); the JAX package's
-    key tree is not mirrored there, so a ``JaxKey`` raises."""
+    are kept (zero rows pad it to the rank's count). So a ``JaxKey``
+    draws what the JAX package's SPMD step draws: its global array, whose
+    values do not depend on the sharding."""
     shard = _ROWS.get()
     shape = tuple(shape)
-    if shard is not None and shard.rows != shard.n:
-        jr.require_torch(generator, "a draw of the data-parallel mesh")
     full = shape if shard is None else (shard.n,) + shape[1:]
     x = jr.draw(kind, full, generator, dtype, device)
     if shard is None:

@@ -20,7 +20,13 @@ one-process step the results are held against. Cases ("kind"):
   (``scene_dev``), with a toy guidance ("toy") or the SD stack (tiny or
   full, random from ``seed``, the case config's guidance options),
   tensor-parallel over the mesh's ``model`` axis under "tp" (and then
-  the UNet's parameter bytes on the fullest rank);
+  the UNet's parameter bytes on the fullest rank); the SD stack in the
+  spec's ``dtype`` (default bf16 for "full", f32 for "tiny"); with
+  ``sd_order`` "alt", cuDNN's benchmarked convolution algorithms and
+  cuBLAS's bf16 reduced-precision reductions flipped for the case (the
+  same step in another order of summation); with ``sds_record``, each
+  score-distillation injection's masked latent gradient g (``sds_g``, on
+  the CPU) and Σ|latents·g| (``sds_abs``);
 - "sd_step": one score-distillation step (sd_train_step, csd) on an image
   with the SD stack as in stage2 → loss, the image's gradient and the
   UNet's parameter bytes on the fullest rank;
@@ -34,6 +40,7 @@ the ranks (``launches``). Nothing here imports JAX: the tests spawn it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import time
 
@@ -121,6 +128,8 @@ def build_sd(spec, device, mesh=None):
                   text_config=CLIPTextConfig(vocab_size=49408, width=32,
                                              layers=2, heads=2),
                   dtype=torch.float32)
+    if spec.get("dtype"):
+        kw["dtype"] = getattr(torch, spec["dtype"])
     mods = build_sd_modules(
         gcfg, torch.Generator(device=device).manual_seed(spec["seed"]),
         device=device, latent_size=spec["latent_size"], **kw)
@@ -219,6 +228,50 @@ def toy_guidance(step_i, combin, normal_map, mask, generator=None, *,
     return loss
 
 
+@contextlib.contextmanager
+def _sds_record(out: dict):
+    """Within the block, each score-distillation injection's masked,
+    nan-scrubbed latent gradient g is appended to out["sds_g"] (f32, on the
+    CPU) and Σ|latents·g| to out["sds_abs"]: the scale of the SDS scalar
+    Σ latents·g's terms, which cancel."""
+    from ..guidance import stable
+
+    inner = stable.inject_gradient
+    out.update(sds_g=[], sds_abs=[])
+
+    def inject(latents, grad, mask=None):
+        g = torch.nan_to_num(grad)
+        if mask is not None:
+            g = g * mask
+        out["sds_abs"].append(float(torch.sum(torch.abs(
+            latents.detach().double() * g.double()))))
+        out["sds_g"].append(g.detach().float().cpu())
+        return inner(latents, grad, mask)
+
+    stable.inject_gradient = inject
+    try:
+        yield
+    finally:
+        stable.inject_gradient = inner
+
+
+@contextlib.contextmanager
+def _reduction_order(order):
+    """order "alt": cuDNN's benchmarked convolution algorithms and the
+    flipped cuBLAS bf16 reduced-precision reduction, for the block."""
+    if order != "alt":
+        yield
+        return
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    old = (cudnn.benchmark, mm.allow_bf16_reduced_precision_reduction)
+    cudnn.benchmark = True
+    mm.allow_bf16_reduced_precision_reduction = not old[1]
+    try:
+        yield
+    finally:
+        cudnn.benchmark, mm.allow_bf16_reduced_precision_reduction = old
+
+
 def _stage2(case, device, mesh):
     from ..guidance.stable import make_guidance_fn
     from ..train.step import make_train_step_stage2
@@ -242,9 +295,17 @@ def _stage2(case, device, mesh):
     banks = _to(case["banks"], device)
     idx = _to(case.get("idx"), device)
     draws = _to(case.get("draws"), device)
-    out = _step_case(case, device, mesh, make,
-                     lambda step, state, gen: step(state, scene_dev, banks,
-                                                   gen, idx=idx, draws=draws))
+    rec = {}
+    record = case.get("sds_record")
+    if record and (case.get("repeat") or case.get("steps")):
+        raise ValueError("sds_record holds one step: no repeat, no steps")
+    with _reduction_order(case.get("sd_order")), (
+            _sds_record(rec) if record else contextlib.nullcontext()):
+        out = _step_case(case, device, mesh, make,
+                         lambda step, state, gen: step(
+                             state, scene_dev, banks, gen, idx=idx,
+                             draws=draws))
+    out.update(rec)
     if mods is not None:
         from ..parallel.tp import sharded_bytes_per_device
 

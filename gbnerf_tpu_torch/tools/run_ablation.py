@@ -44,10 +44,9 @@ run is the same computation either way. Guided arms' names carry the
 combine's tag (``prior-sds``), as in the original. ``--smoke``
 swaps in the original's small-MLP field (its non-production default) for
 quick CPU runs, and ``--latent`` a smaller guidance resolution.
-``--draws jax`` passes on to the prior's trainer and to every arm: each
-then draws what the JAX package draws for its seed (utils/jax_random.py);
-the LoRA arms (priorL, priorNL) refuse it, their trainer's key tree is not
-mirrored. Results:
+``--draws jax`` passes on to the prior's trainer, the LoRA's and every
+arm: each then draws what the JAX package draws for its seed
+(utils/jax_random.py). Results:
 OUT/ablation.json and a table of masked, unmasked and full held-out PSNR.
 """
 from __future__ import annotations
@@ -311,7 +310,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the original's small-MLP field, for CPU runs")
     ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
-                    help="passed to the prior's trainer and every arm: "
+                    help="passed to the prior's and the LoRA's trainers "
+                         "and every arm: "
                          "torch generators, or the JAX package's draws")
     ap.add_argument("--check", action="store_true",
                     help="write and check the arm configs, train nothing")
@@ -322,11 +322,6 @@ def main(argv=None):
     if bad:
         raise SystemExit(f"unknown arms {bad}: the ablation's arms are "
                          f"{ARMS}")
-    lora_arms = [a for a in arms if a in ("priorL", "priorNL")]
-    if args.draws == "jax" and lora_arms:
-        raise SystemExit(f"--draws jax: the arms {lora_arms} train a LoRA, "
-                         "whose key tree is not mirrored; run them with "
-                         "--draws torch")
     out = os.path.abspath(args.out)
     logs = os.path.join(out, "logs")
     os.makedirs(logs, exist_ok=True)
@@ -386,8 +381,8 @@ def main(argv=None):
                       "--output_dir", os.path.join(out, "lora"),
                       "--max_train_steps", str(args.lora_steps),
                       "--train_batch_size", "4", "--checkpointing_steps",
-                      str(args.lora_steps), "--device", args.device],
-                     "lora.log")
+                      str(args.lora_steps), "--device", args.device,
+                      "--draws", args.draws], "lora.log")
 
     def write_meta(path):
         if os.path.exists(path) and not os.path.exists(path + ".meta.json"):

@@ -20,11 +20,13 @@ Randomness: the host streams (batch indices, ``random_mask``, the prompt
 draw of train_lora's prior flow) are numpy, as in the JAX package, so one
 seed gives the same batches in both. The device draws (t, ε, the VAE
 posterior ε of the image and of the masked image) come from a
-``torch.Generator`` or are injected (``draws``); the A init likewise.
+``torch.Generator``, or from a ``JaxKey`` split as the JAX trainer splits
+its key (utils/jax_random.py: ``draws="jax"`` gives the JAX package's
+run for a seed), or are injected (``draws``); the A init likewise.
 Checkpoints hold the adapters and AdamW's moments in the JAX package's
 ``{"lora", "opt"}`` msgpack layout (utils/msgpack.py) and, in meta.json,
-the torch generator's state and the numpy host rng: train(2N) equals
-train(N) followed by resume(N), bit for bit.
+the torch generator's state (or the JAX key, as ``jax_rng``) and the numpy
+host rng: train(2N) equals train(N) followed by resume(N), bit for bit.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from ..guidance.stable import SDModules, _resize
 from ..parallel.mesh import (average_grads, data_sharding, gather,
                              make_mesh, replicate, shard_batch, world_size)
 from ..parallel.mesh import rank as process_rank
+from ..utils import jax_random as jr
 from ..utils import msgpack
 from ..utils.png import write_png
 
@@ -149,13 +152,23 @@ class DreamBoothInpaintDataset:
         return imgs, masks, captions, imasks
 
 
-def draw_step(generator: Optional[torch.Generator], batch: int, lr_res: int,
-              device, num_train_timesteps: int = 1000
+def draw_step(generator, batch: int, lr_res: int, device,
+              num_train_timesteps: int = 1000, enc_dtype=torch.float32
               ) -> Dict[str, torch.Tensor]:
     """The draws of one step: t [B] uniform in [0, T), the noise ε and the
     VAE posterior ε of the image and of the masked image, [B, lr, lr, 4]
-    each."""
+    each. A JaxKey splits in four as the JAX trainer's loss does (noise,
+    t, the image's and the masked image's posterior ε, the last two in
+    the VAE's dtype ``enc_dtype``)."""
     shape = (batch, lr_res, lr_res, 4)
+    if jr.is_jax(generator):
+        k_noise, k_t, k_enc1, k_enc2 = jr.key_split(generator, 4)
+        return {"t": jr.randint(k_t, (batch,), 0, num_train_timesteps,
+                                device),
+                "noise": jr.normal(k_noise, shape, torch.float32, device),
+                "enc_eps": jr.normal(k_enc1, shape, enc_dtype, device),
+                "enc_masked_eps": jr.normal(k_enc2, shape, enc_dtype,
+                                            device)}
     return {
         "t": torch.randint(0, num_train_timesteps, (batch,),
                            generator=generator, device=device),
@@ -176,7 +189,9 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
     init_fn(generator=None, a_init=None) → (adapters, optimizer): the
     adapters (flat, guidance/lora.py's keys; with text_tower prefixed
     "unet." / "text.", as the JAX package's {"unet", "text"} tree) as
-    leaf tensors that require grad, and AdamW over them.
+    leaf tensors that require grad, and AdamW over them. A JaxKey splits
+    in two, the UNet's adapters from the first, the text tower's from
+    the second, as the JAX package's init_fn.
 
     step(adapters, optimizer, batch, generator=None, draws=None) →
     {"loss"}: one update in place. batch = {image [B,S,S,3] u8 or [-1,1]
@@ -200,21 +215,21 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
     sched = mods.schedule
     unet, vae = mods.unet, mods.vae
 
-    def init_fn(generator: Optional[torch.Generator] = None,
+    def init_fn(generator=None,
                 a_init: Optional[Dict[str, torch.Tensor]] = None):
+        k_u, k_t = jr.split(generator)
         if text_tower is None:
-            ad = init_lora(unet, rank=rank, generator=generator,
-                           a_init=a_init)
+            ad = init_lora(unet, rank=rank, generator=k_u, a_init=a_init)
         else:
             sub = (lambda p: None if a_init is None else
                    {k[len(p):]: v for k, v in a_init.items()
                     if k.startswith(p)})
             ad = {"unet." + k: v for k, v in init_lora(
-                unet, rank=rank, generator=generator,
+                unet, rank=rank, generator=k_u,
                 a_init=sub("unet.")).items()}
             ad.update({"text." + k: v for k, v in init_lora(
                 text_tower, rank=text_rank, targets=TEXT_TARGETS,
-                generator=generator, a_init=sub("text.")).items()})
+                generator=k_t, a_init=sub("text.")).items()})
         replicate(mesh, ad)
         for v in ad.values():
             v.requires_grad_(True)
@@ -285,7 +300,8 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
         if draws is None:
             img = batch["image"]
             draws = draw_step(generator, img.shape[0], img.shape[1] // 8,
-                              img.device, sched.num_train_timesteps)
+                              img.device, sched.num_train_timesteps,
+                              vae.quant_conv.weight.dtype)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(adapters, batch, draws)
         loss.backward()
@@ -321,12 +337,12 @@ def _flat(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def save_lora_checkpoint(output_dir: str, step: int, adapters, optimizer,
-                         generator: torch.Generator,
-                         host_rng: np.random.Generator) -> str:
+                         generator, host_rng: np.random.Generator) -> str:
     """A resumable ``checkpoint-{step}/``: state.msgpack (the adapters and
     AdamW's count and moments, as the JAX package's {"lora": tree, "opt":
     (ScaleByAdamState, EmptyState, EmptyState)}) and meta.json (the step,
-    the torch generator's state, the numpy host rng's state)."""
+    the torch generator's state or the JAX key's two words as the JAX
+    package writes them, ``jax_rng``, the numpy host rng's state)."""
     d = os.path.join(output_dir, f"checkpoint-{step}")
     os.makedirs(d, exist_ok=True)
 
@@ -345,9 +361,11 @@ def save_lora_checkpoint(output_dir: str, step: int, adapters, optimizer,
                            "mu": _nest(mu), "nu": _nest(nu)},
                      "1": {}, "2": {}}}
     msgpack.save(os.path.join(d, "state.msgpack"), state)
-    meta = {"step": step,
-            "torch_rng": generator.get_state().tolist(),
-            "host_rng": host_rng.bit_generator.state}
+    meta = {"step": step, "host_rng": host_rng.bit_generator.state}
+    if jr.is_jax(generator):
+        meta["jax_rng"] = list(generator.words())
+    else:
+        meta["torch_rng"] = generator.get_state().tolist()
     with open(os.path.join(d, "meta.json"), "w") as fh:
         json.dump(meta, fh)
     return d
@@ -365,11 +383,12 @@ def latest_lora_checkpoint(output_dir: str) -> Optional[str]:
                         max(dirs, key=lambda d: int(d.split("-")[-1])))
 
 
-def restore_lora_checkpoint(path: str, adapters, optimizer,
-                            generator: torch.Generator
-                            ) -> Tuple[np.random.Generator, int]:
-    """Load a checkpoint dir into the adapters, the optimizer and the
-    generator in place → (host rng, step)."""
+def restore_lora_checkpoint(path: str, adapters, optimizer, generator
+                            ) -> Tuple[np.random.Generator, int, object]:
+    """Load a checkpoint dir into the adapters, the optimizer and (a torch
+    generator) the generator in place → (host rng, step, the draws' state:
+    the generator, or the JaxKey the checkpoint holds). A checkpoint
+    resumes the kind of draws that wrote it."""
     state = msgpack.load(os.path.join(path, "state.msgpack"))
     lora, adam = _flat(state["lora"]), state["opt"]["0"]
     mu, nu = _flat(adam["mu"]), _flat(adam["nu"])
@@ -387,21 +406,30 @@ def restore_lora_checkpoint(path: str, adapters, optimizer,
                     "exp_avg_sq": torch.from_numpy(nu[k]).to(p.device)}
     with open(os.path.join(path, "meta.json")) as fh:
         meta = json.load(fh)
-    generator.set_state(torch.tensor(meta["torch_rng"], dtype=torch.uint8))
+    kind = "jax" if "jax_rng" in meta else "torch"
+    if kind != ("jax" if jr.is_jax(generator) else "torch"):
+        raise ValueError(f"{path} was written with {kind} draws: resume it "
+                         f"with draws={kind!r}")
+    if kind == "jax":
+        generator = jr.JaxKey(*(int(w) for w in meta["jax_rng"]))
+    else:
+        generator.set_state(torch.tensor(meta["torch_rng"],
+                                         dtype=torch.uint8))
     host_rng = np.random.default_rng()
     host_rng.bit_generator.state = meta["host_rng"]
-    return host_rng, int(meta["step"])
+    return host_rng, int(meta["step"]), generator
 
 
 def generate_class_images(mods: SDModules, embeds3: torch.Tensor,
                           class_data_dir: str, num_class_images: int,
-                          generator: Optional[torch.Generator] = None, *,
+                          generator=None, *,
                           num_inference_steps: int = 50,
                           resolution: Optional[int] = None) -> int:
     """Top up ``class_data_dir`` to num_class_images prior-preservation
     class images: each a full inpaint (guidance/pipeline.py) of a uniform
     random image under a full mask, written as PNG. Returns how many were
-    written."""
+    written. A JaxKey splits in three an image, as the JAX package's:
+    the key carried on, the image's uniforms, the inpaint's key."""
     from ..guidance.pipeline import inpaint
 
     os.makedirs(class_data_dir, exist_ok=True)
@@ -414,9 +442,10 @@ def generate_class_images(mods: SDModules, embeds3: torch.Tensor,
     dev = embeds3.device
     print(f"[lora] generating {n_new} class images → {class_data_dir}")
     for i in range(n_new):
-        img = torch.rand((S, S, 3), generator=generator, device=dev)
+        generator, k_img, k_gen = jr.split(generator, 3)
+        img = jr.draw("rand", (S, S, 3), k_img, device=dev)
         out = inpaint(mods, embeds3, img, torch.ones((S, S), device=dev),
-                      generator, num_inference_steps=num_inference_steps)
+                      k_gen, num_inference_steps=num_inference_steps)
         out8 = (np.clip(out.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
         if resolution and resolution != S:
             out8 = resize_area(out8, resolution, resolution)
@@ -434,7 +463,8 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
                class_dataset: Optional[DreamBoothInpaintDataset] = None,
                prior_loss_weight: float = 1.0, text_tower=None,
                tokenize: Optional[Callable] = None, text_rank: int = 4,
-               resume_from: Optional[str] = None, device=None, mesh=None):
+               resume_from: Optional[str] = None, device=None, mesh=None,
+               draws: str = "torch"):
     """The LoRA fine-tune loop on ``device`` (default: the UNet's): writes
     ``lora_{step:06d}.safetensors`` and a resumable checkpoint every
     checkpointing_steps and at the end. encode_prompt(captions[, rng]) →
@@ -444,8 +474,10 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
     'latest' or a checkpoint dir. mesh: a DeviceMesh; under torchrun
     with more than one rank, one over every rank is made: the batch is
     split over the ranks (each draws the global batch from the same host
-    rng and keeps its rows), and rank 0 alone logs and writes. Returns the
-    adapters."""
+    rng and keeps its rows), and rank 0 alone logs and writes. draws:
+    "torch" (generators seeded with seed and seed + 1) or "jax" (the JAX
+    package's keys: init_fn(PRNGKey(seed)), then PRNGKey(seed + 1) split
+    once a step). Returns the adapters."""
     import inspect
 
     os.makedirs(output_dir, exist_ok=True)
@@ -465,22 +497,30 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
         prior_preservation=class_dataset is not None,
         prior_loss_weight=prior_loss_weight, text_tower=text_tower,
         text_rank=text_rank, mesh=mesh)
-    adapters, opt = init_fn(torch.Generator(device=device).manual_seed(seed))
+    if draws not in ("torch", "jax"):
+        raise ValueError(f"draws must be 'torch' or 'jax', not {draws!r}")
+    if draws == "jax":
+        adapters, opt = init_fn(jr.PRNGKey(seed))
+        gen = jr.PRNGKey(seed + 1)
+    else:
+        adapters, opt = init_fn(
+            torch.Generator(device=device).manual_seed(seed))
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
     if lead:
         print(f"[lora] training {lora_param_count(adapters):,} adapter "
               "params")
 
     host_rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
     start = 0
     if resume_from:
         path = (latest_lora_checkpoint(output_dir)
                 if resume_from == "latest" else resume_from)
         if path and os.path.isdir(path):
-            host_rng, start = restore_lora_checkpoint(path, adapters, opt,
-                                                      gen)
-            print(f"[lora] resumed from {path} at step {start}")
-        else:
+            host_rng, start, gen = restore_lora_checkpoint(
+                path, adapters, opt, gen)
+            if lead:
+                print(f"[lora] resumed from {path} at step {start}")
+        elif lead:
             print(f"[lora] resume checkpoint '{resume_from}' not found; "
                   "starting fresh")
 
@@ -505,7 +545,8 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
         else:
             batch["embeds"] = dev(encode_prompt(captions, rng=host_rng)
                                   if accepts_rng else encode_prompt(captions))
-        m = step(adapters, opt, batch, gen)
+        gen, key = jr.split(gen)
+        m = step(adapters, opt, batch, key)
         if i % log_every == 0 and lead:
             loss = float(m["loss"])
             print(f"[lora {i}/{steps}] loss={loss:.4f} "

@@ -8,7 +8,8 @@
 The port's twin of the root train_lora.py, with its flags; ``--device``
 (default cuda) picks the device, and without a card the CLI exits 1 naming
 the flag. ``--tiny`` trains the tiny random stack in f32 (tests, smoke
-runs); ``--sd_prior_ckpt`` fine-tunes on a prior of
+runs); ``--draws jax`` replays the root train_lora.py's keys for
+``--seed``; ``--sd_prior_ckpt`` fine-tunes on a prior of
 ``gbnerf_tpu_torch.tools.train_tiny_prior`` (conditioned on the prior's
 own embedding triple unless ``--caption_dir``); the adapters go to
 stage 2 through ``guidance.sd_lora_ckpt``. Without ``--sd_weights_dir``
@@ -60,6 +61,11 @@ def parse_args(argv=None):
                          "512 full; set to the prior's training res)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
+                    help="torch generators seeded from --seed, or the JAX "
+                         "package's keys for it (the stack's init, the "
+                         "class images, the adapters and every step's "
+                         "draws: the root train_lora.py's run)")
     ap.add_argument("--dist_backend", default=None,
                     help="under torchrun: nccl (default on the card) or "
                          "gloo (the default on the CPU; on the card it "
@@ -90,6 +96,7 @@ def main(argv=None):
     from .guidance.unet import UNetConfig
     from .guidance.vae import VAEConfig
     from .train.loop import device_from_flag
+    from .utils import jax_random as jr
     from .train.lora_trainer import (DreamBoothInpaintDataset,
                                      generate_class_images, train_lora)
 
@@ -107,9 +114,15 @@ def main(argv=None):
                   latent_size=args.latent_size or 64, dtype=torch.float32)
     elif args.latent_size:
         kw = dict(latent_size=args.latent_size)
-    mods = build_sd_modules(
-        gcfg, torch.Generator(device=device).manual_seed(args.seed),
-        weights_dir=args.sd_weights_dir, device=device, **kw)
+    jax_draws = args.draws == "jax"
+
+    def rng(seed):
+        return (jr.PRNGKey(seed) if jax_draws
+                else torch.Generator(device=device).manual_seed(seed))
+
+    mods = build_sd_modules(gcfg, rng(args.seed),
+                            weights_dir=args.sd_weights_dir, device=device,
+                            **kw)
     if args.sd_prior_ckpt:
         from .guidance.weights import load_prior_ckpt
 
@@ -156,7 +169,7 @@ def main(argv=None):
         if process_rank() == 0:
             generate_class_images(
                 mods, embeds3, args.class_data_dir, args.num_class_images,
-                torch.Generator(device=device).manual_seed(args.seed + 99),
+                rng(args.seed + 99),
                 num_inference_steps=args.sample_steps,
                 resolution=resolution)
         if world_size() > 1:
@@ -175,7 +188,8 @@ def main(argv=None):
         prior_loss_weight=args.prior_loss_weight,
         text_tower=text if args.train_text_encoder else None,
         tokenize=tokenize if args.train_text_encoder else None,
-        resume_from=args.resume_from_checkpoint, device=device)
+        resume_from=args.resume_from_checkpoint, device=device,
+        draws=args.draws)
     if world_size() > 1:
         torch.distributed.destroy_process_group()
     return adapters

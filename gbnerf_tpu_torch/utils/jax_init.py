@@ -15,7 +15,8 @@ functions, so here:
   ``0.5 · normal`` for the CP lines (``gbnerf_tpu/core/cp_field.py``),
   ``normal(0.01)`` for the text tower's position embedding, uniform
   ±1e-4 for the hash table;
-- ``init_field`` and ``init_sd`` fill the port's modules in place: the
+- ``init_field``, ``init_sd`` and ``init_clip_guidance`` fill the port's
+  modules in place: the
   tree's names and shapes come from the port's own modules through
   ``convert.py``'s name maps, its values from the twin of the module's
   ``init``; the result is what ``convert.py`` makes of the JAX package's
@@ -191,6 +192,12 @@ def init_train_fields(coarse, fine, key: JaxKey):
     return coarse, fine
 
 
+# the towers' own ``self.param`` leaves: (order in the scope, initializer)
+_TEXT_CUSTOM = {("position_embedding",): (1, scaled_normal(0.01))}
+_VISION_CUSTOM = {("class_embedding",): (1, scaled_normal(0.02)),
+                  ("position_embedding",): (2, scaled_normal(0.01))}
+
+
 @torch.no_grad()
 def init_sd(unet: torch.nn.Module, vae: torch.nn.Module,
             text: torch.nn.Module, key: JaxKey) -> None:
@@ -200,9 +207,34 @@ def init_sd(unet: torch.nn.Module, vae: torch.nn.Module,
     from ..convert import sd_params_from_jax, sd_params_to_jax
 
     keys = key_split(key, 3)
-    customs = ({}, {}, {("position_embedding",): (1, scaled_normal(0.01))})
+    customs = ({}, {}, _TEXT_CUSTOM)
     trees = [_numpy(fill_tree(t, k, c, next(m.parameters()).device))
              for t, k, c, m in zip(sd_params_to_jax(unet, vae, text), keys,
                                    customs, (unet, vae, text))]
     for module, sd in zip((unet, vae, text), sd_params_from_jax(*trees)):
         module.load_state_dict(sd)
+
+
+@torch.no_grad()
+def init_clip_guidance(vision: torch.nn.Module, text, key: JaxKey
+                       ) -> JaxKey:
+    """``CLIPGuidance``'s init (``gbnerf_tpu/guidance/clip_guidance.py``):
+    its key splits in three, k1 → the vision tower, k2 → the text tower
+    (skipped when ``text`` is None: a tower the caller built), k3 → the
+    random text projection, which is returned for the caller to draw."""
+    from ..convert import (_TEXT_RULES, _TEXT_RULES_INV,
+                           clip_vision_params_from_jax,
+                           clip_vision_params_to_jax, flax_to_state_dict,
+                           state_dict_to_flax)
+
+    k1, k2, k3 = key_split(key, 3)
+    dev = next(vision.parameters()).device
+    tree = fill_tree(clip_vision_params_to_jax(vision), k1, _VISION_CUSTOM,
+                     dev)
+    vision.load_state_dict(clip_vision_params_from_jax(_numpy(tree)))
+    if text is not None:
+        tree = fill_tree(state_dict_to_flax(text.state_dict(),
+                                            _TEXT_RULES_INV), k2,
+                         _TEXT_CUSTOM, dev)
+        text.load_state_dict(flax_to_state_dict(_numpy(tree), _TEXT_RULES))
+    return k3

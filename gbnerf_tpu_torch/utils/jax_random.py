@@ -10,7 +10,8 @@ key tree and every draw made from it can be recomputed here, on any device:
 - the bits of a draw are computed on the tensor's device in int64
   arithmetic masked to 32 bits (``random_bits``);
 - ``uniform``, ``randint`` (with its two-draw span arithmetic) and the raw
-  bits equal jax 0.9.0's bit for bit; ``normal``, ``truncated_normal`` and
+  bits equal jax 0.9.0's bit for bit, bf16 uniforms (built from 8-bit
+  words) too; ``normal`` (f32 and bf16), ``truncated_normal`` and
   ``exponential`` evaluate XLA's own f32 ``log1p`` (Cephes) and
   ``erf_inv`` (Giles) formulas with the fused multiply-adds XLA's CPU
   backend emits, and equal jax's on more than 99.9 % of draws, the rest
@@ -150,10 +151,13 @@ def _numel(shape) -> int:
 def random_bits(key: JaxKey, shape, device=None, bit_width: int = 32
                 ) -> torch.Tensor:
     """``jax.random.bits`` of ``shape`` → an int64 tensor of unsigned
-    values (32-bit, or 64-bit as int64's two's complement)."""
+    values (8-, 16-, 32-bit, or 64-bit as int64's two's complement).
+    Narrow words are, in the partitionable layout, the low bits of each
+    32-bit word; in the original one, the bytes (or halves) of the
+    threefry words in little-endian order."""
     shape, n = tuple(shape), _numel(shape)
-    if bit_width not in (32, 64):
-        raise ValueError(f"bit_width {bit_width}: only 32 and 64 are drawn")
+    if bit_width not in (8, 16, 32, 64):
+        raise ValueError(f"bit_width {bit_width}: 8, 16, 32 or 64 bits")
     if n == 0:
         return torch.zeros(shape, dtype=torch.int64, device=device)
     if key.partitionable:
@@ -161,10 +165,10 @@ def random_bits(key: JaxKey, shape, device=None, bit_width: int = 32
             raise ValueError("more than 2**32 values in one draw")
         lo = torch.arange(n, dtype=torch.int64, device=device)
         b1, b2 = threefry2x32(key.k0, key.k1, torch.zeros_like(lo), lo)
-        if bit_width == 32:
-            return (b1 ^ b2).reshape(shape)
-        return ((b1 << 32) | b2).reshape(shape)
-    words = n * bit_width // 32
+        if bit_width == 64:
+            return ((b1 << 32) | b2).reshape(shape)
+        return ((b1 ^ b2) & ((1 << bit_width) - 1)).reshape(shape)
+    words = -(-n * bit_width // 32)
     if words >= M32:
         raise ValueError("draw too large for one threefry block")
     half = (words + 1) // 2
@@ -175,12 +179,18 @@ def random_bits(key: JaxKey, shape, device=None, bit_width: int = 32
     bits = torch.cat([y0, y1])[:words]
     if bit_width == 32:
         return bits.reshape(shape)
-    hi, lo = bits[:n], bits[n:]
-    return ((hi << 32) | lo).reshape(shape)
+    if bit_width == 64:
+        hi, lo = bits[:n], bits[n:]
+        return ((hi << 32) | lo).reshape(shape)
+    mask = (1 << bit_width) - 1
+    parts = [(bits >> (bit_width * i)) & mask
+             for i in range(32 // bit_width)]
+    return torch.stack(parts, dim=1).reshape(-1)[:n].reshape(shape)
 
 
 def _unit_floats(key: JaxKey, shape, dtype, device) -> torch.Tensor:
-    """jax's [1, 2) mantissa trick minus 1 → floats in [0, 1)."""
+    """jax's [1, 2) mantissa trick minus 1 → floats in [0, 1). bfloat16
+    (7 mantissa bits) takes jax's 8-bit words, shifted right by 1."""
     if dtype == torch.float32:
         bits = random_bits(key, shape, device, 32)
         f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
@@ -191,7 +201,12 @@ def _unit_floats(key: JaxKey, shape, dtype, device) -> torch.Tensor:
         mant = (bits >> 12) & ((1 << 52) - 1)
         f = (mant | 0x3FF0000000000000).view(torch.float64)
         return f - 1.0
-    raise TypeError(f"uniform draws in float32 or float64, not {dtype}")
+    if dtype == torch.bfloat16:
+        bits = random_bits(key, shape, device, 8)
+        f = ((bits >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+        return f - 1.0
+    raise TypeError(f"uniform draws in float32, float64 or bfloat16, "
+                    f"not {dtype}")
 
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
@@ -213,7 +228,7 @@ def uniform(key: JaxKey, shape, dtype=torch.float32, device=None,
     hi = torch.tensor(maxval, dtype=dtype, device=device)
     if dtype == torch.float32:
         x = _fma32(f, hi - lo, lo.double())
-    else:
+    else:           # f64; bf16 rounds after each operation, as XLA's CPU
         x = f * (hi - lo) + lo
     return torch.maximum(lo, x)
 
@@ -358,19 +373,25 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
 
 
-_NEXT_M1 = -0.99999994  # nextafter(-1, 0) in f32
+# nextafter(-1, 0) in f32 and in bf16
+_NEXT_M1 = {torch.float32: -0.99999994, torch.bfloat16: -0.99609375}
 
 
 def normal(key: JaxKey, shape, dtype=torch.float32, device=None
            ) -> torch.Tensor:
     """``jax.random.normal``: √2 · erf_inv(u), u uniform over
-    [nextafter(−1, 0), 1), in f32."""
-    if dtype != torch.float32:
-        raise TypeError("normal draws are replayed in float32 only (XLA's "
-                        "f64 erf_inv is another polynomial)")
-    u = uniform(key, shape, dtype, device, _NEXT_M1, 1.0)
-    return torch.tensor(math.sqrt(2.0), dtype=dtype, device=device) \
-        * erf_inv_f32(u)
+    [nextafter(−1, 0), 1), in f32 or bf16. In bf16, XLA's CPU evaluates
+    erf_inv in f32 on the upcast uniform and rounds it to bf16, then
+    multiplies by √2 rounded to bf16 and rounds again."""
+    if dtype not in _NEXT_M1:
+        raise TypeError("normal draws are replayed in float32 and bfloat16 "
+                        "only (XLA's f64 erf_inv is another polynomial)")
+    u = uniform(key, shape, dtype, device, _NEXT_M1[dtype], 1.0)
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=device)
+    if dtype == torch.float32:
+        return sqrt2 * erf_inv_f32(u)
+    e = erf_inv_f32(u.float()).to(dtype)
+    return (e.float() * sqrt2.float()).to(dtype)
 
 
 def _erf_f32(x: float) -> float:
@@ -450,12 +471,3 @@ def randint_(rng: Rng, low: int, high: int, shape, device=None
         return randint(rng, shape, low, high, device)
     return torch.randint(low, high, tuple(shape), generator=rng,
                          device=device)
-
-
-def require_torch(rng: Rng, what: str) -> None:
-    """Raise where a path's draws are not replayed from the JAX package's
-    key tree: a JaxKey never reaches torch's generator there."""
-    if isinstance(rng, JaxKey):
-        raise NotImplementedError(
-            f"{what}: the JAX package's key tree is not mirrored on this "
-            "path; run it with draws='torch'")

@@ -44,12 +44,13 @@ class VGG16Features(nn.Module):
             if v == "M":
                 continue
             conv = nn.Conv2d(c_in, v, 3, padding=1)
-            # flax's nn.Conv init at lecun-normal scale (1 / fan_in; flax
-            # truncates the normal), zero bias, from the given generator
+            # flax's nn.Conv init: lecun_normal (a normal truncated at ±2σ,
+            # std 1/√fan_in, fan_in 9·c_in), zero bias, from the generator
+            std = (1.0 / (9 * c_in)) ** 0.5 / 0.87962566103423978
             with torch.no_grad():
-                conv.weight.copy_(torch.randn(conv.weight.shape,
-                                              generator=generator)
-                                  * (1.0 / (9 * c_in)) ** 0.5)
+                conv.weight.copy_(nn.init.trunc_normal_(
+                    torch.empty(conv.weight.shape), 0.0, std, -2.0 * std,
+                    2.0 * std, generator=generator))
                 conv.bias.zero_()
             setattr(self, f"conv_{i}", conv)
             c_in, i = v, i + 1

@@ -193,8 +193,6 @@ def test_draw_helpers_keep_the_torch_stream():
            torch.randint(0, 9, (5,), generator=g2)]
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="not mirrored"):
-        jr.require_torch(jr.PRNGKey(0), "a path")
 
 
 @SETTINGS

@@ -489,27 +489,29 @@ def test_prior_trainer_with_torch_draws_fails_the_check(jax_prior):
 
 
 def test_unmirrored_paths_raise_under_jax_draws(tmp_path):
-    """Perp-Neg, colla, steps_per_dispatch > 1 and the bf16 SD stack
-    refuse draws='jax' before any work, and the ablation refuses its LoRA
-    arms."""
+    """No path is left unmirrored: the configs that refused draws='jax'
+    (Perp-Neg, colla, steps_per_dispatch > 1, the bf16 SD stack) pass the
+    draws' check and reach their scene load, and the ablation accepts its
+    LoRA arms; an unknown kind of draws still raises before any work."""
     from gbnerf_tpu_torch.tools import run_ablation
     from gbnerf_tpu_torch.train import loop as tloop
 
     rgb = {"guidance": "SD", "is_rgb_guidance": True}
-    for g, t, what in (
-            ({"perpneg": True}, {"first_stage": False}, "Perp-Neg"),
-            ({"is_colla_guidance": True}, {"first_stage": False}, "colla"),
-            ({}, {"first_stage": True, "steps_per_dispatch": 4},
-             "steps_per_dispatch"),
-            (dict(rgb, sd_allow_random=True), {"first_stage": False},
-             "bfloat16"),
-            (dict(rgb, sd_weights_dir=str(tmp_path / "sd")),
-             {"first_stage": False}, "bfloat16")):
-        cfg = tcfg.Config(guidance=tcfg.GuidanceConfig(**g),
-                          train=tcfg.TrainConfig(basedir=str(tmp_path), **t))
-        with pytest.raises(NotImplementedError, match=what):
+    for g, t in (({"perpneg": True}, {"first_stage": False}),
+                 ({"is_colla_guidance": True}, {"first_stage": False}),
+                 ({}, {"first_stage": True, "steps_per_dispatch": 4}),
+                 (dict(rgb, sd_allow_random=True), {"first_stage": False}),
+                 (dict(rgb, sd_weights_dir=str(tmp_path / "sd")),
+                  {"first_stage": False})):
+        cfg = tcfg.Config(
+            guidance=tcfg.GuidanceConfig(**g),
+            data=tcfg.DataConfig(datadir=str(tmp_path / "no_scene")),
+            train=tcfg.TrainConfig(basedir=str(tmp_path / "logs"), **t))
+        with pytest.raises(FileNotFoundError):
             tloop.train(cfg, device="cpu", draws="jax")
-    assert not os.listdir(tmp_path)   # refused before any work
-    with pytest.raises(SystemExit, match="LoRA"):
-        run_ablation.main([str(tmp_path / "abl"), "--arms", "s1,priorNL",
-                           "--draws", "jax", "--device", "cpu"])
+    cfg = tcfg.Config(train=tcfg.TrainConfig(basedir=str(tmp_path / "x")))
+    with pytest.raises(ValueError, match="draws"):
+        tloop.train(cfg, device="cpu", draws="numpy")
+    assert not (tmp_path / "x").exists()   # refused before any work
+    run_ablation.main([str(tmp_path / "abl"), "--arms", "s1,priorNL",
+                       "--draws", "jax", "--device", "cpu", "--check"])
