@@ -1870,12 +1870,23 @@ def _disk_train(cfg, dev, label: str, total: int, every: int):
     return out, float(np.median(group_ms)), group_ms, launches
 
 
+def abl_args(iters2: int, n_test: int):
+    """The ablation twin's round-5 command line (--production --colmap
+    --lindisp --combine sds) at the disk phase's sizes."""
+    from gbnerf_tpu_torch.tools import run_ablation
+
+    return run_ablation.parse_args([
+        "OUT", "--production", "--colmap", "--lindisp", "--combine", "sds",
+        "--iters1", str(DISK_S1_STEPS), "--iters2", str(iters2),
+        "--n_test", str(n_test), "--latent", "256", "--lora_steps",
+        str(LORA_TINY_STEPS)])
+
+
 def disk_phase(dev, workdir: Path) -> dict:
     """The round-5 ablation scene written to disk by the synthetic-scene
     twin at full size, read back by load_scene with imageio and cv2
     blocked (the PNG codec), then s1 and nog from the ablation twin's
     configs through train(), which loads the scene itself."""
-    import argparse as ap_
     import shutil
 
     from gbnerf_tpu_torch.config import load_reference_config
@@ -1894,10 +1905,8 @@ def disk_phase(dev, workdir: Path) -> dict:
             "--W", str(VIEW_W), "--n_train", str(n_train), "--n_test",
             str(n_test), "--seed", "0", "--colmap_sparse"])
         write_s = time.perf_counter() - t0
-        paths = run_ablation.write_configs(str(workdir), ap_.Namespace(
-            smoke=False, iters1=DISK_S1_STEPS, iters2=DISK_NOG_STEPS,
-            n_test=n_test, combine="sds", latent=256,
-            lora_steps=LORA_TINY_STEPS))
+        paths = run_ablation.write_configs(str(workdir), abl_args(
+            DISK_NOG_STEPS, n_test))
         never = 10 ** 9
 
         def cfg_of(arm, every):
@@ -2424,7 +2433,6 @@ def guided_phase(dev, workdir: Path) -> dict:
     config for PRIOR_NL_STEPS steps through train() from s1's checkpoint
     (the prior loaded, the adapters merged, RGB and normal-map SDS from the
     first step). Each with its own launch counts."""
-    import argparse as ap_
     import shutil
 
     from gbnerf_tpu_torch import train_lora
@@ -2469,10 +2477,8 @@ def guided_phase(dev, workdir: Path) -> dict:
           f"; scene LoRA ({LORA_TINY_STEPS} steps) in {lora_s:.3f} s | "
           f"{smi}")
     n_test = DISK_VIEWS[1]
-    paths = run_ablation.write_configs(str(workdir), ap_.Namespace(
-        smoke=False, iters1=DISK_S1_STEPS, iters2=PRIOR_NL_STEPS,
-        n_test=n_test, combine="sds", latent=256,
-        lora_steps=LORA_TINY_STEPS), arms=("s1", "priorNL"))
+    paths = run_ablation.write_configs(str(workdir), abl_args(
+        PRIOR_NL_STEPS, n_test), arms=("s1", "priorNL"))
     cfg = load_reference_config(paths["priorNL"])
     never = 10 ** 9
     cfg = cfg.replace(train=dataclasses.replace(

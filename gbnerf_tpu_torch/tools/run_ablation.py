@@ -1,23 +1,35 @@
 """The guidance ablation on the port: the s1, nog and guided arms.
 
-    python -m gbnerf_tpu_torch.tools.run_ablation OUT [--arms s1,nog]
-        [--combine sds|csd|csd_ref] [--iters1 10000] [--iters2 10000]
-        [--prior_steps 6000] [--lora_steps 1000] [--skip_prior]
-        [--device cuda] [--draws torch|jax] [--check]
+    python -m gbnerf_tpu_torch.tools.run_ablation OUT [--production]
+        [--colmap] [--lindisp] [--seed 0] [--family spheres|hard]
+        [--arms s1,nog,rand,prior] [--combine csd|sds|csd_ref]
+        [--iters1 N] [--iters2 N] [--sds_w W] [--anneal N] [--latent N]
+        [--H N] [--W N] [--n_train N] [--n_test N] [--prior_steps N]
+        [--lora_steps N] [--skip_prior] [--check]
+        [--device cuda] [--draws torch|jax]
 
-The port's twin of tools/run_ablation.py at the settings of
-``tools/run_ablation.py OUT --production --colmap --lindisp`` (the
-round-5 table of PARITY.md; the reference's shipped combine is
-``--combine sds``):
+The port's twin of tools/run_ablation.py: the same flags, defaults and
+configs (paths aside), so that every repro line of PARITY.md runs
+unchanged under ``python -m gbnerf_tpu_torch.tools.run_ablation``.
+``--production`` picks the production CP field and the scale table
+(``SCALE``: 10k + 10k steps, sds_w 1e-4, anneal 20000, 256² latents,
+252 × 189 views, 16 + 3 of them; without it the small-MLP field and
+3k + 2k, 1e-3, 4000, 128², 128 × 96, 8 + 2); an explicit flag overrides
+its entry. ``--colmap``: sparse COLMAP depth (the scene's
+``--colmap_sparse``), else the scene's dense disparity. ``--lindisp``:
+disparity-linear sampling. ``--seed``: the scene generator's seed alone
+(train.seed stays the config's). ``--family``: the scene's and the
+prior's world. The round-5 table of PARITY.md is ``--production --colmap
+--lindisp --combine sds``; round 3's is ``--production`` (csd).
 
-  Scene  ``gbnerf_tpu_torch.tools.make_synthetic_scene --task inpaint
-         --colmap_sparse`` at 252 × 189, 16 train + 3 test views, seed 0:
-         an intruder sphere "removed" by per-view inconsistent 2-D
-         inpaintings; the held-out views carry clean ground truth and the
-         intruder masks, so masked-region PSNR measures the fill.
+  Scene  ``gbnerf_tpu_torch.tools.make_synthetic_scene --task inpaint``:
+         an intruder "removed" by per-view inconsistent 2-D inpaintings;
+         the held-out views carry clean ground truth and the intruder
+         masks, so masked-region PSNR measures the fill.
   Prior  ``gbnerf_tpu_torch.tools.train_tiny_prior OUT/prior.msgpack`` at
          the guidance resolution (the tiny stack trained from scratch on
-         random sphere worlds; the domain, never the scene).
+         random worlds of the family; the domain, never the scene: one
+         prior serves every seed through ``--skip_prior``).
   LoRA   ``gbnerf_tpu_torch.train_lora --tiny --sd_prior_ckpt`` on the
          scene's inpainted training images, the label masks out of the
          loss (the reference's DreamBooth → guidance workflow).
@@ -34,20 +46,18 @@ round-5 table of PARITY.md; the reference's shipped combine is
                  views rendered each step and guided jointly
 
 Each arm is a run of ``python -m gbnerf_tpu_torch.run`` on the config it
-writes (the same text as the original's, paths aside); the stage-2 arms
-start from a copy of s1's checkpoints. Where the original runs one command
+writes; the stage-2 arms start from a copy of s1's checkpoints, and an arm
+whose ``ckpt/`` exists counts as run. Where the original runs one command
 after another, the twin starts each as soon as what it needs exists (the
 prior beside s1; nog and rand once s1 is done; the prior's arms and the
 LoRA once the prior is; the LoRA's arms once it is), beside the others on
 the one card: a guided arm leaves the card idle most of a step, and each
 run is the same computation either way. Guided arms' names carry the
-combine's tag (``prior-sds``), as in the original. ``--smoke``
-swaps in the original's small-MLP field (its non-production default) for
-quick CPU runs, and ``--latent`` a smaller guidance resolution.
-``--draws jax`` passes on to the prior's trainer, the LoRA's and every
-arm: each then draws what the JAX package draws for its seed
-(utils/jax_random.py). Results:
-OUT/ablation.json and a table of masked, unmasked and full held-out PSNR.
+combine's tag (``prior-sds``), as in the original. Port-only flags:
+``--device`` and ``--draws jax``, which passes on to the prior's trainer,
+the LoRA's and every arm: each then draws what the JAX package draws for
+its seed (utils/jax_random.py). Results: OUT/ablation.json and a table of
+masked, unmasked and full held-out PSNR.
 """
 from __future__ import annotations
 
@@ -60,6 +70,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+SCENE_TOOL = "gbnerf_tpu_torch.tools.make_synthetic_scene"
+PRIOR_TOOL = "gbnerf_tpu_torch.tools.train_tiny_prior"
 ARMS = ("s1", "nog", "rand", "prior", "priorN", "priorL", "priorNL",
         "priorC")
 
@@ -68,8 +80,8 @@ datadir = {scene}
 dataset_type = llff
 factor = 4
 test_split_count = {n_test}
-colmap_depth = True
-lindisp = True
+colmap_depth = {colmap}
+lindisp = {lindisp}
 {field}
 basedir = {logs}
 expname = {arm}
@@ -123,7 +135,12 @@ COMBINE = {
     "csd_ref": "use_csd = True",
 }
 COMBINE_TAG = {"csd": "", "sds": "-sds", "csd_ref": "-csdref"}
-SDS_W, ANNEAL, NORMAL_FACTOR = 1e-4, 20000, 7      # the production knobs
+# the original's scale table: (with --production, without)
+SCALE = {"iters1": (10000, 3000), "iters2": (10000, 2000),
+         "sds_w": (1e-4, 1e-3), "anneal": (20000, 4000),
+         "latent": (256, 128), "H": (189, 96), "W": (252, 128),
+         "n_train": (16, 8), "n_test": (3, 2), "prior_steps": (6000, 4000),
+         "lora_steps": (1000, 300)}
 
 
 def launch(cmd, log_path) -> subprocess.Popen:
@@ -167,17 +184,20 @@ def write_configs(out, args, arms=("s1", "nog")):
     """OUT/cfg_<arm>.txt for s1 and each requested arm → {arm: path}."""
     scene = os.path.join(out, "scene")
     logs = os.path.join(out, "logs")
-    field = FIELD_SMOKE if args.smoke else FIELD_PROD
-    combine, latent = args.combine, args.latent
+    prod, combine = args.production, args.combine
+    field = FIELD_PROD if prod else FIELD_SMOKE
     prior, lora_ckpt = artifact_paths(out, args)
     n2 = args.iters1 + args.iters2
-    stage2 = STAGE2.format(combine=COMBINE[combine], sds_w=SDS_W,
-                           anneal=ANNEAL, latent=latent,
-                           extra="cache_masked_latents = True")
+    stage2 = STAGE2.format(combine=COMBINE[combine], sds_w=args.sds_w,
+                           anneal=args.anneal, latent=args.latent,
+                           extra="cache_masked_latents = True" if prod
+                           else "")
     guided = "is_rgb_guidance = True\nsd_tiny = True\n"
+    # the production scale keeps the reference's factor 7; the small
+    # views need 4 for a usable normal map
     normal = ("is_rgb_guidance = True\nis_normal_guidance = True\n"
               f"normal_start_iter = {args.iters1}\n"
-              f"normalmap_render_factor = {NORMAL_FACTOR}\n"
+              f"normalmap_render_factor = {7 if prod else 4}\n"
               "sd_tiny = True\n")
     bodies = {"nog": "is_rgb_guidance = False\n",
               "rand": guided,
@@ -202,8 +222,50 @@ def write_configs(out, args, arms=("s1", "nog")):
         paths[arm] = os.path.join(out, f"cfg_{name}.txt")
         with open(paths[arm], "w") as fh:
             fh.write(COMMON.format(scene=scene, logs=logs, arm=name,
-                                   field=field, n_test=args.n_test) + body)
+                                   field=field, n_test=args.n_test,
+                                   colmap=args.colmap, lindisp=args.lindisp)
+                     + body)
     return paths
+
+
+def scene_argv(scene, args):
+    """The scene generator's command line (the original's)."""
+    return ([scene, "--task", "inpaint", "--H", str(args.H), "--W",
+             str(args.W), "--n_train", str(args.n_train), "--n_test",
+             str(args.n_test), "--seed", str(args.seed), "--family",
+             args.family] + (["--colmap_sparse"] if args.colmap else []))
+
+
+def prior_argv(prior, args):
+    """The prior trainer's command line (the original's, and the port's
+    --device and --draws)."""
+    return [prior, "--res", str(args.latent), "--family", args.family,
+            "--steps_unet", str(args.prior_steps), "--device", args.device,
+            "--draws", args.draws]
+
+
+def artifact_meta(args):
+    """The prior's and the LoRA's meta: {"res"} alone for the spheres
+    family, so that its priors written before the flag still validate; a
+    hard-family prior never stands in for a spheres one."""
+    meta = {"res": args.latent}
+    if args.family != "spheres":
+        meta["family"] = args.family
+    return meta
+
+
+def write_meta(path, meta):
+    if os.path.exists(path) and not os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json", "w") as fh:
+            json.dump(meta, fh)
+
+
+def make_scene(out, args):
+    scene = os.path.join(out, "scene")
+    if not os.path.isdir(scene):
+        finish(launch([sys.executable, "-m", SCENE_TOOL]
+                      + scene_argv(scene, args),
+                      os.path.join(out, "scene.log")))
 
 
 def artifact_paths(out, args):
@@ -233,11 +295,13 @@ def check_configs(paths, args):
         want_iters = args.iters1 + (0 if arm == "s1" else args.iters2)
         need(t.first_stage == (arm == "s1") and t.N_iters == want_iters,
              "first_stage / N_iters")
-        need(cfg.render.lindisp and cfg.data.colmap_depth,
-             "lindisp and colmap_depth must be on")
+        need(cfg.render.lindisp == args.lindisp, "lindisp")
+        need(cfg.data.colmap_depth == args.colmap, "colmap_depth")
         if arm == "s1":
             continue
         need(t.lpips, "LPIPS on")
+        need(g.sds_loss_weight == args.sds_w, "sds_loss_weight")
+        need(g.sd_latent_size == args.latent, "sd_latent_size")
         if arm == "nog":
             need(not (g.is_rgb_guidance or g.is_normal_guidance),
                  "nog must not guide")
@@ -286,37 +350,47 @@ def _check_meta(path, want, what):
     return True
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The original's command line (its names, defaults and meanings; the
+    scale table filled in where no flag was given) and the port's
+    --device and --draws."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out")
-    ap.add_argument("--arms", default="s1,nog")
-    ap.add_argument("--combine", default="sds", choices=sorted(COMBINE))
-    ap.add_argument("--iters1", type=int, default=10000)
-    ap.add_argument("--iters2", type=int, default=10000)
-    ap.add_argument("--latent", type=int, default=256,
-                    help="guidance latent size (sd_latent_size), also the "
-                         "prior's and the LoRA's resolution")
-    ap.add_argument("--prior_steps", type=int, default=6000)
-    ap.add_argument("--lora_steps", type=int, default=1000,
-                    help="scene-LoRA fine-tune steps (priorL, priorNL)")
+    ap.add_argument("--production", action="store_true",
+                    help="the production CP field and scale (SCALE)")
+    for k in SCALE:
+        ap.add_argument(f"--{k}", type=type(SCALE[k][0]), default=None)
+    ap.add_argument("--family", choices=("spheres", "hard"),
+                    default="spheres",
+                    help="the scene's world and the prior's domain")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the scene generator's seed (the prior is "
+                         "scene-independent: reuse it with --skip_prior)")
     ap.add_argument("--skip_prior", action="store_true",
                     help="reuse an existing prior ckpt")
-    ap.add_argument("--H", type=int, default=189)
-    ap.add_argument("--W", type=int, default=252)
-    ap.add_argument("--n_train", type=int, default=16)
-    ap.add_argument("--n_test", type=int, default=3)
+    ap.add_argument("--lindisp", action="store_true",
+                    help="disparity-linear sampling")
+    ap.add_argument("--colmap", action="store_true",
+                    help="sparse COLMAP depth (the scene's sparse/0 model)")
+    ap.add_argument("--arms", default="s1,nog,rand,prior")
+    ap.add_argument("--combine", default="csd", choices=sorted(COMBINE))
+    ap.add_argument("--check", action="store_true",
+                    help="write and check the arm configs, train nothing")
     ap.add_argument("--device", default="cuda",
                     help="passed to every command (cpu without a card)")
-    ap.add_argument("--smoke", action="store_true",
-                    help="the original's small-MLP field, for CPU runs")
     ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
                     help="passed to the prior's and the LoRA's trainers "
                          "and every arm: "
                          "torch generators, or the JAX package's draws")
-    ap.add_argument("--check", action="store_true",
-                    help="write and check the arm configs, train nothing")
     args = ap.parse_args(argv)
+    for k, (prod, small) in SCALE.items():
+        if getattr(args, k) is None:
+            setattr(args, k, prod if args.production else small)
+    return args
 
+
+def main(argv=None):
+    args = parse_args(argv)
     arms = args.arms.split(",")
     bad = [a for a in arms if a not in ARMS]
     if bad:
@@ -335,16 +409,9 @@ def main(argv=None):
         device_from_flag(args.device)
     py = sys.executable
     scene = os.path.join(out, "scene")
-    if not os.path.isdir(scene):
-        finish(launch(
-            [py, "-m", "gbnerf_tpu_torch.tools.make_synthetic_scene", scene,
-             "--task", "inpaint", "--H", str(args.H), "--W", str(args.W),
-             "--n_train", str(args.n_train), "--n_test", str(args.n_test),
-             "--seed", "0", "--colmap_sparse"],
-            os.path.join(out, "scene.log")))
-
+    make_scene(out, args)
     prior, lora_ckpt = artifact_paths(out, args)
-    meta = {"res": args.latent}
+    meta = artifact_meta(args)
     jobs = []
 
     def start(cmd, log_name):
@@ -363,10 +430,8 @@ def main(argv=None):
             return None
         if args.skip_prior:
             raise SystemExit(f"--skip_prior but no prior at {prior}")
-        return start([py, "-m", "gbnerf_tpu_torch.tools.train_tiny_prior",
-                      prior, "--res", str(args.latent), "--steps_unet",
-                      str(args.prior_steps), "--device", args.device,
-                      "--draws", args.draws], "prior_train.log")
+        return start([py, "-m", PRIOR_TOOL] + prior_argv(prior, args),
+                     "prior_train.log")
 
     def train_lora():
         if not any(a in ("priorL", "priorNL") for a in arms) or _check_meta(
@@ -383,11 +448,6 @@ def main(argv=None):
                       "--train_batch_size", "4", "--checkpointing_steps",
                       str(args.lora_steps), "--device", args.device,
                       "--draws", args.draws], "lora.log")
-
-    def write_meta(path):
-        if os.path.exists(path) and not os.path.exists(path + ".meta.json"):
-            with open(path + ".meta.json", "w") as fh:
-                json.dump(meta, fh)
 
     def train_arm(arm):
         name = arm_name(arm, args.combine)
@@ -412,13 +472,13 @@ def main(argv=None):
             if arm != "s1" and not arm.startswith("prior"):
                 train_arm(arm)
         wait(prior_job)
-        write_meta(prior)
+        write_meta(prior, meta)
         lora_job = train_lora()
         for arm in arms:
             if arm.startswith("prior") and arm not in ("priorL", "priorNL"):
                 train_arm(arm)
         wait(lora_job)
-        write_meta(lora_ckpt)
+        write_meta(lora_ckpt, meta)
         for arm in ("priorL", "priorNL"):
             if arm in arms:
                 train_arm(arm)
@@ -449,6 +509,37 @@ def main(argv=None):
             f"{r[c]:.2f}" if c in r else "—" for c in cols) + " |")
     print(f"\nwrote {jpath}")
     return results
+
+
+def prepare(argv=None):
+    """``prepare scene|prior OUT [flags] [-- trainer flags]``: one thing
+    that run_ablation OUT [flags] starts its arms from, made alone — the
+    scene, or the prior with its meta (kept where it exists). A prior needs
+    no scene, so several OUTs share one through --skip_prior. Flags after
+    ``--`` go to the prior's trainer as they are (a rehearsal's small
+    domain). tools/quality_runs.sh runs it as
+    ``python -c 'import sys; from gbnerf_tpu_torch.tools.run_ablation
+    import prepare; prepare(sys.argv[1:])' prior OUT --production``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    what, argv = argv[0], argv[1:]
+    extra = []
+    if "--" in argv:
+        i = argv.index("--")
+        argv, extra = argv[:i], argv[i + 1:]
+    args = parse_args(argv)
+    out = os.path.abspath(args.out)
+    os.makedirs(out, exist_ok=True)
+    if what == "scene":
+        make_scene(out, args)
+    elif what == "prior":
+        prior, meta = artifact_paths(out, args)[0], artifact_meta(args)
+        if not _check_meta(prior, meta, "prior"):
+            finish(launch([sys.executable, "-m", PRIOR_TOOL]
+                          + prior_argv(prior, args) + extra,
+                          os.path.join(out, "prior_train.log")))
+            write_meta(prior, meta)
+    else:
+        raise SystemExit(f"prepare: {what!r} is neither scene nor prior")
 
 
 if __name__ == "__main__":

@@ -4,9 +4,12 @@ score-distillation term's.
     python -m gbnerf_tpu_torch.tools.sds_grad_share OUT [--arm rand]
         [--s1_steps 1000] [--views 8] [--device cuda] [--smoke]
         [--step_i 10000,19000] [--latent 256] [--H 189 --W 252]
+        [--draws torch|jax]
 
-The ablation's scene and configs (tools/run_ablation.py: the same text as
-its arms), stage 1 for ``--s1_steps`` steps from the arm's seed, then, for
+The ablation's scene and configs (tools/run_ablation.py --production
+--colmap --lindisp --combine sds: the same text as its arms; ``--smoke``
+drops ``--production``, the small-MLP field and scale for CPU runs),
+stage 1 for ``--s1_steps`` steps from the arm's seed, then, for
 ``--views`` stage-2 batches of the arm (each from its own generator seed,
 at each of ``--step_i``'s steps, whose annealed t it draws: stage 2's
 first and a late step at the ablation's 10k + 10k): the
@@ -16,7 +19,10 @@ of the SDS term at its weight, and of its two parts in the reference's
 form g = w(t)·ε̂ − ε (the UNet's w(t)·ε̂, and −ε, the noise's: zero-mean
 and fresh each step). Each is the norm over every field parameter; with
 the cosines between the SDS term's gradient and the rest's, and the
-latent-space norms of the two parts.
+latent-space norms of the two parts. ``--draws jax``: stage 1, the
+fields' init, the guidance stack and the random VGG are the JAX package's
+for the seed, as in ``run_ablation --draws jax``; the measured batches
+and their t and ε stay the per-batch torch generators' under both.
 Writes OUT/sds_grad_share.json and prints it as one line.
 """
 from __future__ import annotations
@@ -96,6 +102,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="the ablation's small-MLP field, for CPU runs")
+    ap.add_argument("--draws", default="torch", choices=("torch", "jax"),
+                    help="stage 1's run and the init of the fields, the "
+                         "guidance stack and the VGG: torch generators, "
+                         "or the JAX package's draws")
     args = ap.parse_args(argv)
 
     from ..config import load_reference_config
@@ -105,18 +115,19 @@ def main(argv=None):
 
     out = os.path.abspath(args.out)
     os.makedirs(os.path.join(out, "logs"), exist_ok=True)
-    ns = argparse.Namespace(combine="sds", latent=args.latent,
-                            iters1=args.s1_steps, iters2=args.views,
-                            smoke=args.smoke, n_test=3, lora_steps=1)
+    ns = abl.parse_args(
+        [out, "--colmap", "--lindisp", "--combine", "sds", "--latent",
+         str(args.latent), "--iters1", str(args.s1_steps), "--iters2",
+         str(args.views), "--H", str(args.H), "--W", str(args.W),
+         "--n_train", "16", "--n_test", "3", "--lora_steps", "1"]
+        + ([] if args.smoke else ["--production"]))
     paths = abl.write_configs(out, ns, ("s1", args.arm))
     scene_dir = os.path.join(out, "scene")
     if not os.path.isdir(scene_dir):
         subprocess.run(
             [sys.executable, "-m", "gbnerf_tpu_torch.tools."
-             "make_synthetic_scene", scene_dir, "--task", "inpaint", "--H",
-             str(args.H), "--W", str(args.W), "--n_train", "16", "--n_test",
-             "3", "--seed", "0", "--colmap_sparse"], check=True,
-            capture_output=True)
+             "make_synthetic_scene"] + abl.scene_argv(scene_dir, ns),
+            check=True, capture_output=True)
     dev = loop.device_from_flag(args.device)
     never = 10 ** 9
     cfg1 = load_reference_config(paths["s1"])
@@ -124,7 +135,8 @@ def main(argv=None):
         cfg1.train, i_print=never, i_weights=never, i_video=never,
         i_evaluate=never, i_testset=never, no_reload=True))
     t0 = time.perf_counter()
-    s1 = loop.train(cfg1, device=dev) if args.s1_steps > 0 else None
+    s1 = (loop.train(cfg1, device=dev, draws=args.draws)
+          if args.s1_steps > 0 else None)
     s1_s = time.perf_counter() - t0
 
     cfg = load_reference_config(paths[args.arm])
@@ -138,16 +150,28 @@ def main(argv=None):
                                  scene.inpainted_depths, scene.poses,
                                  scene.hwf[2], depth_gts)
     banks_dev = loop.banks_to_device(banks, dev)
-    state, coarse, fine = create_train_state(
-        cfg, torch.Generator().manual_seed(cfg.train.seed), dev)
+    if args.draws == "jax":
+        # train()'s key tree: the init's key, then the guidance's and the
+        # VGG's from the split chain
+        from ..utils import jax_random as jr
+
+        rng, k_init = jr.split(jr.PRNGKey(cfg.train.seed))
+
+        def next_key():
+            nonlocal rng
+            rng, key = jr.split(rng)
+            return key
+    else:
+        k_init, next_key = torch.Generator().manual_seed(cfg.train.seed), None
+    state, coarse, fine = create_train_state(cfg, k_init, dev)
     if s1 is not None:
         coarse.load_state_dict(s1["state"].coarse.state_dict())
         if fine is not None:
             fine.load_state_dict(s1["state"].fine.state_dict())
     scene_dev = loop.scene_to_device(scene, banks, dev)
     guidance_fn, _, _ = loop.build_guidance(cfg, scene_dev, dev,
-                                            cfg.train.seed + 1)
-    lpips_fn = loop.build_lpips(cfg, dev)
+                                            cfg.train.seed + 1, next_key)
+    lpips_fn = loop.build_lpips(cfg, dev, next_key and next_key())
     step = make_train_step_stage2(cfg, coarse, fine, scene.near, scene.far,
                                   scene.hwf, guidance_fn=guidance_fn,
                                   lpips_fn=lpips_fn)
@@ -189,7 +213,8 @@ def main(argv=None):
     def med(i, k):
         return float(np.median([v[k] for v in views if v["step_i"] == i]))
 
-    res = {"arm": args.arm, "s1_steps": args.s1_steps, "s1_s": s1_s,
+    res = {"arm": args.arm, "draws": args.draws,
+           "s1_steps": args.s1_steps, "s1_s": s1_s,
            "sds_loss_weight": w_sds, "latent": args.latent,
            "device": str(dev),
            "median": {i: {k: med(i, k) for k in views[0]

@@ -234,7 +234,8 @@ def _cli(args, module):
 
 def test_prior_then_lora_then_prior_nl_through_the_clis(tmp_path):
     """The tiny-prior CLI, then the ablation twin's priorNL arm at tiny
-    widths (the original's small-MLP field, 24 × 32 views, latent 64,
+    widths (the original's small-MLP field at its non-production scale,
+    24 × 32 views, latent 64,
     4 + 4 steps): the scene LoRA trains on the prior through the LoRA
     CLI, stage 2 loads the prior and merges the adapters, and both arms
     evaluate."""
@@ -246,7 +247,8 @@ def test_prior_then_lora_then_prior_nl_through_the_clis(tmp_path):
              "gbnerf_tpu_torch.tools.train_tiny_prior")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "[unet 2/2]" in r.stdout and "[prior] saved" in r.stdout
-    r = _cli([str(out), "--smoke", "--iters1", "4", "--iters2", "4",
+    r = _cli([str(out), "--colmap", "--lindisp", "--combine", "sds",
+              "--iters1", "4", "--iters2", "4",
               "--H", "24", "--W", "32", "--n_train", "4", "--n_test", "2",
               "--latent", "64", "--lora_steps", "2", "--skip_prior",
               "--arms", "s1,priorNL", "--device", "cpu"],

@@ -197,8 +197,9 @@ def test_entry_points_refuse_to_start_without_a_card(monkeypatch, tmp_path,
     argv = {"run": _run_argv(tmp_path),
             "train_lora": ["--instance_data_dir", str(tmp_path)],
             "train_tiny_prior": [str(tmp_path / "p.msgpack")],
-            "run_ablation": [str(tmp_path / "abl"), "--arms",
-                             "prior,priorNL"]}.get(entry, [])
+            "run_ablation": [str(tmp_path / "abl"), "--production",
+                             "--colmap", "--lindisp", "--combine", "sds",
+                             "--arms", "prior,priorNL"]}.get(entry, [])
     for extra in ([], ["--device", "cuda"], ["--device", "cuda:0"]):
         with pytest.raises(SystemExit) as e:
             main(argv + extra)

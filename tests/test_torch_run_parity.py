@@ -513,5 +513,7 @@ def test_unmirrored_paths_raise_under_jax_draws(tmp_path):
     with pytest.raises(ValueError, match="draws"):
         tloop.train(cfg, device="cpu", draws="numpy")
     assert not (tmp_path / "x").exists()   # refused before any work
-    run_ablation.main([str(tmp_path / "abl"), "--arms", "s1,priorNL",
-                       "--draws", "jax", "--device", "cpu", "--check"])
+    run_ablation.main([str(tmp_path / "abl"), "--production", "--colmap",
+                       "--lindisp", "--combine", "sds", "--arms",
+                       "s1,priorNL", "--draws", "jax", "--device", "cpu",
+                       "--check"])

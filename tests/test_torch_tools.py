@@ -465,3 +465,34 @@ def test_convert_vgg_twin_equals_the_jax_tool(tmp_path, monkeypatch, suffix):
     for k in ref.files:
         assert got[k].dtype == ref[k].dtype == np.float32, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_quality_table_reads_the_quality_runs_results(tmp_path):
+    """tools/quality_table.py on a RESULTS dir laid out as
+    tools/quality_runs.sh writes it: each arm's last eval at four
+    decimals and its median ms a step (1e3 / iters_per_sec over the
+    i_print records), and the prior's and the LoRA's seconds."""
+    from gbnerf_tpu_torch.tools import quality_table
+
+    run = tmp_path / "q" / "r2"
+    run.mkdir(parents=True)
+    recs = [{"iter": 250 * k, "iters_per_sec": v}
+            for k, v in ((1, 10.0), (2, 20.0), (3, 40.0))]
+    recs.append({"iter": 750, "eval_psnr": 30.123456,
+                 "eval_psnr_masked": 25.000049, "eval_psnr_unmasked": 33.5})
+    (run / "nog.metrics.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    (run / "prior_train.log").write_text(
+        "[prior] phase A: 1500 VAE steps in 141.378 s\n"
+        "[unet 6000/6000] loss=0.0088 (5 it/s)\n"
+        "[prior] phase B: 6000 UNet steps in 1217.121 s\n")
+    (run / "lora.log").write_text("[lora] 1000 steps in 301.5 s\n")
+    rows = quality_table.main([str(tmp_path / "q")])
+    nog = [r for r in rows if r["arm"] == "nog"][0]
+    assert nog["ms_median"] == 50.0 and nog["iter"] == 750
+    assert (nog["psnr_masked"], nog["psnr_unmasked"], nog["psnr"]) == (
+        25.0, 33.5, 30.1235)
+    timed = {r["arm"]: (r["steps"], r["seconds"]) for r in rows
+             if "seconds" in r}
+    assert timed == {"prior A": (1500, 141.378), "prior B": (6000, 1217.121),
+                     "lora": (1000, 301.5)}

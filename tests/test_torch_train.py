@@ -711,7 +711,8 @@ def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
     _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
            "--combine", "sds", "--arms", "s1,nog", "--check"], ROOT,
           "tools.run_ablation")
-    _tool([str(tmp_path / "twin"), "--check"], ROOT,
+    _tool([str(tmp_path / "twin"), "--production", "--colmap", "--lindisp",
+           "--combine", "sds", "--arms", "s1,nog", "--check"], ROOT,
           "gbnerf_tpu_torch.tools.run_ablation")
     for arm in ("s1", "nog"):
         o = (tmp_path / "orig" / f"cfg_{arm}.txt").read_text().replace(
@@ -722,8 +723,9 @@ def test_run_ablation_twin_writes_the_originals_s1_and_nog_configs(tmp_path):
     _tool([str(tmp_path / "origC"), "--production", "--colmap",
            "--lindisp", "--combine", "sds", "--arms", "s1,priorC",
            "--check"], ROOT, "tools.run_ablation")
-    r = _tool([str(tmp_path / "twinC"), "--arms", "s1,priorC", "--check"],
-              ROOT, "gbnerf_tpu_torch.tools.run_ablation")
+    r = _tool([str(tmp_path / "twinC"), "--production", "--colmap",
+               "--lindisp", "--combine", "sds", "--arms", "s1,priorC",
+               "--check"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
     assert "[check] OK" in r.stdout and "priorC-sds" in r.stdout
     for name in ("cfg_s1.txt", "cfg_priorC-sds.txt"):
         o = (tmp_path / "origC" / name).read_text().replace(
@@ -745,8 +747,9 @@ def test_run_ablation_twin_writes_the_originals_guided_configs(tmp_path,
     _tool([str(tmp_path / "orig"), "--production", "--colmap", "--lindisp",
            "--combine", combine, "--arms", arms, "--check"], ROOT,
           "tools.run_ablation")
-    r = _tool([str(tmp_path / "twin"), "--combine", combine, "--arms", arms,
-               "--check"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
+    r = _tool([str(tmp_path / "twin"), "--production", "--colmap",
+               "--lindisp", "--combine", combine, "--arms", arms, "--check"],
+              ROOT, "gbnerf_tpu_torch.tools.run_ablation")
     assert "[check] OK" in r.stdout
     names = sorted(p.name for p in (tmp_path / "orig").glob("cfg_*.txt"))
     assert len(names) == 8
@@ -760,13 +763,245 @@ def test_run_ablation_twin_writes_the_originals_guided_configs(tmp_path,
         assert t == o, name
 
 
+ABLATION_PROTOCOLS = {
+    # PARITY.md's round-3 table: dense disparity, z-linear, csd
+    "round3": ["--production", "--arms", "s1,nog,rand,prior"],
+    "seed1": ["--production", "--seed", "1", "--arms", "s1,nog,rand,prior"],
+    "hard": ["--production", "--colmap", "--family", "hard", "--arms",
+             "s1,nog,prior,priorNL"],
+    # the small-MLP field and scale (no cache_masked_latents, factor 4)
+    "small": ["--arms", "s1,nog,rand,prior,priorN,priorL,priorNL,priorC"],
+    "small_knobs": ["--sds_w", "0.002", "--anneal", "100", "--latent", "64",
+                    "--iters1", "7", "--combine", "sds", "--arms",
+                    "s1,priorN"],
+    # PARITY.md's round-5 table
+    "round5": ["--production", "--colmap", "--lindisp", "--combine", "sds",
+               "--arms", "s1,nog,rand,prior,priorNL"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ABLATION_PROTOCOLS))
+def test_run_ablation_twin_takes_the_originals_protocols(tmp_path, case):
+    """The original's command lines run unchanged under the twin: its
+    --check configs equal tools/run_ablation.py's, file for file, paths
+    aside, at round 3 (--production alone: dense disparity, z-linear,
+    csd), scene seed 1, the hard family, the non-production scale (with
+    explicit knobs too) and round 5."""
+    argv = ABLATION_PROTOCOLS[case]
+    _tool([str(tmp_path / "orig")] + argv + ["--check"], ROOT,
+          "tools.run_ablation")
+    r = _tool([str(tmp_path / "twin")] + argv + ["--check"], ROOT,
+              "gbnerf_tpu_torch.tools.run_ablation")
+    assert "[check] OK" in r.stdout
+    names = sorted(p.name for p in (tmp_path / "orig").glob("cfg_*.txt"))
+    assert len(names) == len(argv[-1].split(","))
+    assert sorted(p.name for p in (tmp_path / "twin").glob("cfg_*.txt")) \
+        == names
+    for name in names:
+        o = (tmp_path / "orig" / name).read_text().replace(
+            str(tmp_path / "orig"), "OUT")
+        t = (tmp_path / "twin" / name).read_text().replace(
+            str(tmp_path / "twin"), "OUT")
+        assert t == o, name
+
+
+def _ablation_commands(tmp_path, argv, monkeypatch):
+    """The commands tools/run_ablation.py and its twin start for ``argv``,
+    each with its command stubbed (it makes the file or ckpt/ the next
+    step looks for, and trains nothing): {who: (sorted commands with the
+    interpreter, the port's --device/--draws and OUT normalised, the
+    prior's meta, the LoRA's meta)}."""
+    from gbnerf_tpu_torch.tools import run_ablation as twin
+
+    spec = importlib.util.spec_from_file_location(
+        "orig_run_ablation", ROOT / "tools" / "run_ablation.py")
+    orig = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(orig)
+    mods = {"tools/make_synthetic_scene.py":
+            "gbnerf_tpu_torch.tools.make_synthetic_scene",
+            "tools/train_tiny_prior.py":
+            "gbnerf_tpu_torch.tools.train_tiny_prior",
+            "train_lora.py": "gbnerf_tpu_torch.train_lora",
+            "run.py": "gbnerf_tpu_torch.run"}
+    got = {}
+    for who in ("orig", "twin"):
+        out = tmp_path / who
+        cmds = []
+
+        def fake(cmd, log_path):
+            cmd = list(cmd[1:])
+            if cmd[0] == "-m":
+                cmd = cmd[1:]
+                for flag in ("--device", "--draws"):
+                    if flag in cmd:
+                        i = cmd.index(flag)
+                        del cmd[i:i + 2]
+            cmds.append(" ".join([mods.get(cmd[0], cmd[0])] + cmd[1:])
+                        .replace(str(out), "OUT"))
+            if "train_tiny_prior" in cmd[0]:
+                Path(cmd[1]).write_bytes(b"")
+            elif "train_lora" in cmd[0]:
+                d = Path(cmd[cmd.index("--output_dir") + 1])
+                d.mkdir(parents=True)
+                n = int(cmd[cmd.index("--max_train_steps") + 1])
+                (d / f"lora_{n:06d}.safetensors").write_bytes(b"")
+            elif cmd[0].endswith("run") or cmd[0] == "run.py":
+                name = Path(cmd[2]).stem.removeprefix("cfg_")
+                (out / "logs" / name / "ckpt").mkdir(parents=True,
+                                                     exist_ok=True)
+
+            class Done:
+                args, returncode = cmd, 0
+
+                def wait(self):
+                    return 0
+
+                def poll(self):
+                    return 0
+            return Done()
+
+        if who == "orig":
+            monkeypatch.setattr(orig, "run", fake)
+            monkeypatch.setattr(sys, "argv", ["run_ablation.py", str(out)]
+                                + argv)
+            orig.main()
+        else:
+            monkeypatch.setattr(twin, "launch", fake)
+            twin.main([str(out)] + argv + ["--device", "cpu"])
+
+        def meta(p):
+            p = out / p
+            return json.loads(p.read_text()) if p.exists() else None
+        got[who] = (sorted(cmds), meta("prior.msgpack.meta.json"),
+                    meta("lora/lora_001000.safetensors.meta.json"))
+    return got
+
+
+@pytest.mark.parametrize("argv", [
+    ["--production", "--colmap", "--family", "hard", "--seed", "1",
+     "--arms", "s1,nog,prior,priorNL"],
+    ["--production", "--seed", "1", "--arms", "s1,nog,rand"]],
+    ids=["hard_seed1_colmap", "seed1_dense"])
+def test_run_ablation_twin_starts_the_originals_commands(tmp_path, argv,
+                                                         monkeypatch):
+    """The scene's command carries --seed, --family and --colmap_sparse
+    (only with --colmap) as the original's does, and the prior's, the
+    LoRA's and every arm's commands equal the original's, the port's
+    --device and --draws aside; a hard-family prior's and LoRA's meta
+    gain "family", a spheres run writes no prior."""
+    got = _ablation_commands(tmp_path, argv, monkeypatch)
+    assert got["twin"] == got["orig"]
+    cmds, prior_meta, lora_meta = got["twin"]
+    scene = [c for c in cmds if "make_synthetic_scene" in c]
+    assert len(scene) == 1 and "--seed 1" in scene[0]
+    assert ("--colmap_sparse" in scene[0]) == ("--colmap" in argv)
+    if "hard" in argv:
+        assert "--family hard" in scene[0]
+        assert prior_meta == lora_meta == {"res": 256, "family": "hard"}
+        assert any("train_tiny_prior" in c and "--family hard" in c
+                   for c in cmds)
+    else:
+        assert "--family spheres" in scene[0] and prior_meta is None
+
+
+@pytest.mark.parametrize("argv", [
+    ["--production", "--family", "hard", "--seed", "1"],
+    ["--production", "--colmap", "--lindisp", "--combine", "sds",
+     "--latent", "64", "--draws", "jax"]],
+    ids=["hard_seed1", "round5_jax"])
+def test_run_ablation_prepare_starts_mains_scene_and_prior(tmp_path, argv,
+                                                           monkeypatch):
+    """prepare scene|prior (tools/quality_runs.sh's shared prior and
+    plain-path scene) starts the very command that main starts for the
+    same flags, the trainer's flags after ``--`` appended, writes main's
+    meta, and keeps a prior that exists."""
+    from gbnerf_tpu_torch.tools import run_ablation as twin
+
+    class Done:
+        args, returncode = [], 0
+
+        @staticmethod
+        def wait():
+            return 0
+
+        poll = wait
+
+    def run(fn, out):
+        cmds = []
+
+        def fake(cmd, log_path):
+            cmds.append(" ".join(cmd).replace(str(out), "OUT"))
+            if cmd[2] == twin.PRIOR_TOOL:
+                Path(cmd[3]).write_bytes(b"")
+            elif cmd[2] == "gbnerf_tpu_torch.run":
+                name = Path(cmd[4]).stem.removeprefix("cfg_")
+                (out / "logs" / name / "ckpt").mkdir(parents=True,
+                                                     exist_ok=True)
+            return Done()
+
+        monkeypatch.setattr(twin, "launch", fake)
+        fn([str(out)] + argv + ["--device", "cpu"])
+        meta = out / "prior.msgpack.meta.json"
+        return cmds, json.loads(meta.read_text()) if meta.exists() else None
+
+    main_cmds, main_meta = run(
+        lambda a: twin.main(a + ["--arms", "s1,prior"]), tmp_path / "main")
+    scene, prior = (next(c for c in main_cmds if tool in c)
+                    for tool in (twin.SCENE_TOOL, twin.PRIOR_TOOL))
+    extra = ["--", "--n_domain", "4"]
+    assert run(lambda a: twin.prepare(["scene"] + a),
+               tmp_path / "s") == ([scene], None)
+    out = tmp_path / "p"
+    assert run(lambda a: twin.prepare(["prior"] + a + extra),
+               out) == ([prior + " --n_domain 4"], main_meta)
+    assert main_meta == ({"res": 256, "family": "hard"} if "hard" in argv
+                         else {"res": 64})
+    assert run(lambda a: twin.prepare(["prior"] + a), out) == ([], main_meta)
+    with pytest.raises(SystemExit, match="neither scene nor prior"):
+        twin.prepare(["lora", str(out)])
+
+
+def test_compare_arms_reads_the_masked_pixels(tmp_path):
+    """tools/compare_arms.py on a round-3 scene of seed 1 it makes: each
+    render's PSNRs are the eval's own (eval_summary on the scene's clean
+    test views and masks), and the difference counts the masked pixels
+    only (a change outside the masks leaves it 0)."""
+    from gbnerf_tpu_torch.config import load_reference_config
+    from gbnerf_tpu_torch.tools import compare_arms
+
+    flags = ["--production", "--seed", "1", "--H", "24", "--W", "32",
+             "--n_train", "4", "--n_test", "2"]
+    rng = np.random.default_rng(0)
+    a = rng.random((2, 24, 32, 3)).astype(np.float32)
+    np.save(tmp_path / "a.npy", a)
+    np.save(tmp_path / "b.npy", a)
+    out = tmp_path / "abl"
+    res = compare_arms.main([str(out), str(tmp_path / "a.npy"),
+                             str(tmp_path / "b.npy")] + flags)
+    assert res["masked_max_abs_diff"] == 0 and res["views"] == 2
+    scene = tloop.load_scene(load_reference_config(str(out / "cfg_s1.txt")))
+    masks = scene.masks_test
+    assert res["masked_pixels"] == int((masks > 0.5).sum()) > 0
+    em = teval.eval_summary({"rgb": a}, gt=scene.images_test, gt_masks=masks)
+    assert res["a"]["psnr_masked"] == round(em["psnr_masked"], 4)
+    b = a.copy()
+    b[np.broadcast_to(masks[..., None] <= 0.5, b.shape)] += 0.5
+    np.save(tmp_path / "b.npy", b)
+    res = compare_arms.main([str(out), str(tmp_path / "a.npy"),
+                             str(tmp_path / "b.npy")] + flags)
+    assert res["masked_max_abs_diff"] == 0
+    assert res["b"]["psnr_masked"] == res["a"]["psnr_masked"]
+    assert res["b"]["psnr_unmasked"] < res["a"]["psnr_unmasked"]
+
+
 def test_run_ablation_twin_s1_then_nog_on_the_cpu(tmp_path):
     """s1 → nog through the CLI at tiny widths (the original's small-MLP
-    field, 24 × 32 views, 4 + 4 steps): both arms evaluate, nog resumes
-    from s1's checkpoint with random LPIPS, and the eval PNGs decode to
-    to8b of the eval maps."""
+    field at its non-production scale, 24 × 32 views, 4 + 4 steps): both
+    arms evaluate, nog resumes from s1's checkpoint with random LPIPS, and
+    the eval PNGs decode to to8b of the eval maps."""
     out = tmp_path / "abl"
-    r = _tool([str(out), "--smoke", "--iters1", "4", "--iters2", "4",
+    r = _tool([str(out), "--colmap", "--lindisp", "--combine", "sds",
+               "--arms", "s1,nog", "--iters1", "4", "--iters2", "4",
                "--H", "24", "--W", "32", "--n_train", "4", "--n_test", "2",
                "--device", "cpu"], ROOT, "gbnerf_tpu_torch.tools.run_ablation")
     assert "| nog |" in r.stdout
