@@ -44,7 +44,11 @@
    latents, the VAE mid block), at the LoRA, tiny-prior and colla shapes
    (the colla UNet at batch 8: 64 × 4096 × 40 and 64 × 1024 × 80), at a
    ragged N and with an f32 q; times both, beside SDPA and the previous
-   design's time (PREV_MS).
+   design's time (PREV_MS: up to D 128 the mma.sync design that the
+   TMA/wgmma one replaced); prints K7's registers, spills, shared memory
+   a block, stages and keys a tile at every head dim ("kernel info
+   attention"), and its bound from the SFU's exps, the products at the
+   depth wgmma runs and the bytes.
 8. Drives stage 2 through train() (first_stage = False), warm-started
    (ft_path) from the stage-1 run's last checkpoint on the same scene: the
    full-width SD1.5-inpainting UNet, VAE and CLIP text tower at 512² / 64²
@@ -202,6 +206,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -276,18 +281,31 @@ ATTN_F32_SHAPES = (("f32 q", 4, 4096, 40), ("f32 q vae", 1, 4000, 512))
 # and with an f16 q (scaled in f16 by the wrapper, passed as f32)
 ATTN_F16_SHAPES = (("f16 q", 4, 4096, 40),)
 # K7 at every head dim it takes up to 264, and at 384 and 512: each of its
-# compiled variants (one warp a 16-row group up to D 128, an 8-deep last
-# q·kᵀ step at odd D/8, two warps above), a ragged N, q in bf16, f32 and
-# f16, the keys unsplit and split in two
+# compiled variants (the wgmma design up to D 128, with two consumer
+# warpgroups and, up to D 48, with the most the head dim takes; q·kᵀ
+# padded to 16·⌈D/16⌉ at odd D/8; two warps a 16-row group above), a ragged
+# N, q in bf16, f32 and f16, the keys unsplit and split in two
 ATTN_SWEEP_BH, ATTN_SWEEP_N = 2, 333
 ATTN_SWEEP_D = tuple(range(8, 265, 8)) + (384, 512)
+# the head dims of K7's "kernel info" lines: each compiled variant (up to
+# D 48 both block shapes)
+ATTN_INFO_D = tuple(range(8, 129, 8)) + (256, 384, 512)
 # The previous designs' times at the main-path shapes (this script, NVIDIA
-# H100 80GB HBM3, 700.00 W): K7 before its redesign; K1/K2/K4/K5 before
-# their heads moved onto the tensor cores (by CUDA events). Printed beside
-# this run's.
-PREV_MS = {("attention", "unet 64x64"): 0.482,
-           ("attention", "unet 32x32"): 0.103,
-           ("attention", "vae mid"): 0.747,
+# H100 80GB HBM3, 700.00 W), printed beside this run's: K7 by CUDA-graph
+# replay (device time), the mma.sync design of D ≤ 128 that the TMA/wgmma
+# one replaced (D 512 is the same code), from PERF.md's K7 row;
+# K1/K2/K4/K5 before their heads moved onto the tensor cores (by CUDA
+# events).
+PREV_MS = {("attention", "unet 64x64"): 0.1971,
+           ("attention", "unet 32x32"): 0.0270,
+           ("attention", "vae mid"): 0.217,
+           ("attention", "lora unet 64x64"): 0.3904,
+           ("attention", "lora unet 32x32"): 0.0522,
+           ("attention", "lora vae"): 0.8164,
+           ("attention", "prior unet"): 0.0184,
+           ("attention", "prior vae"): 0.0175,
+           ("attention", "colla unet 64x64"): 0.7719,
+           ("attention", "colla unet 32x32"): 0.1063,
            ("field_fused", "fine"): 2.404,
            ("field_fused_sigma", "coarse"): 0.590,
            ("field_fused_bwd", "fine"): 3.678,
@@ -532,6 +550,51 @@ def roofline(nbytes: float, bf16_flop: float = 0.0, f32_op: float = 0.0
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# ex2 results a clock an SM on Hopper's special-function units
+SFU_EX2_A_CLOCK = 16
+_sm_clock_hz = None
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock in Hz (nvidia-smi clocks.max.sm)."""
+    global _sm_clock_hz
+    if _sm_clock_hz is None:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout
+        _sm_clock_hz = float(out.strip().splitlines()[0]) * 1e6
+    return _sm_clock_hz
+
+
+def attention_bound(c: dict) -> dict:
+    """K7's least time on this card at the shapes of check line c, the
+    largest of three: its bytes (q, k, v read once, the output written
+    once, in their dtypes) over the HBM rate; its products at the depth
+    and width the tensor cores run (as the kernel's library reports them,
+    ops/attention.py::kernel_info: q·kᵀ 16·⌈D/16⌉ deep up to D 128) at the
+    bf16 rate; one ex2 a score on the SFU at SFU_EX2_A_CLOCK a clock an
+    SM, the SM count and the highest SM clock read from the card. The
+    other f32 work a score (one FMA, a max, an add at 128 a clock an SM)
+    always takes less than the exps.
+    bound_by names the largest: bytes, products or exp."""
+    from gbnerf_tpu_torch.ops import attention as at
+
+    bh, n, d = c["bh"], c["n"], c["d"]
+    info = at.kernel_info(d)
+    dqk, dv = info["qk_depth"], info["pv_width"]
+    q_bytes = 4 if c.get("q_dtype") == str(torch.float32) else 2
+    times = {
+        "bytes": bh * n * d * (2 * q_bytes + 4) / HBM_BPS * 1e3,
+        "products": 2.0 * bh * n * n * (dqk + dv) / BF16_FLOPS * 1e3,
+        "exp": bh * n * n / (torch.cuda.get_device_properties(
+            DEVICE).multi_processor_count * SFU_EX2_A_CLOCK
+            * sm_clock_hz()) * 1e3}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by,
+            "bound_parts_ms": times, "sm_clock_mhz": sm_clock_hz() / 1e6}
+
+
 def head_macs(feat: int, sigma_only: bool) -> int:
     """Multiply-adds a point of the σ (and colour) heads: the weights' size."""
     macs = feat * 64 + 64 * 16
@@ -545,16 +608,12 @@ def kernel_bound(name: str, c: dict) -> dict:
     products in bf16 (2 per multiply-add; a backward 3× its forward: the
     recomputed forward and the two products of each layer's backward), the
     encode's ENC_OPS f32 operations per feature (3× in a backward);
-    attention 4·BH·N²·D bf16 and 4 f32 operations per score (scale and
-    subtract as one FMA, max, exp, sum); the merge one comparison per
-    output."""
+    attention: attention_bound; the merge one comparison per output."""
     if name == "merge128":
         rows = c["rows"]
         return roofline(rows * 128 * 4 * 2, 0.0, rows * 128)
     if name == "attention":
-        bh, n, d = c["bh"], c["n"], c["d"]
-        return roofline(bh * n * d * (3 * 2 + 4), 4.0 * bh * n * n * d,
-                        4.0 * bh * n * n)
+        return attention_bound(c)
     n, feat, r = c["points"], c["F"], c["R_max"]
     lines, enc = 3 * r * feat * 4, float(n) * feat * ENC_OPS
     if name == "cp_encode":
@@ -965,6 +1024,18 @@ def check_attention(dev):
     at the main-path shapes, beside SDPA and the previous design."""
     from gbnerf_tpu_torch.ops import attention as at
 
+    for d in ATTN_INFO_D:                # up to D 48 also with two consumers
+        for wm in (0, 8) if d <= 48 else (0,):
+            info = at.kernel_info(d, wm)
+            print(f"kernel info attention [D {d}{', wm 8' if wm else ''}] "
+                  f"{json.dumps(info)}")
+            if info["blocks_per_sm"] < 1:
+                raise AssertionError(f"attention at D {d}: a block does not "
+                                     f"fit an SM: {info}")
+            if info["key_tile"] != at.key_tile(d):   # the plain version's
+                raise AssertionError(f"attention at D {d}: the kernel's key "
+                                     f"tile {info['key_tile']} is not "
+                                     f"key_tile's {at.key_tile(d)}")
     gen = torch.Generator(device=dev).manual_seed(5)
     results = []
     cases = ([(c, torch.bfloat16) for c in ATTN_SHAPES]
@@ -1004,7 +1075,7 @@ def check_attention(dev):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, scale=scale), reps=20)
             r.update(kernel_bound("attention", r))
-            r["prev_ms"] = PREV_MS.get(("attention", label))
+            r["prev_graph_ms"] = PREV_MS.get(("attention", label))
         print(f"check attention [{label}] {json.dumps(r)}")
         if (r["n_out_of_tol"] or not r["finite"]
                 or got.dtype != q.dtype or kernels not in (1, 2)):
@@ -1030,8 +1101,17 @@ def check_attention_head_dims(dev, gen):
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
             q = (q0 * 3).to(dtype)
             ref = at.attention_plain(q, k, v, d ** -0.5).float()
-            for split in (1, 2):
-                plan = at.kernel_plan(bh, n, d, dev, plan=at.Plan(0, split))
+            # every block shape the head dim takes (up to D 48 two
+            # consumer warpgroups and the most it allows), whichever the
+            # plan would pick
+            plans = set()
+            for wm, split in itertools.product((0, 8, 12, 16), (1, 2)):
+                try:
+                    plans.add(at.kernel_plan(bh, n, d, dev,
+                                             plan=at.Plan(wm, split)))
+                except ValueError:
+                    pass
+            for plan in sorted(plans):
                 got = at.flash_fwd(q, k, v, d ** -0.5, plan=plan)
                 r = compare_field(got.float(), ref, rtol=ATTN_RTOL,
                                   atol_frac=ATTN_ATOL_FRAC)
@@ -4008,12 +4088,17 @@ def main() -> None:
     for k in kernels:
         checks = field_res[k["name"]]
         main_shape = checks[0]                    # the main-path shape
+        # bound_by in the line's words: K7's check lines name the
+        # operations that set it (exp or products)
+        by = main_shape["bound_by"]
         k.update(launches=path_launches[k["name"]],
                  max_abs_err=max(c["max_abs_err"] for c in checks),
                  ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
                  bound_ms=main_shape["bound_ms"],
-                 bound_by=main_shape["bound_by"],
+                 bound_by="bytes" if by == "bytes" else "operations",
                  library_ms=main_shape.get("library_ms"))
+        if by not in ("bytes", "operations"):
+            k["bound_set_by"] = by
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was launched on no "
                                  "path")

@@ -4,10 +4,9 @@
 // TPU keeps one head's whole K/V in VMEM (4096 × 512 bf16 = 4 MB at the VAE's
 // mid block) and takes an exact softmax over each full score row. A block
 // here has at most 227 KB of shared memory, so this is a flash-style forward:
-// a block owns 16·wm query rows, walks the keys in tiles staged in shared
-// memory, keeps a running row max and sum in f32 and rescales its output
-// accumulator per tile. Scores and p·v run on the tensor cores with
-// mma.sync m16n8k16 and m16n8k8 (bf16 operands, f32 sums).
+// a block owns a tile of query rows, walks the keys in tiles staged in
+// shared memory, keeps a running row max and sum in f32 and rescales its
+// output accumulator per tile.
 //
 // What it computes, as the TPU kernel: q·scale rounded to bf16 (formed here
 // as q is loaded: the product of a bf16 q and the bf16 scale is exact in f32
@@ -17,83 +16,104 @@
 // dtype (bf16 or f32), one rounding from the f32 accumulator. It rounds the
 // unnormalised p of an online softmax where the TPU rounds the normalised
 // p: both round each p once, so they agree to bf16 level relative to
-// max|out|, not bit for bit.
+// max|out|, not bit for bit. The softmax is taken in base 2: p = ex2(s·log2e
+// − m·log2e), one FMA and one ex2 a score.
 //
-// What bounds it on the H100 (bf16 tensor cores 989 TFLOP/s, 3.35 TB/s):
-// the products, 4·BH·N²·D FLOP, at every main-path shape (16 × 4096 × 40:
-// 0.043 ms; 16 × 1024 × 80: 0.005 ms; 1 × 4096 × 512: 0.035 ms), and beside
-// them one exp a score on the SFU (16 × 4096² = 268 M exps at 16 a clock an
-// SM: ≈ 0.07 ms at D 40). mma.sync reaches a fraction of the tensor peak
-// (wgmma's), and a warp runs its products, exps and products in turn, so
-// the two add up rather than overlap: the kernel sits at 16–22 % of the
-// bound, and overlapping them needs warp specialisation (ROADMAP B).
+// Two designs, by head dim (a plan, not a fallback):
 //
-// Design points, each against one loss of the first version (0.482 /
-// 0.103 / 0.747 ms at the three shapes by CUDA events), with what they
-// measured (device time by CUDA-graph replay, NVIDIA H100 80GB HBM3 at
-// 700 W, tools/prof_attention.py): 0.196 / 0.027 / 0.213 ms, SDPA 0.165 /
-// 0.019 / 0.330 ms in the same runs.
-// 1. An asynchronous K/V pipeline: a ring of NST = 2 stages filled with
-//    16-byte cp.async.cg. Tile j + 1 is in flight while tile j's products
-//    run; one wait and one block barrier per tile. The ragged last tile is
-//    zero-filled by the copy itself (src-size 0) and its keys are masked
-//    to −∞. (Three stages: 0.2065 / 0.0297 ms, four 0.2107 / 0.0297,
-//    against two's 0.2056 / 0.0286 at 64-key tiles.)
-// 2. ldmatrix fragments: ldmatrix.x4 for Q and K, ldmatrix.x4.trans for V
-//    straight from its natural [key][d] layout (no transposing stores).
-//    Shared-memory rows hold an odd number of 16-byte chunks, so the eight
-//    row addresses of each 8 × 8 matrix fall on distinct bank groups.
-// 3. No wasted columns: p·v runs over exactly D/8 output n-tiles (5 at
-//    D 40); q·kᵀ runs exactly D deep, an odd D/8's last 8 columns as one
-//    m16n8k8 step (D 40: 2 × k16 + 1 × k8, 0.1964 ms against 0.2016 padded
-//    to 48). log2(e) is folded in after the product: p = ex2(s·log2e −
-//    m·log2e), one FMA and one ex2 a score.
-// 4. Tiles per D. D ≤ 128: one warp per 16 query rows, each warp with all
-//    output columns and its own scores (WN = 1). Keys a tile: 64 up to
-//    D 64, 128 above (D 80: 0.0272 against 0.0286 at 64; D 40: 0.242 at
-//    128, its registers). Up to D 64 the kernel is compiled for two blocks
-//    an SM (__launch_bounds__(256, 2): 113 registers where ptxas chose 85,
-//    0.1964 against 0.2084; three blocks 0.2075; two spill at D 80). The
-//    query tile is 16·wm rows, wm chosen per shape by
-//    gbnerf_attention_plan, from the card's SM count (128-row
-//    blocks: 0.208 ms at D 40 against 0.233 for 64-row ones, 0.0296
-//    against 0.0328 at D 80). D 512 (the VAE): a warp cannot hold a
-//    16 × 512 f32 accumulator, so two warps share each 16-row group
-//    (WN = 2): each computes the scores of half of a 32-key tile, the pair
-//    exchanges row maxima and bf16 p through shared memory (a named
-//    barrier of 64 threads), and each applies the whole p to its half of
-//    the output columns. Every score is computed once (the first version
-//    recomputed them once per 256-column chunk: 1.5× the FLOPs). The keys
-//    are split across blocks (grid.y): each block writes its unnormalised
-//    O, row max and row sum, and attn_merge combines them by log-sum-exp,
-//    which gives the 64 query tiles of the VAE's 4096 rows a grid that
-//    fills the card (0.216 ms against 0.427 unsplit).
-// 5. No passes around the kernel: it scales q on load and writes q's dtype.
-// Tried and measured slower (PERF.md): two 16-row m-tiles a warp; the
-// scores of tile j + 1 issued before tile j's softmax; a tile's softmax in
-// 2 or 4 sub-tiles (0.215 / 0.241 ms at D 40).
+// D ≤ 128 (the UNet's 40 and 80, the tiny prior's 16 and 32): attn_fwd_wg.
+// Its bound on the H100 (chip_smoke.py::attention_bound): the exps, one a
+// score on the SFU at 16 a clock an SM (16 × 4096 × 40: 268 M exps, 0.064
+// ms at 1.98 GHz), above the products (4·BH·N²·D FLOP at 989 TFLOP/s, 0.048
+// ms at the padded depth below); at D 80 the products (0.0054 ms against
+// 0.0040 for the exps at 16 × 1024 × 80). The design:
+// 1. Warp specialisation: one producer warp keeps TMA loads in flight; NC
+//    consumer warpgroups own 64 query rows each. setmaxnreg gives the
+//    producer warpgroup 24 registers a thread and the consumers the rest:
+//    240 with two, 160 with three, 112 with four. NC is as many as the
+//    consumers' registers allow (max_consumers()), or two where the larger
+//    blocks would not leave fewer waves of blocks: each K/V tile serves
+//    64·NC rows, so the K/V reloads from L2 fall as NC grows (16 × 4096 ×
+//    40: 0.133 ms with three, 0.161 with two, by graph, NVIDIA H100 80GB
+//    HBM3 at 700 W, tools/prof_attention_parts.py).
+// 2. TMA with mbarriers: K and V tiles of BK keys (128; 64 up to D 16, for
+//    the registers of four consumers) in a ring of NST stages (4 up to D 64,
+//    2 above: shared memory), each with its own full and empty barrier for
+//    K and for V, so that K is released as soon as its scores are taken and
+//    V after p·v. Q is loaded once a block (bf16, or f32 through an f32
+//    tensor map). The tensor maps are 3-D over [BH, N, D] (a 2-D map over
+//    [BH·N, D] would let a ragged last tile read the next head's keys),
+//    encoded on the host by cuTensorMapEncodeTiled, reached through
+//    cudaGetDriverEntryPoint. K and V land in the 128-byte swizzle, in
+//    blocks of 64 columns: TMA's out-of-bounds zero fill pads D up to the
+//    block (and a ragged N's last tile, whose keys are masked to −∞).
+// 3. wgmma for both products. S = q·kᵀ takes A from registers (q scaled
+//    and rounded to bf16 once, from shared memory into the consumer's
+//    fragments) and K as a K-major operand; it runs 16·⌈D/16⌉ deep (D 40:
+//    48, 1.2× the products' depth; the columns past D are TMA's zeros).
+//    O += p·v takes p straight from S's accumulator, packed into bf16 A
+//    fragments in registers, and V in its natural [key][d] layout as an
+//    MN-major operand (the transpose bit): no transposing stores; its N is
+//    D itself.
+// 4. Overlap. Within a warpgroup, tile j + 1's q·kᵀ is issued before tile
+//    j's p·v, and tile j + 1's softmax runs while p·v is on the tensor
+//    cores (wgmma is asynchronous, which mma.sync was not); the rescale of
+//    O runs while q·kᵀ does. The loop has no branch around the products
+//    (the last tile's p·v is peeled): ptxas serialises every wgmma
+//    otherwise. Across the warpgroups, named barriers take turns at
+//    issuing products, in group order, so that one group's softmax runs
+//    while another's products do. Only the last tile's step carries the
+//    ragged-key mask (a predicated select a score in every step before).
+// 5. The keys may be split across blocks (grid.y) where the query tiles
+//    alone give fewer than half the SMs a block: each block writes its
+//    unnormalised O, row max and row sum, and attn_merge combines them by
+//    log-sum-exp. At the main-path shapes no split pays (prof_attention).
+// What holds it now (tools/prof_attention_parts.py, the kernel with one
+// part taken out, NVIDIA H100 80GB HBM3 at 700 W; PERF.md): at 16 × 4096 × 40 the
+// softmax and its loop, 0.117 of 0.133 ms with neither loads nor
+// products; the exps alone 0.012. Timed against this kernel by the same
+// tool and not taken: 64-key tiles above D 16 (13 % slower at 16 × 4096 ×
+// 40, 10 % at 64 × 1024 × 80: twice the turns and barriers a key), a
+// 6-stage ring up to D 64 (within ± 1.5 %: the loads do not hold it); by
+// prof_attention, key splits (slower at every main-path shape). K/V
+// shared by a 2-block cluster through TMA multicast was tried only on an
+// earlier version of this kernel (no timing kept) and not on this one.
+// mbar_wait has no time-out trap: a path that can trap keeps ptxas from
+// giving the code after setmaxnreg.inc its budget (it spilled at 168).
+//
+// D > 128 (the VAE's 512): attn_fwd_wide, the mma.sync design of the
+// previous version, unchanged: a warp cannot hold a 16 × 512 f32
+// accumulator, so two warps share each 16-row group (WN = 2): each computes
+// the scores of half of a 32-key tile, the pair exchanges row maxima and
+// bf16 p through shared memory, and each applies the whole p to its half of
+// the output columns. K/V arrive in a two-stage cp.async ring, fragments by
+// ldmatrix (ldmatrix.trans for V). The keys are split in two across blocks
+// where the query tiles alone give no SM a second block. It beats SDPA at
+// the VAE's shape (PERF.md).
 //
 // Inputs: q [BH, N, D] bf16 or f32, k and v [BH, N, D] bf16, contiguous and
 // 16-byte aligned; D a multiple of 8, 8 ≤ D ≤ 512.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "mma_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// One warp a 16-row group up to kSmallD, two above (design point 4).
-constexpr int kSmallD = 128;
-constexpr int kStages = 2;
+constexpr int kSmallD = 128;   // the wgmma design up to here
+constexpr int kStages = 2;     // the wide design's cp.async stages
 
-// Keys a tile at head dim d, and blocks an SM the kernel is compiled for.
-constexpr int key_tile(int d) { return d <= 64 ? 64 : d <= kSmallD ? 128 : 32; }
-constexpr int min_blocks(int d) { return d <= 64 ? 2 : 1; }
+// Keys a tile at head dim d.
+constexpr int key_tile(int d) { return d <= 16 ? 64 : d <= kSmallD ? 128 : 32; }
 
 // The key ranges of a split: ⌈T / split⌉ tiles each for T = ⌈n / bk⌉ key
 // tiles, so every range holds a tile and there may be fewer than asked.
@@ -117,55 +137,432 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// The kernel's shape parameters. DV8: output n-tiles of 8 columns (D/8 at
-// D ≤ 128; 32/48/64 for D > 128, columns past D zero); WN: warps sharing a
-// 16-row group (each with DV8·8/WN output columns and BK/WN keys of a tile);
-// BK: keys a tile; NST: pipeline stages.
-template <int DV8, int WN, int BK, int NST>
+// ===========================================================================
+// D ≤ 128: TMA, wgmma, a producer warp and NC consumer warpgroups
+// ===========================================================================
+
+constexpr int kProducerRegs = 24;
+constexpr int kTurnBar = 1;             // named barriers 1 … NC: the turns
+
+// The most consumer warpgroups (64 query rows each) a block can have at
+// head dim d, as many as the registers that their count leaves them allow:
+// four up to D 16 (112 registers a thread, with 64-key tiles), three up to
+// D 48 (160), two above (240). Each K/V tile then serves 64·NC rows. Up to
+// D 48 the kernel is also built with two, which the plan takes where the
+// larger blocks would not leave fewer waves of blocks (a short grid).
+constexpr int max_consumers(int d) { return d <= 16 ? 4 : d <= 48 ? 3 : 2; }
+
+template <int D8, int NC_>
+struct WgCfg {
+  static constexpr int D = 8 * D8;
+  static constexpr int NC = NC_;
+  static constexpr int ROWS = 64 * NC;           // query rows a block
+  static constexpr int THREADS = 128 * (NC + 1); // + the producer group
+  // setmaxnreg's budgets: the producer group's 24 a thread go to the
+  // consumers (65,536 registers an SM, one block)
+  static constexpr int CONSUMER_REGS =
+      ((65536 / THREADS) / 8 * 8 * THREADS - 128 * kProducerRegs) / (128 * NC)
+      / 8 * 8;
+  static_assert(CONSUMER_REGS == (NC == 2 ? 240 : NC == 3 ? 160 : 112),
+                "register budgets");
+  static constexpr int BK = key_tile(D);         // keys a tile
+  static constexpr int NST = D <= 64 ? 4 : 2;    // ring stages of K and V
+  static constexpr int K16 = (D + 15) / 16;      // q·kᵀ k-steps (16 deep)
+  static constexpr int DC = (D + 63) / 64;       // 64-column blocks a row
+  static constexpr int TILE = BK * 128 * DC;     // bytes of a K or V tile
+  static constexpr int NS = BK / 2;              // S accumulator, a thread
+  static constexpr int NO = D / 2;               // O accumulator, a thread
+  static constexpr int KP = BK / 16;             // p·v k-steps
+  static_assert(BK % 64 == 0 && BK <= 256, "wgmma n and TMA box");
+
+  static size_t smem_bytes(int q_f32) {
+    return 1024 + (size_t)2 * NST * TILE +
+           (size_t)ROWS * D * (q_f32 ? 4 : 2) + 8 * (4 * NST + 1);
+  }
+};
+
+// q·kᵀ's B for k-step kk of the K tile at shared address `tile`: rows of 64
+// columns, 128 bytes, 8-row groups 1024 bytes apart; k-steps advance 32
+// bytes within a row, and the second 64-column block follows the first.
+template <int BK>
+__device__ __forceinline__ uint64_t k_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// p·v's B for k-step kk (16 keys) of the V tile, MN-major: 64-column
+// blocks BK·128 bytes apart, 8-key groups 1024 bytes apart.
+template <int BK>
+__device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, BK * 128, 1024);
+}
+
+// q: [bh, n, D] (bf16, or f32 when q_f32), k, v: [bh, n, D] bf16, through
+// the tensor maps; out [bh, n, D] in q's dtype. grid (⌈n / 128⌉, split,
+// bh). With split > 1 each block covers a range of key tiles and writes
+// its unnormalised O to part [split, bh, n, D] f32 and (row max, row sum)
+// to ml [split, bh, n, 2].
+template <int D8, int NC_>
+__global__ void __launch_bounds__(WgCfg<D8, NC_>::THREADS, 1)
+attn_fwd_wg(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, void* __restrict__ outv,
+            float* __restrict__ part, float* __restrict__ ml, int n,
+            int q_f32, float qscale) {
+  using C = WgCfg<D8, NC_>;
+  constexpr int D = C::D, BK = C::BK, NST = C::NST, NC = C::NC;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  // 1024-byte aligned, as the 128-byte swizzle's pattern is
+  unsigned char* smem = smem_wg + ((1024 - (smem_addr(smem_wg) & 1023)) & 1023);
+  unsigned char* kbuf = smem;
+  unsigned char* vbuf = smem + NST * C::TILE;
+  unsigned char* qbuf = smem + 2 * NST * C::TILE;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(
+      qbuf + (size_t)C::ROWS * D * (q_f32 ? 4 : 2));
+  uint64_t* full_v = full_k + NST;
+  uint64_t* empty_k = full_k + 2 * NST;
+  uint64_t* empty_v = full_k + 3 * NST;
+  uint64_t* full_q = full_k + 4 * NST;
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform across the warp (setmaxnreg's register budgets need that)
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int q0 = blockIdx.x * C::ROWS, bh = blockIdx.z;
+  // this block's key tiles
+  const int nkt = (n + BK - 1) / BK;
+  const int per = (nkt + gridDim.y - 1) / gridDim.y;
+  const int kt0 = blockIdx.y * per;
+  const int ntiles = min(nkt, kt0 + per) - kt0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 4 * NC);   // one arrival per consumer warp
+      mbar_init(&empty_v[s], 4 * NC);
+    }
+    mbar_init(full_q, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                    // the producer
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_expect_tx(full_q, C::ROWS * D * (q_f32 ? 4 : 2));
+      tma_load_3d(qbuf, &qmap, full_q, 0, q0, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % NST, use = j / NST, key0 = (kt0 + j) * BK;
+        if (use > 0) mbar_wait(&empty_k[s], (use - 1) & 1);
+        mbar_expect_tx(&full_k[s], C::TILE);
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c)
+          tma_load_3d(kbuf + s * C::TILE + c * BK * 128, &kmap, &full_k[s],
+                      64 * c, key0, bh);
+        if (use > 0) mbar_wait(&empty_v[s], (use - 1) & 1);
+        mbar_expect_tx(&full_v[s], C::TILE);
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c)
+          tma_load_3d(vbuf + s * C::TILE + c * BK * 128, &vmap, &full_v[s],
+                      64 * c, key0, bh);
+      }
+    }
+    return;
+  }
+
+  // a consumer: 64 rows, warp w of the group rows 16w + lane/4 and + 8
+  regs_inc<C::CONSUMER_REGS>();
+  const int cg = wg - 1;
+  const int warp = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int bar_mine = kTurnBar + cg, bar_next = kTurnBar + (cg + 1) % NC;
+  const uint32_t kaddr = smem_addr(kbuf), vaddr = smem_addr(vbuf);
+
+  // Q fragments: bf16(q · qscale), zero past D
+  uint32_t qf[C::K16][4];
+  mbar_wait(full_q, 0);
+  {
+    const int r0 = 64 * cg + 16 * warp + g;   // of the block's Q tile
+#pragma unroll
+    for (int kk = 0; kk < C::K16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 8 * (e & 1), col = 16 * kk + 8 * (e >> 1) + 2 * t;
+        float x = 0.f, y = 0.f;
+        if (col < D) {              // D % 8 == 0: col + 1 < D too
+          if (q_f32) {
+            const float2 f = *reinterpret_cast<const float2*>(
+                reinterpret_cast<const float*>(qbuf) + r * D + col);
+            x = f.x;
+            y = f.y;
+          } else {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    reinterpret_cast<const bf16*>(qbuf) + r * D + col));
+            x = f.x;
+            y = f.y;
+          }
+        }
+        qf[kk][e] = col < D ? pack_bf16(x * qscale, y * qscale) : 0u;
+      }
+  }
+
+  float sacc[C::NS];                // scores, then p (f32) in place
+  float o[C::NO];
+#pragma unroll
+  for (int i = 0; i < C::NS; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::NO; ++i) o[i] = 0.f;
+  uint32_t pf[C::KP][4];            // bf16(p) as p·v's A fragments
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;   // rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;         // this thread's partial row sums
+  float corr0 = 0.f, corr1 = 0.f;   // the last softmax's rescale of O
+
+  auto issue_scores = [&](int j) {  // sacc = q · K_jᵀ (asynchronous)
+    const uint32_t tile = kaddr + (j % NST) * C::TILE;
+    fence_regs(sacc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::K16; ++kk)
+      wgmma_rs<BK, 0>(sacc, qf[kk], k_desc<BK>(tile, kk), kk > 0 ? 1 : 0);
+    wg_commit();
+  };
+
+  // the online softmax of tile j's scores: the new row maxima, O's
+  // rescale, p = 2^(s·log2e − m·log2e) in place, the row sums. The maxima
+  // and sums in four independent chains a row (fewer dependent steps).
+  auto softmax_tile = [&]() {
+    float a0[4] = {m0, m0, m0, m0}, a1[4] = {m1, m1, m1, m1};
+#pragma unroll
+    for (int i = 0; i < C::NS / 4; ++i) {
+      a0[i % 4] = fmaxf(a0[i % 4], fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+      a1[i % 4] = fmaxf(a1[i % 4], fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+    }
+    float mx0 = fmaxf(fmaxf(a0[0], a0[1]), fmaxf(a0[2], a0[3]));
+    float mx1 = fmaxf(fmaxf(a1[0], a1[1]), fmaxf(a1[2], a1[3]));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // the range's first tile holds a valid key, so mx is finite from here
+    const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
+    corr0 = ex2(fmaf(m0, kLog2e, -ml0));
+    corr1 = ex2(fmaf(m1, kLog2e, -ml1));
+    m0 = mx0;
+    m1 = mx1;
+    float r0[4] = {0.f, 0.f, 0.f, 0.f}, r1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < C::NS / 4; ++i) {
+      sacc[4 * i] = ex2(fmaf(sacc[4 * i], kLog2e, -ml0));
+      sacc[4 * i + 1] = ex2(fmaf(sacc[4 * i + 1], kLog2e, -ml0));
+      sacc[4 * i + 2] = ex2(fmaf(sacc[4 * i + 2], kLog2e, -ml1));
+      sacc[4 * i + 3] = ex2(fmaf(sacc[4 * i + 3], kLog2e, -ml1));
+      r0[i % 4] += sacc[4 * i] + sacc[4 * i + 1];
+      r1[i % 4] += sacc[4 * i + 2] + sacc[4 * i + 3];
+    }
+    l0 = l0 * corr0 + ((r0[0] + r0[1]) + (r0[2] + r0[3]));
+    l1 = l1 * corr1 + ((r1[0] + r1[1]) + (r1[2] + r1[3]));
+  };
+
+  // the same with tile j's keys past n (a ragged last tile's) masked to −∞
+  // first; only the last tile can be ragged, and only its copy of the loop
+  // step carries the mask
+  auto softmax_masked = [&](int j) {
+    const int key0 = (kt0 + j) * BK;
+    if (key0 + BK > n) {
+#pragma unroll
+      for (int i = 0; i < C::NS; ++i)
+        if (key0 + 8 * (i / 4) + 2 * t + (i & 1) >= n) sacc[i] = -CUDART_INF_F;
+    }
+    softmax_tile();
+  };
+
+  // two key octets of p form one A fragment of a 16-key step
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < C::KP; ++kk) {
+      pf[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+    }
+  };
+
+  auto release = [&](uint64_t* empty) {   // this warp is done with a stage
+    if (lane == 0) mbar_arrive(empty);
+  };
+
+  auto rescale_o = [&]() {          // O by the last softmax's correction
+#pragma unroll
+    for (int i = 0; i < C::NO / 4; ++i) {
+      o[4 * i] *= corr0;
+      o[4 * i + 1] *= corr0;
+      o[4 * i + 2] *= corr1;
+      o[4 * i + 3] *= corr1;
+    }
+  };
+
+  auto issue_pv = [&](int j) {      // o += bf16(p) · V_j (asynchronous)
+    const uint32_t tile = vaddr + (j % NST) * C::TILE;
+    mbar_wait(&full_v[j % NST], (j / NST) & 1);
+    fence_regs(o);
+    fence_regs(pf);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KP; ++kk)
+      wgmma_rs<D, 1>(o, pf[kk], v_desc<BK>(tile, kk), 1);
+    wg_commit();
+  };
+
+  // Turns, in group order: a group issues its products only between
+  // bar_sync(bar_mine) and bar_arrive(bar_next); the last group's first
+  // arrival gives group 0 the first turn. Each group takes ntiles + 1
+  // turns; the last group gives none after its last.
+  if (cg == NC - 1) bar_arrive(kTurnBar, 256);
+  mbar_wait(&full_k[0], 0);
+  bar_sync(bar_mine, 256);
+  issue_scores(0);
+  bar_arrive(bar_next, 256);
+  wg_wait<0>();
+  fence_regs(sacc);
+  release(&empty_k[0]);
+  softmax_masked(0);
+  pack_p();
+
+  // tile j + 1's scores and tile j's p·v issued in one turn, tile j + 1's
+  // softmax while p·v runs
+  auto step = [&](int j, auto next_softmax) {
+    mbar_wait(&full_k[(j + 1) % NST], ((j + 1) / NST) & 1);
+    bar_sync(bar_mine, 256);
+    issue_scores(j + 1);
+    rescale_o();                    // while q·kᵀ runs
+    issue_pv(j);
+    bar_arrive(bar_next, 256);
+    wg_wait<1>();                   // the scores are in
+    fence_regs(sacc);
+    release(&empty_k[(j + 1) % NST]);
+    next_softmax(j + 1);
+    wg_wait<0>();                   // p·v is done
+    fence_regs(o);
+    fence_regs(pf);
+    release(&empty_v[j % NST]);
+    pack_p();
+  };
+  for (int j = 0; j + 2 < ntiles; ++j)   // full tiles
+    step(j, [&](int) { softmax_tile(); });
+  if (ntiles >= 2) step(ntiles - 2, softmax_masked);
+  {                                 // the last tile's p·v
+    const int j = ntiles - 1;
+    bar_sync(bar_mine, 256);
+    rescale_o();
+    issue_pv(j);
+    if (cg != NC - 1) bar_arrive(bar_next, 256);
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    release(&empty_v[j % NST]);
+  }
+
+  // the row sums over the 4 lanes of a row
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  const size_t base = (size_t)bh * n * D;
+  const int row[2] = {q0 + 64 * cg + 16 * warp + g,
+                      q0 + 64 * cg + 16 * warp + g + 8};
+  if (gridDim.y == 1) {             // normalised, in q's dtype
+    const float inv[2] = {1.f / l0, 1.f / l1};
+#pragma unroll
+    for (int i = 0; i < C::NO / 4; ++i) {
+      const int col = 8 * i + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= n) continue;
+        const size_t off = base + (size_t)row[r] * D + col;
+        const float x = o[4 * i + 2 * r] * inv[r];
+        const float y = o[4 * i + 2 * r + 1] * inv[r];
+        if (q_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(outv) + off) =
+              make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(outv) + off) =
+              pack_bf16(x, y);
+      }
+    }
+  } else {                          // this split's unnormalised O, max, sum
+    const size_t pbase = (size_t)blockIdx.y * gridDim.z * n * D + base;
+#pragma unroll
+    for (int i = 0; i < C::NO / 4; ++i) {
+      const int col = 8 * i + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row[r] < n)
+          *reinterpret_cast<float2*>(part + pbase + (size_t)row[r] * D + col) =
+              make_float2(o[4 * i + 2 * r], o[4 * i + 2 * r + 1]);
+    }
+    if (t == 0) {
+      const size_t mbase = ((size_t)blockIdx.y * gridDim.z + bh) * n;
+      const float mm[2] = {m0, m1}, ll[2] = {l0, l1};
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row[r] < n)
+          *reinterpret_cast<float2*>(ml + 2 * (mbase + row[r])) =
+              make_float2(mm[r], ll[r]);
+    }
+  }
+}
+
+// ===========================================================================
+// D > 128: mma.sync, two warps a 16-row group
+// ===========================================================================
+
+// The kernel's shape parameters. DV8: output n-tiles of 8 columns (32/48/64,
+// columns past D zero); each of a group's two warps has DV8·4 output
+// columns and BK/2 keys of a tile; BK: keys a tile; NST: pipeline stages.
+template <int DV8, int BK, int NST>
 struct Cfg {
+  static constexpr int WN = 2;                  // warps a 16-row group
   static constexpr int DV = DV8 * 8;            // output columns (padded)
   static constexpr int DQK = DV8 * 8;           // q·kᵀ depth
-  static constexpr int K16 = DQK / 16;          // its 16-deep mma steps,
-  static constexpr bool K8 = DQK % 16 != 0;     // and an 8-deep last one
+  static constexpr int K16 = DQK / 16;          // its 16-deep mma steps
   static constexpr int QS = row_stride(DQK);    // Q and K row stride
   static constexpr int VS = row_stride(DV);     // V row stride
   static constexpr int PS = row_stride(BK);     // p exchange row stride
   static constexpr int NV = DV8 / WN;           // a warp's output n-tiles
   static constexpr int BKW = BK / WN;           // a warp's keys of a tile
   static constexpr int NS = BKW / 8;            // a warp's score n-tiles
-  static constexpr bool QREG = DQK <= 128;      // Q fragments in registers
   static constexpr int STAGE = BK * (QS + VS);  // bf16 a stage (K then V)
   static_assert(NS % 2 == 0, "score n-tiles are loaded in pairs");
-  static_assert(WN == 1 || BK % 16 == 0, "p is exchanged in 16-key steps");
-  static_assert(!K8 || (WN == 1 && QREG && NS % 4 == 0),
-                "the 8-deep step loads K in groups of 32 keys");
+  static_assert(BK % 16 == 0, "p is exchanged in 16-key steps");
+  static_assert(DQK % 16 == 0, "q·kᵀ runs in 16-deep steps");
 
   static size_t smem_bytes(int wm) {
-    size_t b = ((size_t)16 * wm * QS + (size_t)NST * STAGE) * sizeof(bf16);
-    if (WN > 1)
-      b += (size_t)16 * wm * PS * sizeof(bf16) + (size_t)16 * wm * WN * 4;
-    return b;
+    return ((size_t)16 * wm * QS + (size_t)NST * STAGE) * sizeof(bf16) +
+           (size_t)16 * wm * PS * sizeof(bf16) + (size_t)16 * wm * WN * 4;
   }
 };
 
 // q, out: [bh, n, d] (bf16, or f32 when q_f32); k, v: [bh, n, d] bf16.
-// grid (⌈n / (16·wm)⌉, split, bh), 32·wm·WN threads. With split > 1 each
+// grid (⌈n / (16·wm)⌉, split, bh), 64·wm threads. With split > 1 each
 // block covers a range of key tiles and writes its unnormalised O to
 // part [split, bh, n, d] f32 and (row max, row sum) to ml [split, bh, n, 2].
-template <int DV8, int WN, int BK, int NST, int MINB>
-__global__ void __launch_bounds__(256, MINB)
-attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
-         const bf16* __restrict__ v, void* __restrict__ outv,
-         float* __restrict__ part, float* __restrict__ ml, int n, int d,
-         int q_f32, float qscale) {
-  using C = Cfg<DV8, WN, BK, NST>;
+template <int DV8, int BK, int NST>
+__global__ void __launch_bounds__(256, 1)
+attn_fwd_wide(const void* __restrict__ qv, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, void* __restrict__ outv,
+              float* __restrict__ part, float* __restrict__ ml, int n, int d,
+              int q_f32, float qscale) {
+  using C = Cfg<DV8, BK, NST>;
+  constexpr int WN = C::WN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int wm_count = blockDim.x / (32 * WN);
   const int bq = 16 * wm_count;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* stages = qs + bq * C::QS;
-  bf16* ps = stages + NST * C::STAGE;                       // WN > 1
-  float* red = reinterpret_cast<float*>(ps + bq * C::PS);   // WN > 1
+  bf16* ps = stages + NST * C::STAGE;
+  float* red = reinterpret_cast<float*>(ps + bq * C::PS);
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -240,16 +637,8 @@ attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  // this warp's Q fragments (rows 16·wm …, all of q·kᵀ's depth; the
-  // 8-deep last step's from lanes 0–15, one row each)
+  // this warp's Q rows (16·wm …), loaded per 16-deep step
   const bf16* qw = qs + (wm * 16 + (lane & 15)) * C::QS + (lane >> 4) * 8;
-  constexpr int QF = C::QREG && C::K16 > 0 ? C::K16 : 1;
-  uint32_t qf[QF][4], qt[2];
-  if (C::QREG) {
-#pragma unroll
-    for (int kk = 0; kk < C::K16; ++kk) ldm_x4(qf[kk], qw + kk * 16);
-  }
-  if (C::K8) ldm_x2(qt, qw + C::K16 * 16);
 
   float o[C::NV][4];
 #pragma unroll
@@ -269,28 +658,13 @@ attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < C::K16; ++kk) {
       uint32_t a[4];
-      if (C::QREG) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[C::QREG ? kk : 0][e];
-      } else {
-        ldm_x4(a, qw + kk * 16);
-      }
+      ldm_x4(a, qw + kk * 16);
 #pragma unroll
       for (int np = 0; np < C::NS / 2; ++np) {
         uint32_t b[4];
         ldm_x4(b, kw + np * 16 * C::QS + kk * 16);
         mma_bf16(s[2 * np], a, b[0], b[1]);
         mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    if (C::K8) {                    // lane i addresses key i of 32
-      const bf16* kt = ks + (wn * C::BKW + lane) * C::QS + C::K16 * 16;
-#pragma unroll
-      for (int q4 = 0; q4 < C::NS / 4; ++q4) {
-        uint32_t b[4];
-        ldm_x4(b, kt + q4 * 32 * C::QS);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mma_bf16_k8(s[4 * q4 + e], qt, b[e]);
       }
     }
     if (key0 + C::BKW > n) {
@@ -316,17 +690,16 @@ attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     }
-    if (WN > 1) {                   // the maxima of the group's other warps
-      if (t == 0) {
-        red[(wm * 16 + g) * WN + wn] = mx[0];
-        red[(wm * 16 + g + 8) * WN + wn] = mx[1];
-      }
-      named_barrier(1 + wm, 32 * WN);
+    // the maxima of the group's other warp
+    if (t == 0) {
+      red[(wm * 16 + g) * WN + wn] = mx[0];
+      red[(wm * 16 + g + 8) * WN + wn] = mx[1];
+    }
+    named_barrier(1 + wm, 32 * WN);
 #pragma unroll
-      for (int w = 0; w < WN; ++w) {
-        mx[0] = fmaxf(mx[0], red[(wm * 16 + g) * WN + w]);
-        mx[1] = fmaxf(mx[1], red[(wm * 16 + g + 8) * WN + w]);
-      }
+    for (int w = 0; w < WN; ++w) {
+      mx[0] = fmaxf(mx[0], red[(wm * 16 + g) * WN + w]);
+      mx[1] = fmaxf(mx[1], red[(wm * 16 + g + 8) * WN + w]);
     }
     // the group's first tile holds a valid key, so mx is finite from here
     const float ml0 = mx[0] * kLog2e, ml1 = mx[1] * kLog2e;
@@ -353,29 +726,20 @@ attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
       o[i][2] *= corr1;
       o[i][3] *= corr1;
     }
-    if (WN > 1) {                   // the group's p through shared memory
-      bf16* pw = ps + (wm * 16 + g) * C::PS + wn * C::BKW + 2 * t;
+    // the group's p through shared memory
+    bf16* pw = ps + (wm * 16 + g) * C::PS + wn * C::BKW + 2 * t;
 #pragma unroll
-      for (int i = 0; i < C::NS; ++i) {
-        *reinterpret_cast<uint32_t*>(pw + i * 8) = pack_bf16(s[i][0], s[i][1]);
-        *reinterpret_cast<uint32_t*>(pw + 8 * C::PS + i * 8) =
-            pack_bf16(s[i][2], s[i][3]);
-      }
-      named_barrier(1 + wm, 32 * WN);
+    for (int i = 0; i < C::NS; ++i) {
+      *reinterpret_cast<uint32_t*>(pw + i * 8) = pack_bf16(s[i][0], s[i][1]);
+      *reinterpret_cast<uint32_t*>(pw + 8 * C::PS + i * 8) =
+          pack_bf16(s[i][2], s[i][3]);
     }
+    named_barrier(1 + wm, 32 * WN);
     const bf16* vw = vs + (lane & 15) * C::VS + wn * (C::NV * 8) + (lane >> 4) * 8;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      if (WN > 1) {
-        ldm_x4(a, ps + (wm * 16 + (lane & 15)) * C::PS + kk * 16 + (lane >> 4) * 8);
-      } else {                      // two key octets of s form one A fragment
-        const int ia = (WN > 1) ? 0 : 2 * kk;
-        a[0] = pack_bf16(s[ia][0], s[ia][1]);
-        a[1] = pack_bf16(s[ia][2], s[ia][3]);
-        a[2] = pack_bf16(s[ia + 1][0], s[ia + 1][1]);
-        a[3] = pack_bf16(s[ia + 1][2], s[ia + 1][3]);
-      }
+      ldm_x4(a, ps + (wm * 16 + (lane & 15)) * C::PS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int jp = 0; jp < C::NV / 2; ++jp) {
         uint32_t b[4];
@@ -409,19 +773,17 @@ attn_fwd(const void* __restrict__ qv, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (WN > 1) {
-    __syncthreads();                // every warp is done with red's maxima
-    if (t == 0) {
-      red[(wm * 16 + g) * WN + wn] = l[0];
-      red[(wm * 16 + g + 8) * WN + wn] = l[1];
-    }
-    named_barrier(1 + wm, 32 * WN);
-    l[0] = l[1] = 0.f;
+  __syncthreads();                  // every warp is done with red's maxima
+  if (t == 0) {
+    red[(wm * 16 + g) * WN + wn] = l[0];
+    red[(wm * 16 + g + 8) * WN + wn] = l[1];
+  }
+  named_barrier(1 + wm, 32 * WN);
+  l[0] = l[1] = 0.f;
 #pragma unroll
-    for (int w = 0; w < WN; ++w) {  // in warp order: the same in each warp
-      l[0] += red[(wm * 16 + g) * WN + w];
-      l[1] += red[(wm * 16 + g + 8) * WN + w];
-    }
+  for (int w = 0; w < WN; ++w) {    // in warp order: the same in each warp
+    l[0] += red[(wm * 16 + g) * WN + w];
+    l[1] += red[(wm * 16 + g + 8) * WN + w];
   }
 
   const int row[2] = {q0 + wm * 16 + g, q0 + wm * 16 + g + 8};
@@ -517,40 +879,211 @@ attn_merge(const float* __restrict__ part, const float* __restrict__ ml,
   }
 }
 
-template <int DV8, int WN, int BK, int NST, int MINB = 1>
-int launch(const void* q, const bf16* k, const bf16* v, void* out,
-           float* part, float* ml, int bh, int n, int d, int q_f32,
-           float qscale, int wm, int split, cudaStream_t stream) {
-  using C = Cfg<DV8, WN, BK, NST>;
-  if (wm < 1 || 32 * wm * WN > 256 || split < 1 ||
-      key_ranges(n, BK, split) != split)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = C::smem_bytes(wm);
-  auto kernel = attn_fwd<DV8, WN, BK, NST, MINB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + 16 * wm - 1) / (16 * wm), split, bh);
-  kernel<<<grid, 32 * wm * WN, smem, stream>>>(q, k, v, out, part, ml, n, d,
-                                               q_f32, qscale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
+int launch_merge(float* part, float* ml, void* out, int split, int bh, int n,
+                 int d, int q_f32, cudaStream_t stream) {
   const size_t threads = (size_t)bh * n * (d / 8);
   attn_merge<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       part, ml, out, split, bh, n, d, q_f32);
   return (int)cudaGetLastError();
 }
 
+// ---- host: the D ≤ 128 launch ----------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map over [bh, n, d] (d innermost) with boxes of box_d × box_n × 1
+int make_map(CUtensorMap* map, const void* ptr, bool f32, int bh, int n,
+             int d, int box_d, int box_n, bool swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {d * es, (cuuint64_t)n * d * es};
+  const cuuint32_t box[3] = {(cuuint32_t)box_d, (cuuint32_t)box_n, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// make_map through a cache of the maps this thread encoded last, by all that
+// a map encodes: the UNet calls K7 on the same few buffers and shapes step
+// after step, and three encodes cost the host more than the launch.
+struct MapKey {
+  const void* ptr;
+  int bh, n, d, box_d, box_n, flags;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && bh == o.bh && n == o.n && d == o.d &&
+           box_d == o.box_d && box_n == o.box_n && flags == o.flags;
+  }
+};
+
+int cached_map(CUtensorMap* map, const void* ptr, bool f32, int bh, int n,
+               int d, int box_d, int box_n, bool swizzle) {
+  struct Slot {
+    MapKey key;
+    bool used;
+    CUtensorMap map;
+  };
+  constexpr int kSlots = 256;
+  thread_local Slot slots[kSlots] = {};
+  const MapKey key{ptr, bh, n, d, box_d, box_n, (f32 ? 1 : 0) | (swizzle ? 2 : 0)};
+  uint64_t h = (uint64_t)(uintptr_t)ptr >> 4;
+  h = (h ^ (h >> 17)) * 0x9E3779B97F4A7C15ull;
+  h ^= (uint64_t)(n * 31 + box_n) * 0xC2B2AE3D27D4EB4Full + key.flags;
+  Slot& slot = slots[(h >> 32) % kSlots];
+  if (slot.used && slot.key == key) {
+    *map = slot.map;
+    return 0;
+  }
+  const int err = make_map(map, ptr, f32, bh, n, d, box_d, box_n, swizzle);
+  if (!err) {
+    slot.key = key;
+    slot.map = *map;
+    slot.used = true;
+  }
+  return err;
+}
+
+// cudaFuncSetAttribute's dynamic shared memory for `kernel` on the current
+// card, set only when a call needs more than it was set to there (the
+// attribute is per function and card; a call costs the host microseconds).
+// Tag names the kernel (its configuration type): the kernels of one design
+// share a signature, so the record is kept per Tag, not per K.
+template <typename Tag, typename K>
+int allow_smem(K kernel, size_t smem) {
+  constexpr int kCards = 64;
+  static std::atomic<int> allowed[kCards];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kCards && allowed[dev].load(std::memory_order_relaxed) >= (int)smem)
+    return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < kCards) {
+    int cur = allowed[dev].load(std::memory_order_relaxed);
+    while (cur < (int)smem &&
+           !allowed[dev].compare_exchange_weak(cur, (int)smem)) {
+    }
+  }
+  return (int)err;
+}
+
+template <int D8, int NC>
+int launch_wg(const void* q, const void* k, const void* v, void* out,
+              float* part, float* ml, int bh, int n, int q_f32, float qscale,
+              int split, cudaStream_t stream) {
+  using C = WgCfg<D8, NC>;
+  if (split < 1 || key_ranges(n, C::BK, split) != split)
+    return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap qm, km, vm;
+  int err = cached_map(&qm, q, q_f32 != 0, bh, n, C::D, C::D, C::ROWS, false);
+  if (!err) err = cached_map(&km, k, false, bh, n, C::D, 64, C::BK, true);
+  if (!err) err = cached_map(&vm, v, false, bh, n, C::D, 64, C::BK, true);
+  const size_t smem = C::smem_bytes(q_f32);
+  auto kernel = attn_fwd_wg<D8, NC>;
+  if (!err) err = allow_smem<C>(kernel, smem);
+  if (err) return err;
+  const dim3 grid((n + C::ROWS - 1) / C::ROWS, split, bh);
+  kernel<<<grid, C::THREADS, smem, stream>>>(qm, km, vm, out, part, ml, n,
+                                             q_f32, qscale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || split == 1) return (int)e;
+  return launch_merge(part, ml, out, split, bh, n, C::D, q_f32, stream);
+}
+
+template <int DV8>
+int launch_wide(const void* q, const bf16* k, const bf16* v, void* out,
+                float* part, float* ml, int bh, int n, int d, int q_f32,
+                float qscale, int wm, int split, cudaStream_t stream) {
+  constexpr int BK = key_tile(512);
+  using C = Cfg<DV8, BK, kStages>;
+  if (wm < 1 || 32 * wm * C::WN > 256 || split < 1 ||
+      key_ranges(n, BK, split) != split)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = C::smem_bytes(wm);
+  auto kernel = attn_fwd_wide<DV8, BK, kStages>;
+  const int set = allow_smem<C>(kernel, smem);
+  if (set) return set;
+  const dim3 grid((n + 16 * wm - 1) / (16 * wm), split, bh);
+  kernel<<<grid, 32 * wm * C::WN, smem, stream>>>(q, k, v, out, part, ml, n,
+                                                  d, q_f32, qscale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return launch_merge(part, ml, out, split, bh, n, d, q_f32, stream);
+}
+
+// the kernel's attributes at head dim d: registers, local (spill) bytes a
+// thread, dynamic shared memory a block (with a bf16 q), blocks an SM,
+// stages, keys a tile, threads a block, the depth its q·kᵀ runs at and the
+// width of its p·v (the tensor cores' work, padded)
+template <typename Tag, typename K>
+int kernel_attrs(K kernel, size_t smem, int threads, int stages, int bk,
+                 int qk_depth, int pv_width, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = (cudaError_t)allow_smem<Tag>(kernel, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  info[4] = stages;
+  info[5] = bk;
+  info[6] = threads;
+  info[7] = qk_depth;
+  info[8] = pv_width;
+  return (int)err;
+}
+
 }  // namespace
+
+#define GBNERF_ATTN_SMALL_CASES(X)                                          \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)     \
+  X(14) X(15) X(16)
 
 // q [bh, n, d] bf16 (f32 when q_f32), k, v [bh, n, d] bf16, out [bh, n, d]
 // in q's dtype; all contiguous, 16-byte aligned. qscale: the softmax scale
 // rounded to q's dtype. wm and split as gbnerf_attention_plan gives them:
-// wm 16-row groups a block, one warp each at D ≤ 128 (1…8), two above
-// (1…4); split key ranges across blocks, each holding a key tile. With
-// split > 1, part [split, bh, n, d] f32 and ml [split, bh, n, 2] f32 are
-// scratch. d % 8 == 0, 8 ≤ d ≤ 512, bh ≤ 65535. Returns the cudaError_t
-// of the launches (0 = success).
+// wm 16-row groups a block (at D ≤ 128 4·NC: 8, two consumer warpgroups,
+// or 4·max_consumers(d), 16 up to D 16 and 12 up to D 48; 1…4 above D 128,
+// two warps a group); split key ranges across blocks, each holding
+// a key tile. With split > 1, part [split, bh, n, d] f32 and ml [split, bh,
+// n, 2] f32 are scratch. d % 8 == 0, 8 ≤ d ≤ 512, bh ≤ 65535. Returns the
+// cudaError_t of the launches (0 = success).
 extern "C" int gbnerf_attention_fwd(const void* q, const void* k,
                                     const void* v, void* out, void* part,
                                     void* ml, int bh, int n, int d, int q_f32,
@@ -558,68 +1091,106 @@ extern "C" int gbnerf_attention_fwd(const void* q, const void* k,
                                     void* stream) {
   if (bh == 0 || n == 0) return 0;
   if (d % 8 || d < 8 || d > 512) return (int)cudaErrorInvalidValue;
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
   float* P = static_cast<float*>(part);
   float* M = static_cast<float*>(ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GBNERF_ATTN_SMALL(D8)                                                 \
-  case D8:                                                                    \
-    return launch<D8, 1, key_tile(D8 * 8), kStages, min_blocks(D8 * 8)>(      \
-        q, K, V, out, P, M, bh, n, d, q_f32, qscale, wm, split, s);
-  switch (d / 8) {
-    GBNERF_ATTN_SMALL(1)
-    GBNERF_ATTN_SMALL(2)
-    GBNERF_ATTN_SMALL(3)
-    GBNERF_ATTN_SMALL(4)
-    GBNERF_ATTN_SMALL(5)
-    GBNERF_ATTN_SMALL(6)
-    GBNERF_ATTN_SMALL(7)
-    GBNERF_ATTN_SMALL(8)
-    GBNERF_ATTN_SMALL(9)
-    GBNERF_ATTN_SMALL(10)
-    GBNERF_ATTN_SMALL(11)
-    GBNERF_ATTN_SMALL(12)
-    GBNERF_ATTN_SMALL(13)
-    GBNERF_ATTN_SMALL(14)
-    GBNERF_ATTN_SMALL(15)
-    GBNERF_ATTN_SMALL(16)
-    default:
-      break;
+  if (d <= kSmallD) {
+    if (wm != 8 && wm != 4 * max_consumers(d))
+      return (int)cudaErrorInvalidValue;
+#define GBNERF_ATTN_WG(D8)                                                  \
+  case D8:                                                                  \
+    return wm == 8 ? launch_wg<D8, 2>(q, k, v, out, P, M, bh, n, q_f32,     \
+                                      qscale, split, s)                     \
+                   : launch_wg<D8, max_consumers(D8 * 8)>(                  \
+                         q, k, v, out, P, M, bh, n, q_f32, qscale, split, s);
+    switch (d / 8) { GBNERF_ATTN_SMALL_CASES(GBNERF_ATTN_WG) }
+#undef GBNERF_ATTN_WG
   }
-#undef GBNERF_ATTN_SMALL
-  constexpr int bk = key_tile(512);
+  const bf16* K = static_cast<const bf16*>(k);
+  const bf16* V = static_cast<const bf16*>(v);
   if (d <= 256)
-    return launch<32, 2, bk, kStages>(q, K, V, out, P, M, bh, n, d, q_f32,
-                                      qscale, wm, split, s);
+    return launch_wide<32>(q, K, V, out, P, M, bh, n, d, q_f32, qscale, wm,
+                           split, s);
   if (d <= 384)
-    return launch<48, 2, bk, kStages>(q, K, V, out, P, M, bh, n, d, q_f32,
-                                      qscale, wm, split, s);
-  return launch<64, 2, bk, kStages>(q, K, V, out, P, M, bh, n, d, q_f32,
-                                    qscale, wm, split, s);
+    return launch_wide<48>(q, K, V, out, P, M, bh, n, d, q_f32, qscale, wm,
+                           split, s);
+  return launch_wide<64>(q, K, V, out, P, M, bh, n, d, q_f32, qscale, wm,
+                         split, s);
 }
 
 // K7's launch plan at [bh, n, d] on a card of sm_count SMs: plan[0] = wm,
 // plan[1] = split, each taken as given where > 0 and chosen where 0.
-// D ≤ 128: 128-row blocks (wm 8) where they give at least 90 % of the SMs
-// one block, else 64-row ones (wm 4); keys unsplit. D > 128: 64-row
-// blocks (wm 4, two warps a group); the keys split in two where the query
-// tiles alone give no SM a second block (the VAE's 64 tiles → 128
-// blocks). The split is then cut to its key ranges (key_ranges), so that
-// every range holds a tile. Returns 0, or cudaErrorInvalidValue for a
-// shape or wm the kernel does not take.
+// D ≤ 128: the consumer count (wm = 4·NC) whose blocks leave the fewest
+// waves on the card, two on a tie; the keys split (in powers of two, at most 8)
+// while the query tiles give fewer than half the SMs a block. D > 128: 64-row blocks (wm 4, two warps a
+// group); the keys split in two where the query tiles alone give no SM a
+// second block (the VAE's 64 tiles → 128 blocks). The split is then cut to
+// its key ranges (key_ranges), so that every range holds a tile. Returns 0,
+// or cudaErrorInvalidValue for a shape or wm the kernel does not take.
 extern "C" int gbnerf_attention_plan(int bh, int n, int d, int sm_count,
                                      int* plan) {
   if (bh < 1 || n < 1 || d % 8 || d < 8 || d > 512)
     return (int)cudaErrorInvalidValue;
   const bool small = d <= kSmallD;
   int wm = plan[0], split = plan[1];
-  if (wm <= 0)
-    wm = small && 10 * ((n + 127) / 128) * bh >= 9 * sm_count ? 8 : 4;
-  if (split <= 0)
-    split = !small && ((n + 63) / 64) * bh <= sm_count ? 2 : 1;
-  if (32 * wm * (small ? 1 : 2) > 256) return (int)cudaErrorInvalidValue;
+  if (wm <= 0 && small) {
+    // the consumer count that leaves the fewest waves of blocks, the fewer
+    // consumers on a tie (their blocks finish sooner)
+    const int wide = max_consumers(d);
+    const long waves_wide = ((n + 64 * wide - 1) / (64 * wide) * (long)bh +
+                             sm_count - 1) / sm_count;
+    const long waves_two = ((n + 127) / 128 * (long)bh + sm_count - 1) /
+                           sm_count;
+    wm = 4 * (waves_wide < waves_two ? wide : 2);
+  }
+  if (wm <= 0) wm = 4;
+  if (split <= 0) {
+    if (small) {
+      const int blocks = (n + 16 * wm - 1) / (16 * wm) * bh;
+      split = 1;
+      while (split < 8 && 2 * blocks * split <= sm_count) split *= 2;
+    } else {
+      split = ((n + 63) / 64) * bh <= sm_count ? 2 : 1;
+    }
+  }
+  if (small ? wm != 8 && wm != 4 * max_consumers(d) : 64 * wm > 256)
+    return (int)cudaErrorInvalidValue;
   plan[0] = wm;
   plan[1] = key_ranges(n, key_tile(d), split);
   return 0;
+}
+
+// info[9] for the kernel that runs head dim d (see kernel_attrs) at wm (0:
+// the largest blocks; 8, two consumer warpgroups, at D ≤ 128); 0 or a
+// cudaError_t.
+template <int D8, int NC>
+int wg_attrs(int* info) {
+  using C = WgCfg<D8, NC>;
+  return kernel_attrs<C>(attn_fwd_wg<D8, NC>, C::smem_bytes(0), C::THREADS,
+                         C::NST, C::BK, 16 * C::K16, C::D, info);
+}
+
+template <int DV8>
+int wide_attrs(int* info) {
+  constexpr int bk = key_tile(512);
+  using C = Cfg<DV8, bk, kStages>;
+  return kernel_attrs<C>(attn_fwd_wide<DV8, bk, kStages>, C::smem_bytes(4),
+                         256, kStages, bk, C::DQK, C::DV, info);
+}
+
+extern "C" int gbnerf_attention_info(int d, int wm, int* info) {
+  if (d % 8 || d < 8 || d > 512) return (int)cudaErrorInvalidValue;
+  if (d <= kSmallD) {
+    if (wm != 0 && wm != 8 && wm != 4 * max_consumers(d))
+      return (int)cudaErrorInvalidValue;
+#define GBNERF_ATTN_INFO(D8)                                                \
+  case D8:                                                                  \
+    return wm == 8 ? wg_attrs<D8, 2>(info)                                  \
+                   : wg_attrs<D8, max_consumers(D8 * 8)>(info);
+    switch (d / 8) { GBNERF_ATTN_SMALL_CASES(GBNERF_ATTN_INFO) }
+#undef GBNERF_ATTN_INFO
+  }
+  if (d <= 256) return wide_attrs<32>(info);
+  if (d <= 384) return wide_attrs<48>(info);
+  return wide_attrs<64>(info);
 }

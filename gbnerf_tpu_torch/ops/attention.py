@@ -22,8 +22,13 @@ in bf16, scores and softmax in f32, p·v summed in f32, the output in q's
 dtype. It rounds the unnormalised p of an online softmax where the TPU
 rounds the normalised p (the source note says why): the two agree to bf16
 level relative to max|out|. ``attention_tiled_plain`` is the kernel's
-algorithm in plain PyTorch (key tiles, the base-2 online softmax, the
-key split and its log-sum-exp merge), for the tests.
+algorithm in plain PyTorch (key tiles of ``key_tile(D)``, the base-2
+online softmax, the key split and its log-sum-exp merge), for the tests.
+K7 has two designs by head dim: up to D 128 a warp-specialised kernel (TMA
+loads, wgmma, consumer warpgroups of 64 query rows a block: up to four at
+D ≤ 16 and three at D ≤ 48, else two, as the grid fills the card; keys in
+tiles of 64 up to D 16, 128 above); above D 128, two warps a 16-row group
+on mma.sync (keys in tiles of 32).
 
 On bf16 inputs ``flash_fwd`` is the kernel's launch alone (plus its merge
 launch when the keys are split): the kernel scales q as it loads it and
@@ -50,7 +55,13 @@ LAUNCHES = {"attention": 0, "attention_kernels": 0}
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 
 MAX_HEAD_DIM = 512
+SMALL_HEAD_DIM = 128       # the wgmma design up to here (csrc/attention.cu)
 LOG2E = 1.4426950408889634
+
+
+def key_tile(d: int) -> int:
+    """Keys a tile of K7 at head dim d (csrc/attention.cu::key_tile)."""
+    return 64 if d <= 16 else 128 if d <= SMALL_HEAD_DIM else 32
 
 
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -106,9 +117,10 @@ def check_attention_args(q, k, v) -> None:
 
 
 class Plan(NamedTuple):
-    """K7's launch: wm 16-row groups a block (one warp each at D ≤ 128,
-    two above), split key ranges across blocks (merged by a second
-    kernel)."""
+    """K7's launch: wm 16-row groups a block (16·wm query rows, in both
+    designs; at D ≤ 128 four for each consumer warpgroup of 64 rows: 8, or
+    16 up to D 16 and 12 up to D 48; 1…4 above D 128, two warps a group),
+    split key ranges across blocks (merged by a second kernel)."""
     wm: int
     split: int
 
@@ -145,6 +157,27 @@ def _launch_args(bh: int, n: int, d: int, plan: Optional[Plan],
     wm, split = kernel_plan(bh, n, d, torch.device("cuda", idx), plan=plan)
     return (wm, split, int(dtype == torch.float32),
             float(torch.tensor(scale, dtype=dtype)))
+
+
+def kernel_info(d: int, wm: int = 0) -> dict:
+    """Registers and local (spill) bytes a thread, dynamic shared memory a
+    block (bf16 q), blocks an SM, pipeline stages, keys a tile, threads a
+    block, and the depth of q·kᵀ and the width of p·v that the tensor
+    cores run (D padded: up to D 128 q·kᵀ 16·⌈D/16⌉ deep; above, both at
+    256, 384 or 512) of the kernel that runs head dim d at wm (0: the
+    largest blocks of the design; 8 at D ≤ 48: two consumer warpgroups),
+    from the kernel's library and the CUDA runtime (cudaFuncGetAttributes
+    and the occupancy query) on the current card."""
+    info = (ctypes.c_int * 9)()
+    fn = kernel_function("gbnerf_attention_info",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(d, wm, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"attention kernel info at D {d}, wm {wm}: CUDA "
+                           f"error {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "stages", "key_tile", "threads",
+                     "qk_depth", "pv_width"), list(info)))
 
 
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -206,16 +239,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if out.dtype == dtype else out.to(dtype)
 
 
-def attention_tiled_plain(q, k, v, scale: float, *, block_k: int,
+def attention_tiled_plain(q, k, v, scale: float, *,
+                          block_k: Optional[int] = None,
                           split: int = 1) -> torch.Tensor:
     """K7's algorithm in plain PyTorch: the kernel's operands (as
-    ``attention_plain``), the keys in tiles of block_k, an online softmax
+    ``attention_plain``), the keys in tiles of block_k (the kernel's,
+    ``key_tile(D)``, by default), an online softmax
     in base 2 (p = 2^(s·log2e − m·log2e), the unnormalised p rounded to
     bf16, the accumulators rescaled by 2^((m_old − m_new)·log2e)), the keys
     split into ranges of ⌈T / split⌉ whole tiles (T tiles; fewer ranges
     than ``split`` where the tiles run out), each range's unnormalised O,
     row max and row sum merged by log-sum-exp. [BH, N, D] → q's dtype."""
     bf = torch.bfloat16
+    block_k = block_k or key_tile(q.shape[-1])
     qs = _scaled(q, scale).to(bf).float()
     kf, vf = k.to(bf).float(), v.to(bf).float()
     tiles = -(-kf.shape[1] // block_k)

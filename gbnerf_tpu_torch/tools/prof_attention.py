@@ -1,9 +1,13 @@
 """Times of K7 (csrc/attention.cu) under each launch plan, on one card.
 
 For each self-attention shape of the stage-2 path (the UNet at 64² and 32²
-latents, two CFG copies × 8 heads; the VAE's mid block, one 512-wide head)
-and each plan (wm: 16-row groups a block, one warp each, two at D 512;
-split: key ranges across blocks), one JSON line with the kernel's time
+latents, two CFG copies × 8 heads; the VAE's mid block, one 512-wide head),
+of colla (the UNet at batch 8) and of the tiny prior (D 16 and 32), and
+each plan (wm: 16-row groups a block, up to D 128 four × the consumer
+warpgroups of 64 rows of the TMA/wgmma design, two warps a group at D
+512; split: key ranges across blocks), one JSON line with the
+kernel's attributes (registers, spills, shared memory, stages, keys a
+tile) and time
 (``ms``: CUDA-event mean over ``--reps`` back-to-back calls after one
 warm-up call; ``graph_ms``: the same calls replayed from one CUDA graph,
 the host out of the loop), its largest error against ``attention_plain``
@@ -27,12 +31,19 @@ import time
 
 import torch
 
-# (wm, split) plans: one warp a 16-row group at D ≤ 128, two at D 512
-SMALL_PLANS = ((4, 1), (8, 1), (4, 2), (8, 2), (2, 1))
+# (wm, split) plans: at D ≤ 128 the plan's own (wm 0), two, three and four
+# consumer warpgroups of 64 rows where the head dim takes them (wm 8, 12,
+# 16; the others are skipped), one to four key ranges; two warps a 16-row
+# group at D 512
+SMALL_PLANS = ((0, 1), (8, 1), (12, 1), (16, 1), (0, 2), (0, 4))
 WIDE_PLANS = ((4, 1), (4, 2), (2, 1), (2, 2), (4, 4))
 # (label, BH, N, D, the plans tried)
 SHAPES = (("unet 64x64", 16, 4096, 40, SMALL_PLANS),
           ("unet 32x32", 16, 1024, 80, SMALL_PLANS),
+          ("colla unet 64x64", 64, 4096, 40, SMALL_PLANS),
+          ("colla unet 32x32", 64, 1024, 80, SMALL_PLANS),
+          ("prior unet", 32, 1024, 16, SMALL_PLANS),
+          ("prior vae", 16, 1024, 32, SMALL_PLANS),
           ("vae mid", 1, 4096, 512, WIDE_PLANS))
 ATOL_FRAC = RTOL = 1e-2          # chip_smoke.py's ATTN tolerance
 HOST_SHAPE = (1, 256, 40)
@@ -83,16 +94,24 @@ def main(argv=None) -> list:
 
         sdpa_ms = time_ms(sdpa, dev, args.reps)
         sdpa_graph_ms = graph_ms(sdpa, dev, args.reps)
+        seen = set()
         for plan in map(at.Plan._make, plans):
+            try:
+                ran = at.kernel_plan(bh, n, d, dev, plan=plan)
+            except ValueError:          # a block shape this D does not take
+                continue
+            if ran in seen:             # wm 0 is one of the others
+                continue
+            seen.add(ran)
             got = at.flash_fwd(q, k, v, scale, plan=plan).float()
             diff = (got - ref).abs()
 
             def kernel():
                 return at.flash_fwd(q, k, v, scale, plan=plan)
 
-            ran = at.kernel_plan(bh, n, d, dev, plan=plan)
             line = {"shape": label, "bh": bh, "n": n, "d": d,
                     "wm": ran.wm, "split": ran.split,
+                    "kernel": at.kernel_info(d, ran.wm if d <= 128 else 0),
                     "ms": time_ms(kernel, dev, args.reps),
                     "graph_ms": graph_ms(kernel, dev, args.reps),
                     "max_abs_err": float(diff.max()), "atol": atol,

@@ -134,9 +134,20 @@ def test_kernel_wrapper_refuses(rng):
 
 # (BH, N, D, keys a tile, key ranges asked, q dtype): ragged N, splits
 # whose ranges differ in length, more ranges asked than there are tiles,
-# the three tile sizes of the kernel, and an f16 q (the wrapper scales it
-# in f16 and passes it as f32)
+# other tile sizes, and an f16 q (the wrapper scales it in f16 and passes
+# it as f32); a tile of None is the kernel's own (key_tile: 64 keys up to
+# D 16 and 128 up to D 128, the wgmma design's; 32 above): D 40 and 80
+# past a tile, key splits, an f32 q, an odd D/8 (q·kᵀ padded to
+# 16·⌈D/16⌉) and D 128
 TILED = {
+    "d40_kernel_tile_ragged": (2, 300, 40, None, 1, torch.bfloat16),
+    "d80_kernel_tile_ragged_split2": (2, 300, 80, None, 2, torch.bfloat16),
+    "d40_kernel_tile_split3_f32q": (1, 700, 40, None, 3, torch.float32),
+    "d32_kernel_tile_f16q": (2, 257, 32, None, 1, torch.float16),
+    "d72_kernel_tile_ragged": (2, 200, 72, None, 1, torch.bfloat16),
+    "d128_kernel_tile_split2_f32q": (1, 300, 128, None, 2, torch.float32),
+    "d16_kernel_tile_split_past_tiles": (3, 129, 16, None, 4,
+                                         torch.bfloat16),
     "d40_ragged": (2, 300, 40, 64, 1, torch.bfloat16),
     "d40_split2": (2, 300, 40, 64, 2, torch.bfloat16),
     "d40_split_past_tiles": (1, 100, 40, 64, 5, torch.bfloat16),
@@ -169,6 +180,36 @@ def test_tiled_plain_matches_plain_and_jax_oracle(rng, case):
            atol_frac=1e-2)
 
 
+@pytest.mark.parametrize("d, tile", [
+    (8, 64), (16, 64), (24, 128), (40, 128), (80, 128), (72, 128),
+    (128, 128), (136, 32), (264, 32), (512, 32)])
+def test_key_tile_is_the_tiled_plain_default(d, tile):
+    """The kernel's keys a tile (64 up to D 16, 128 up to D 128, the wgmma
+    design's; 32 above: chip_smoke.py holds key_tile to the kernel's
+    library on the card) is the tiled plain version's default tile."""
+    assert tat.key_tile(d) == tile
+    q = torch.zeros((1, 2 * tile + 3, d))
+    assert torch.equal(tat.attention_tiled_plain(q, q, q, 1.0),
+                       tat.attention_tiled_plain(q, q, q, 1.0, block_k=tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 40, 48, 80, 128, 136, 512])
+def test_kernel_info_matches_the_wrapper(d):
+    """The kernel's library reports the key tile that key_tile gives and
+    the padded depth and width of its products."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the info comes from the CUDA "
+                    "library)")
+    info = tat.kernel_info(d)
+    assert info["key_tile"] == tat.key_tile(d)
+    pad = (-(-d // 16) * 16 if d <= 128 else 256 if d <= 256
+           else 384 if d <= 384 else 512)
+    assert (info["qk_depth"], info["pv_width"]) == (
+        (pad, d) if d <= 128 else (pad, pad))
+    assert info["blocks_per_sm"] >= 1 and info["spill_bytes"] == 0
+
+
 def test_tiled_plain_without_split_is_the_online_softmax(rng):
     """One key range and one tile is the plain softmax with p rounded
     unnormalised: equal to the plain version to one bf16 step."""
@@ -187,16 +228,20 @@ MAIN_SHAPES = ((16, 4096, 40), (16, 1024, 80), (1, 4096, 512))
     (3, 4000, 40), (1, 4000, 512), (2, 77, 512)])
 def test_kernel_plan_is_valid(shape):
     """kernel_plan's (wm, split), from the kernel's library and the card's
-    SM count: blocks of at most 8 warps, a split cut to the key tiles
-    there are, and at the stage-2 path's shapes a grid of at least 90 % of
-    the card's SMs."""
+    SM count: blocks of at most 16 16-row groups up to D 128 (256 rows,
+    the wgmma design's tile up to D 16) and at most 4 above (two warps a
+    group, 256 threads), a split cut to the key tiles there are, and
+    at the stage-2 path's shapes a grid of at least 90 % of the card's
+    SMs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the plan comes from the CUDA "
                     "library)")
     dev = torch.device("cuda:0")
     bh, n, d = shape
     wm, split = tat.kernel_plan(bh, n, d, dev)
-    assert 1 <= wm * (1 if d <= 128 else 2) <= 8 and split >= 1
+    assert 1 <= wm <= (16 if d <= 128 else 4) and split >= 1
+    if d <= 128:        # two consumer warpgroups, or the most D allows
+        assert wm in (8, 16 if d <= 16 else 12 if d <= 48 else 8)
     assert tat.kernel_plan(bh, n, d, dev, plan=tat.Plan(wm, 0)) == (wm, split)
     assert tat.kernel_plan(bh, n, d, dev, plan=tat.Plan(wm, n)).split \
         <= -(-n // 32)
@@ -223,7 +268,7 @@ def test_kernel_matches_plain_on_the_card(rng, case):
     q = (q * 3).to(dtype)
     k, v = k.to(dtype), v.to(dtype)
     before = dict(tat.LAUNCHES)
-    plan = tat.Plan(4, split)
+    plan = tat.Plan(0, split)
     got = tat.flash_fwd(q, k, v, d ** -0.5, plan=plan)
     run = tat.kernel_plan(bh, n, d, dev, plan=plan).split
     assert tat.LAUNCHES["attention"] == before["attention"] + 1
