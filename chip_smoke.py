@@ -293,9 +293,10 @@ ATTN_INFO_D = tuple(range(8, 129, 8)) + (256, 384, 512)
 # The previous designs' times at the main-path shapes (this script, NVIDIA
 # H100 80GB HBM3, 700.00 W), printed beside this run's: K7 by CUDA-graph
 # replay (device time), the mma.sync design of D ≤ 128 that the TMA/wgmma
-# one replaced (D 512 is the same code), from PERF.md's K7 row;
-# K1/K2/K4/K5 before their heads moved onto the tensor cores (by CUDA
-# events).
+# one replaced (D 512 is the same code), from PERF.md's K7 row; K4/K5 by
+# graph too, the design whose block partials went through the scratch
+# buffer every tile (PERF.md's K4/K5 rows, uniform points); K1/K2 before
+# their heads moved onto the tensor cores (by CUDA events).
 PREV_MS = {("attention", "unet 64x64"): 0.1971,
            ("attention", "unet 32x32"): 0.0270,
            ("attention", "vae mid"): 0.217,
@@ -308,8 +309,8 @@ PREV_MS = {("attention", "unet 64x64"): 0.1971,
            ("attention", "colla unet 32x32"): 0.1063,
            ("field_fused", "fine"): 2.404,
            ("field_fused_sigma", "coarse"): 0.590,
-           ("field_fused_bwd", "fine"): 3.678,
-           ("field_fused_bwd_sigma", "coarse"): 0.394}
+           ("field_fused_bwd", "fine"): 0.561,
+           ("field_fused_bwd_sigma", "coarse"): 0.223}
 # stage 2 through train(): the steps after the stage-1 checkpoint; then
 # the same with collaborative guidance (four 27 × 36 neighbour views a
 # step) and with Perp-Neg, each for a group of warm-up steps and four
@@ -637,8 +638,10 @@ def compare_field(got, ref, rtol=FIELD_RTOL, atol_frac=FIELD_ATOL_FRAC) -> dict:
             "n_out_of_tol": int(bad.sum()), "atol": atol}
 
 
-def field_operands(dev, field, n, np_rng, *, tie_free=False):
-    """x01 [n, 3], sh [n, 16], the field's unified lines and head weights."""
+def field_operands(dev, field, n, np_rng, *, tie_free=False, samples=0):
+    """x01 [n, 3], sh [n, 16], the field's unified lines and head weights;
+    samples > 0: the points along rays of that many samples, as
+    tools/prof_field_kernels.py lays them out (else independent points)."""
     from gbnerf_tpu_torch.core.encoding import sh_encode
     from gbnerf_tpu_torch.ops import field_fused as ff
     from gbnerf_tpu_torch.ops.cp_pallas import upsample_lines
@@ -646,7 +649,12 @@ def field_operands(dev, field, n, np_rng, *, tie_free=False):
     r_max = max(field.resolutions)
     ul = upsample_lines([l.detach() for l in field.lines()], r_max)
     Ws = {k: getattr(field, k).detach() for k in ff.W_KEYS}
-    x = np_rng.random((n, 3), dtype=np.float32)
+    if samples:
+        from gbnerf_tpu_torch.tools.prof_field_kernels import points
+
+        x = points("rays", n, samples, np_rng)
+    else:
+        x = np_rng.random((n, 3), dtype=np.float32)
     if tie_free:
         # off the grid nodes and the clip boundary, where the kernel's and
         # autograd's subgradient conventions differ (tests/test_field_bwd.py)
@@ -661,8 +669,10 @@ def field_operands(dev, field, n, np_rng, *, tie_free=False):
 
 def check_field_bwd(dev, fine, coarse, np_rng):
     """K4 at the stage-1 fine and coarse pass shapes (131,072 and 65,536
-    points, F 80, R_max 257), K5 at 65,536; each also at a ragged size and
-    once with clipped points. All cotangents against the plain backward."""
+    points, F 80, R_max 257), K5 at 65,536; each also at a ragged size,
+    once with clipped points and, timed too, once with the points along
+    rays of 128 (fine) or 64 (coarse) samples, as a training step lays
+    them out. All cotangents against the plain backward."""
     from gbnerf_tpu_torch.ops import field_fused as ff
 
     results = {}
@@ -670,10 +680,12 @@ def check_field_bwd(dev, fine, coarse, np_rng):
              ("field_fused_bwd", "coarse", coarse, N_RAND * 64, False),
              ("field_fused_bwd_sigma", "coarse", coarse, N_RAND * 64, True)]
     for name, label, field, n, sigma_only in cases:
-        for variant in ("", "ragged", "clipped"):
+        for variant in ("", "ragged", "clipped", "rays"):
             m = n - 29 if variant == "ragged" else n
-            x, sh, ul, Ws = field_operands(dev, field, m, np_rng,
-                                           tie_free=True)
+            x, sh, ul, Ws = field_operands(
+                dev, field, m, np_rng, tie_free=True,
+                samples=(128 if label == "fine" else 64)
+                if variant == "rays" else 0)
             if variant == "clipped":
                 x[:64, 0] = -0.5
                 x[64:128, 1] = 1.5
@@ -702,15 +714,16 @@ def check_field_bwd(dev, fine, coarse, np_rng):
             if variant == "clipped":
                 r["clipped_dx_zero"] = bool(
                     (got[0][:64, 0] == 0).all() and (got[0][64:128, 1] == 0).all())
-            if not variant:
+            if variant in ("", "rays"):
                 r["ms"] = cuda_ms(lambda: ff.field_fused_bwd(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
                 r["graph_ms"] = graph_ms(lambda: ff.field_fused_bwd(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=5)
+                r.update(kernel_bound(name, r))
+            if not variant:
                 r["plain_ms"] = cuda_ms(lambda: ff.field_bwd_plain(
                     x, sh, ul, Ws, g, sigma_only=sigma_only), reps=3)
-                r.update(kernel_bound(name, r))
-                r["prev_ms"] = PREV_MS.get((name, label))
+                r["prev_graph_ms"] = PREV_MS.get((name, label))
             print(f"check {name} [{label}{' ' + variant if variant else ''}] "
                   f"{json.dumps(r)}")
             bad = {k: v["n_out_of_tol"] for k, v in r.items()

@@ -21,52 +21,75 @@
 // dh1 = [g_σ, 0…]; no colour head, no dsh, no dwc*.
 //
 // What bounds it on the H100, at the stage-1 fine pass (131,072 points,
-// F 80, R_max 257): the products, 3 × 12,416 multiply-adds a point (the
-// recomputed forward and the two products of each layer's backward),
-// 0.0099 ms on the bf16 tensor cores; the dense dlines contraction the
-// TPU does adds 3 × 272 × 80 × 2 FLOP a point (17 GFLOP). The previous
-// design did all of it as scalar f32 FMAs at 4 warps an SM and sorted each
-// tile's dlines contributions (3.664 ms).
+// F 80, R_max 257): by its operations, the products, 3 × 12,416
+// multiply-adds a point (the recomputed forward and the two products of
+// each layer's backward), 0.0099 ms on the bf16 tensor cores; the dense
+// dlines contraction the TPU does adds 3 × 272 × 80 × 2 FLOP a point.
+// What holds it is latency: one block of 8 warps an SM (the shared
+// memory), each warp's chains of dependent products, gathers and
+// sequential sums. tools/prof_field_bwd_parts.py times it with one part
+// taken out at a time. On the design before this one (each tile's block
+// partials read, added and written back in the scratch buffer) it gave,
+// by graph at uniform points / along rays (PERF.md §6): the partial sums'
+// traffic and the reduce 0.276 / 0.111 of 0.537 / 0.348 ms (dlines 0.195
+// / 0.029, dW 0.113 / 0.057, the reduce 0.030 / 0.026), the heads 0.156 /
+// 0.146, seq_fixup 0.090 / 0.092, the products 0.04–0.09. So this design
+// keeps the partial sums on the chip where it can and shortens the serial
+// parts; the products stay on mma.sync (wgmma would move a part that
+// holds 0.02–0.05 ms).
 //
-// Design: persistent blocks of 8 warps (one an SM: the shared memory), a
-// tile of 128 points a step, four phases a tile with a barrier after each:
+// Design: persistent blocks of 8 warps (one an SM), a tile of 128 points a
+// step, four phases a tile with a barrier after each:
 // 1. Heads (each warp its 16 points): the forward and the head backward
 //    as mma.sync chains in registers; each layer's bf16 operands (the
 //    activations and the cotangents) go to tile buffers [point][column] in
-//    shared memory, as the weight gradients need them. Where the order of
-//    a forward sum could decide a relu mask or a bf16 rounding (its value
-//    within 2^-17·Σ|a·w| of a boundary), the sum is taken again in
-//    sequential f32 order from those buffers (field_tile.cuh::seq_fixup):
-//    a flipped mask moves a point's cotangents by a whole term, and the
-//    masks must be the plain version's (≈ 0.09 ms at the fine pass).
+//    shared memory, as the weight gradients need them. The tap rows of the
+//    encode are loaded two k-chunks ahead of their products, g and SH at
+//    the tile's start. Where the order of a forward sum could decide a
+//    relu mask or a bf16 rounding (its value within 2^-17·Σ|a·w| of a
+//    boundary), the sum is taken again in sequential f32 order from those
+//    buffers (field_tile.cuh::seq_fixup): a flipped mask moves a point's
+//    cotangents by a whole term, and the masks must be the plain
+//    version's. A small share of a layer's entries is redone; the warp
+//    shares them out, 32 a pass, whichever lane owns them.
 // 2. dW on the tensor cores: dW = Actᵀ·Cot with the tile's 128 points as
 //    the k dimension, both operands by ldmatrix.trans from the buffers.
 //    Each (matrix, 16 inputs, 16 outputs) unit belongs to one warp for
-//    good; it adds its tile sum to the block's dW row of the scratch buffer
-//    (all its loads, then all its stores: one round trip to L2).
+//    good, which adds its tile sum to the block's partial sum: in shared
+//    memory across all the block's tiles (each lane's C fragments as two
+//    float4s), copied to the block's scratch row once at the end. A matrix
+//    that does not fit beside the rest (at F 160 ws0 and wc1) is summed in
+//    the scratch row every tile instead (all loads, then all stores).
 // 3. Encode backward (each warp its 16 points): dprod = dh0·ws0ᵀ one
 //    k-chunk of features at a time, dfa, du and dx; dfa goes to shared
-//    memory [axis][point][feature], over the buffers phase 2 has read. A
-//    lane's entries of a k-chunk are four neighbouring features (the
-//    chunk order of field_tile.cuh), so each tap row is one 8-byte load.
+//    memory [axis][point][feature], over the buffers phase 2 has read, and
+//    the taps after it. A lane's entries of a k-chunk are four
+//    neighbouring features (the chunk order of field_tile.cuh), so each tap
+//    row is one 8-byte load, issued before the k-chunk's dprod products.
 // 4. dlines as the TPU computes it: per axis, maskᵀ [R_max × 128] · dfa
 //    [128 × F] on the tensor cores. The A fragments of the mask are made
 //    in registers from the tile's taps (each entry w0, w1 or 0); a 16-row
 //    block of rows that no point of a 16-point k-step touches is skipped
 //    (the test reads the k-step's range of taps: the inputs alone decide
 //    it). Each (axis, 16 rows) unit belongs to one warp for good and adds
-//    its 16 × F sum to the block's dlines slice of the scratch buffer,
-//    float4 read-add-writes. Points along rays touch few rows a k-step;
-//    independent uniform points touch them all (0.31 of 0.74 ms).
-// Shared memory 187,328 bytes a block at F 80 (the weights 29 KB, the
-// tile buffers 152 KB, the taps); ≈ 210 registers, no spills (K5: 113,088
-// bytes, ≈ 160 registers); chip_smoke.py's "kernel info" lines print them.
+//    its 16 × F sum to the block's dlines slice of the scratch buffer
+//    (247 KB at F 80: no SM holds it beside the rest), float4
+//    read-add-writes whose loads go out before the products; a unit's
+//    first touch writes without reading, and a unit no tile of the block
+//    touches is never written: its flag tells the reduce to skip it.
+//    Points along rays touch few rows a k-step; uniform points touch all.
+// A second launch sums the blocks' rows in block order (16 rows' loads in
+// flight a thread, the touched flags staged in shared memory). Shared
+// memory 232,256 bytes a block at F 80 (the weights 29 KB, the tile
+// buffers 148 KB, dW 50 KB), ≈ 210 registers, no spills (K5: 137,728
+// bytes, ≈ 190 registers); chip_smoke.py's "kernel info" lines print them.
 //
 // Determinism: no atomics. Every sum runs in an order fixed by the inputs,
 // the SM count and the occupancy: within a tile in the mma's order, over a
-// block's tiles in tile order (one owner a scratch address), and over the
+// block's tiles in tile order (one owner a partial sum), and over the
 // blocks in block order (field_bwd_reduce, a second launch). So the same
-// inputs give bit-equal dx, dsh, dlines and dW on every call.
+// inputs give bit-equal dx, dsh, dlines and dW on every call, and the
+// design before this one's bits.
 
 #include "field_tile.cuh"
 
@@ -78,14 +101,19 @@ constexpr int kNoTap = -4;           // i0 of a point past n: no row matches
 
 // Element offsets (bf16) in shared memory of the tile buffers [kTile][stride]
 // after the weights; dfa [3][kTile][ps] reuses prod and what follows it
-// once phase 2 has read them. Byte offsets of the taps int4 [3][kTile]
-// {i0, w0, w1, 0} and the k-steps' tap ranges int2 [3][kWarps].
+// once phase 2 has read them, and the taps int4 [3][kTile] {i0, w0, w1, 0}
+// and the k-steps' tap ranges int2 [3][kWarps] follow dfa (byte offsets),
+// in buffers phase 2 has read too where they are long enough. Then the
+// dlines units' touched flags (a byte a unit, [3][mts]) and the block's dW
+// partial sums held in shared memory (f32, dw_smem_off).
 struct BwdLayout {
-  int dh0, dh1, g, prod, a0, hc, a2, a3, dh3, dh2, ps, dfa, taps_b, range_b;
-  size_t bytes;
+  int dh0, dh1, g, prod, a0, hc, a2, a3, dh3, dh2, ps, dfa, taps_b, range_b,
+      touch_b, dw_b;
+  size_t base;      // bytes without the dW partial sums
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int feat, bool sigma_only) {
+__host__ __device__ inline BwdLayout bwd_layout(int feat, int r_max,
+                                                bool sigma_only) {
   BwdLayout B{};
   B.ps = row_stride(feat_pad(feat));
   int o = weight_layout(feat, sigma_only).total;
@@ -111,10 +139,12 @@ __host__ __device__ inline BwdLayout bwd_layout(int feat, bool sigma_only) {
     o = B.dh2 + kTile * kS64;
   }
   B.dfa = B.prod;
-  if (o < B.dfa + 3 * kTile * B.ps) o = B.dfa + 3 * kTile * B.ps;
-  B.taps_b = o * 2;
+  B.taps_b = (B.dfa + 3 * kTile * B.ps) * 2;
   B.range_b = B.taps_b + 3 * kTile * 16;
-  B.bytes = (size_t)B.range_b + 3 * kWarps * 8;
+  B.touch_b = B.range_b + 3 * kWarps * 8;
+  if (B.touch_b < o * 2) B.touch_b = o * 2;
+  B.dw_b = B.touch_b + ((3 * ((r_max + 15) / 16) + 15) & ~15);
+  B.base = (size_t)B.dw_b;
   return B;
 }
 
@@ -125,6 +155,26 @@ __host__ __device__ inline int dw_size(int feat, bool sigma_only) {
   return sigma_only ? sigma
                     : sigma + kColorIn * kColorWidth + kColorWidth * kColorWidth
                           + kColorWidth * 3;
+}
+
+// floats of a block's scratch row: its dlines slice [3, R_max, F], its dW
+// partial and the dlines units' touched flags (an int a unit, [3][mts]),
+// padded to whole float4s
+__host__ __device__ inline int bwd_row(int r_max, int feat, bool sigma_only) {
+  return 3 * r_max * feat + dw_size(feat, sigma_only)
+         + ((3 * ((r_max + 15) / 16) + 3) & ~3);
+}
+
+// The weight gradients' floats (rows × cols) and their offset in the dW
+// row, in order: ws0, ws1 (σ-only stops here), wc0, wc1, wc2
+__host__ __device__ inline int dw_mat_size(int m, int feat) {
+  switch (m) {
+    case 0: return feat * kSigmaWidth;
+    case 1: return kSigmaWidth * kGeo;
+    case 2: return kColorIn * kColorWidth;
+    case 3: return kColorWidth * kColorWidth;
+    default: return kColorWidth * 3;
+  }
 }
 
 // One weight gradient: dW [in][out] += Σ_points act[p][in] · cot[p][out],
@@ -156,7 +206,7 @@ __device__ __forceinline__ DwMat dw_mat(int m, const BwdLayout& B, int feat) {
 }
 
 // Phase 2's units of weight gradient m: 16 inputs × 16 outputs each
-__device__ __forceinline__ int dw_units(int m, int feat) {
+__host__ __device__ inline int dw_units(int m, int feat) {
   switch (m) {
     case 0: return feat_pad(feat) / 16 * 4;
     case 3: return 16;
@@ -165,10 +215,61 @@ __device__ __forceinline__ int dw_units(int m, int feat) {
   }
 }
 
-// Phase 2, one unit: 16 inputs × (up to) 16 outputs of one dW over the tile
-__device__ __forceinline__ void dw_unit(const bf16* S, const DwMat& M,
-                                        int it, int np, float* dw) {
+// The floats a lane holds of one unit's sum: its C fragments, two n-tiles
+// (one for wc2, 8 outputs wide)
+__host__ __device__ inline int dw_slot(int m) { return m == 4 ? 4 : 8; }
+
+// Where the block keeps weight gradient m's partial sum: the float offset
+// in shared memory of its units, each unit's lanes' fragments one after
+// the other (lane l's at (unit · 32 + l) · dw_slot: float4 loads without
+// bank conflicts), each matrix whole while the budget (floats) holds it,
+// in order; -1: in the block's scratch row. used: the floats taken.
+__host__ __device__ inline int dw_smem_off(int m, int feat, bool sigma_only,
+                                           int budget, int* used = nullptr) {
+  int at = 0, off = -1;
+  for (int k = 0; k < (sigma_only ? 2 : 5); ++k) {
+    const int sz = dw_units(k, feat) * 32 * dw_slot(k);
+    const bool in = at + sz <= budget;
+    if (k == m) off = in ? at : -1;
+    if (in) at += sz;
+  }
+  if (used != nullptr) *used = at;
+  return off;
+}
+
+// The offsets in its matrix of the outputs of unit (it, np) this lane
+// holds (C fragment entries [j][2h + e]; -1: none)
+__device__ __forceinline__ void dw_at(int at[2][2][2], const DwMat& M, int it,
+                                      int np) {
   const int l = lane_id(), g = l >> 2, c = 2 * (l & 3);
+  const bool pair = M.out_t > 1;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int row = it * 16 + g + 8 * h;
+      if (M.wc0) row = row < 16 ? row : (row == 16 ? -1 : row - 1);
+      if (M.perm)     // position g + 8h of the chunk holds this feature
+        row = it * 16 + 4 * (g >> 1) + 2 * h + (g & 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = (2 * np + j) * 8 + c + e;
+        const bool ok = (j == 0 || pair) && row >= 0 && row < M.rows
+                        && col < M.cols;
+        at[j][h][e] = ok ? row * M.cols + col : -1;
+      }
+    }
+}
+
+// Phase 2, one unit: 16 inputs × (up to) 16 outputs of one dW over the
+// tile, added to the block's partial sum: this lane's fragment slot in
+// shared memory (at sdw + fr, float4s; fr ≥ 0), or its outputs in the
+// matrix's part of the block's dW row (dw; every load first, then the
+// stores: one round trip to L2)
+__device__ __forceinline__ void dw_unit(const bf16* S, const DwMat& M,
+                                        int it, int np, float* sdw, int fr,
+                                        float* dw) {
+  const int l = lane_id();
   const bool pair = M.out_t > 1;
   float acc[2][4];
   zero<2>(acc);
@@ -185,27 +286,28 @@ __device__ __forceinline__ void dw_unit(const bf16* S, const DwMat& M,
       mma_bf16(acc[0], a, b[0], b[1]);
     }
   }
-  // add to the block's dW row: every load first, then the stores (one
-  // round trip to L2, not one an entry)
+  if (fr >= 0) {
+    float4* f4 = reinterpret_cast<float4*>(sdw + fr);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !pair) break;
+      const float4 o = f4[j];
+      f4[j] = make_float4(o.x + acc[j][0], o.y + acc[j][1], o.z + acc[j][2],
+                          o.w + acc[j][3]);
+    }
+    return;
+  }
   int at[2][2][2];
+  dw_at(at, M, it, np);
+  dw += M.off;
   float old[2][2][2];
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int row = it * 16 + g + 8 * h;
-      if (M.wc0) row = row < 16 ? row : (row == 16 ? -1 : row - 1);
-      if (M.perm)     // position g + 8h of the chunk holds this feature
-        row = it * 16 + 4 * (g >> 1) + 2 * h + (g & 1);
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = (2 * np + j) * 8 + c + e;
-        const bool ok = (j == 0 || pair) && row >= 0 && row < M.rows
-                        && col < M.cols;
-        at[j][h][e] = ok ? M.off + row * M.cols + col : -1;
-        old[j][h][e] = ok ? dw[at[j][h][e]] : 0.f;
-      }
-    }
+      for (int e = 0; e < 2; ++e)
+        old[j][h][e] = at[j][h][e] >= 0 ? dw[at[j][h][e]] : 0.f;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -237,28 +339,45 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
                  const float* __restrict__ g, const bf16* __restrict__ lines,
                  const bf16* __restrict__ wpack, float* __restrict__ dx,
                  float* __restrict__ dsh, float* __restrict__ scratch, int n,
-                 int r_max, int feat) {
+                 int r_max, int feat, int dw_budget) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WLayout W = weight_layout(feat, kSigmaOnly);
-  const BwdLayout B = bwd_layout(feat, kSigmaOnly);
+  const BwdLayout B = bwd_layout(feat, r_max, kSigmaOnly);
   bf16* S = reinterpret_cast<bf16*>(smem);
   int4* taps = reinterpret_cast<int4*>(smem + B.taps_b);
   int2* ranges = reinterpret_cast<int2*>(smem + B.range_b);
+  unsigned char* touched = smem + B.touch_b;
+  float* sdw = reinterpret_cast<float*>(smem + B.dw_b);
   copy16(S, wpack, W.total);
-  // this block's row of the scratch buffer: its dlines slice [3, R_max, F]
-  // and its dW partial, both summed into, so zeroed here
+  const int kcs = feat_pad(feat) / 16, mts = (r_max + 15) / 16;
+  // this block's row of the scratch buffer (bwd_row): its dlines slice
+  // [3, R_max, F], written at a unit's first touch and summed into after
+  // (untouched units are never written), its dW partial (the matrices
+  // dw_smem_off places summed in shared memory and copied here at the end,
+  // the others summed into here) and the units' touched flags
   const int n_dl = 3 * r_max * feat;
-  const int row = n_dl + dw_size(feat, kSigmaOnly);
+  const int n_mats = kSigmaOnly ? 2 : 5;
+  const int row = bwd_row(r_max, feat, kSigmaOnly);
   float* slice = scratch + (size_t)blockIdx.x * row;
-  for (int i = threadIdx.x; i < row / 4; i += kBlock)
-    reinterpret_cast<float4*>(slice)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int dw_off[5];
+  for (int m = 0, o = 0; m < n_mats; o += dw_mat_size(m++, feat))
+    dw_off[m] = o;
+  int dw_used = 0;
+  dw_smem_off(0, feat, kSigmaOnly, dw_budget, &dw_used);
+  for (int i = threadIdx.x; i < dw_used / 4; i += kBlock)
+    reinterpret_cast<float4*>(sdw)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m = 0; m < n_mats; ++m) {
+    if (dw_smem_off(m, feat, kSigmaOnly, dw_budget) >= 0) continue;
+    float4* sum = reinterpret_cast<float4*>(slice + n_dl + dw_off[m]);
+    for (int i = threadIdx.x; i < dw_mat_size(m, feat) / 4; i += kBlock)
+      sum[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < 3 * mts; i += kBlock) touched[i] = 0;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, l = lane_id(), gq = l >> 2, tig = l & 3;
-  const int kcs = feat_pad(feat) / 16, mts = (r_max + 15) / 16;
   int n_units = 0;
-#pragma unroll
-  for (int m = 0; m < (kSigmaOnly ? 2 : 5); ++m) n_units += dw_units(m, feat);
+  for (int m = 0; m < n_mats; ++m) n_units += dw_units(m, feat);
 
   const int tiles = (n + kTile - 1) / kTile;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -269,10 +388,6 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
     {
       LaneTaps t;
       lane_taps(t, x, p0, n, r_max, feat);
-      float h1[2][4];
-      const uint32_t m0 = sigma_net<!kSigmaOnly, true>(
-          h1, t, lines, feat, feat, S, W, S + B.prod + r0 * B.ps, B.ps,
-          S + B.a0 + r0 * kS64);
       float4 gv[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -280,6 +395,12 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
         gv[h] = p < n ? reinterpret_cast<const float4*>(g)[p]
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
+      uint32_t shf[4];
+      if (!kSigmaOnly) sh_frag(shf, sh, p0, n);
+      float h1[2][4];
+      const uint32_t m0 = sigma_net<!kSigmaOnly, true>(
+          h1, t, lines, feat, feat, S, W, S + B.prod + r0 * B.ps, B.ps,
+          S + B.a0 + r0 * kS64);
       uint32_t d1[1][4];
       if (kSigmaOnly) {           // dh1 = [g_σ, 0…]
         d1[0][0] = tig == 0 ? pack_bf16(gv[0].w, 0.f) : 0u;
@@ -287,7 +408,9 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
         d1[0][2] = d1[0][3] = 0u;
       } else {
         uint32_t hc[2][4];
-        hc_frags(hc, h1, sh, p0, n);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hc[0][i] = shf[i];
+        h1_frag(hc[1], h1);
         st_a<2>(S + B.hc + r0 * kS32, kS32, hc);
         float rgb[4];
         uint32_t m2, m3;
@@ -362,7 +485,9 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
       while (v >= dw_units(m, feat)) v -= dw_units(m++, feat);
       const DwMat M = dw_mat(m, B, feat);
       const int pairs = (M.out_t + 1) / 2;
-      dw_unit(S, M, v / pairs, v % pairs, slice + n_dl);
+      const int so = dw_smem_off(m, feat, kSigmaOnly, dw_budget);
+      dw_unit(S, M, v / pairs, v % pairs, sdw,
+              so < 0 ? -1 : so + (v * 32 + l) * dw_slot(m), slice + n_dl);
     }
     __syncthreads();
 
@@ -393,6 +518,8 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
 #pragma unroll
         for (int a = 0; a < 3; ++a) dm0[h][a] = dm1[h][a] = 0.f;
       for (int kc = 0; kc < kcs; ++kc) {
+        LaneRows rows;     // out before the products, back after them
+        load_rows(rows, t, lines, feat, feat, kc);
         float c[2][4];
         zero<2>(c);
 #pragma unroll
@@ -410,7 +537,7 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
           uint32_t d[3][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}};
           if (f < feat) {
             float fa[3][4], l0[3][4], l1[3][4];
-            lerp3x4(fa, l0, l1, t, h, lines, feat, f);
+            lerp3x4(fa, l0, l1, rows, t, h);
             float dv[3][4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
@@ -500,11 +627,28 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
         if (rg.x <= rlo + 15 && rg.y >= rlo) ks_mask |= 1u << ks;
       }
       if (ks_mask == 0) continue;
+      const bool first = touched[u] == 0;   // this warp's alone: no race
       const int4* tp = taps + a * kTile;
       const bf16* dfa = S + B.dfa + a * kTile * B.ps;
       float* dl = slice + (size_t)a * r_max * feat;
       const int ra = rlo + gq, rb = ra + 8;
       for (int nb = 0; nb < 2 * kcs; nb += kNG) {
+        // the block's sums so far, loaded before the products so that
+        // their round trip to L2 overlaps them (none at the first touch)
+        // n-tiles (nb + j, nb + j + 1) are k-chunk (nb + j) / 2: lane tig's
+        // entries there are features 4tig … 4tig + 3, one float4 a row
+        float4 old[kNG / 2][2];
+#pragma unroll
+        for (int j = 0; j < kNG; j += 2) {
+          const int f = (nb + j) / 2 * 16 + 4 * tig;
+          const bool ok = !first && nb + j < 2 * kcs && f < feat;
+          old[j / 2][0] = ok && ra < r_max
+                              ? *reinterpret_cast<const float4*>(dl + ra * feat + f)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          old[j / 2][1] = ok && rb < r_max
+                              ? *reinterpret_cast<const float4*>(dl + rb * feat + f)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
         float c[kNG][4];
         zero<kNG>(c);
         for (int ks = 0; ks < kWarps; ++ks) {
@@ -520,20 +664,6 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
               mma_bf16(c[j + 1], am, b[2], b[3]);
             }
           }
-        }
-        // n-tiles (nb + j, nb + j + 1) are k-chunk (nb + j) / 2: lane tig's
-        // entries there are features 4tig … 4tig + 3, one float4 a row
-        float4 old[kNG / 2][2];
-#pragma unroll
-        for (int j = 0; j < kNG; j += 2) {
-          const int f = (nb + j) / 2 * 16 + 4 * tig;
-          const bool ok = nb + j < 2 * kcs && f < feat;
-          old[j / 2][0] = ok && ra < r_max
-                              ? *reinterpret_cast<const float4*>(dl + ra * feat + f)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-          old[j / 2][1] = ok && rb < r_max
-                              ? *reinterpret_cast<const float4*>(dl + rb * feat + f)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
         for (int j = 0; j < kNG; j += 2) {
@@ -551,26 +681,91 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
           }
         }
       }
+      if (l == 0) touched[u] = 1;
     }
     __syncthreads();
   }
+
+  // ---- the block's dW partial sums held in shared memory (each warp its
+  // own units' fragments), and the units' touched flags, into its scratch
+  // row
+  for (int u = warp; u < n_units; u += kWarps) {
+    int m = 0, v = u;
+    while (v >= dw_units(m, feat)) v -= dw_units(m++, feat);
+    const int so = dw_smem_off(m, feat, kSigmaOnly, dw_budget);
+    if (so < 0) continue;
+    const DwMat M = dw_mat(m, B, feat);
+    const int pairs = (M.out_t + 1) / 2;
+    const float* fr = sdw + so + (v * 32 + l) * dw_slot(m);
+    int at[2][2][2];
+    dw_at(at, M, v / pairs, v % pairs);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (at[j][h][e] >= 0)
+            slice[n_dl + M.off + at[j][h][e]] = fr[4 * j + 2 * h + e];
+  }
+  int* flags =
+      reinterpret_cast<int*>(slice + n_dl + dw_size(feat, kSigmaOnly));
+  for (int i = threadIdx.x; i < 3 * mts; i += kBlock) flags[i] = touched[i];
 }
 
-// dst[i] = Σ_b src[b][i] over the blocks' scratch rows, in block order.
-__global__ void __launch_bounds__(256)
-field_bwd_reduce(const float4* __restrict__ src, float4* __restrict__ dst,
-                 int blocks, int row4) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= row4) return;
-  float4 s = src[i];
-  for (int b = 1; b < blocks; ++b) {
-    const float4 v = src[(size_t)b * row4 + i];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
+constexpr int kReduceThreads = 128;
+
+// the units (a byte a block each) a reduce block's flags take: its floats
+// span at most this many dlines units
+__host__ __device__ inline int reduce_units(int feat) {
+  return 4 * kReduceThreads / feat + 2;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+field_bwd_reduce(const float* __restrict__ src, float* __restrict__ dst,
+                 int blocks, int row, int out_len, int r_max, int feat) {
+  extern __shared__ unsigned char fl[];   // [units of this block][blocks]
+  constexpr int kAhead = 16;
+  const int n_dl = 3 * r_max * feat, mts = (r_max + 15) / 16;
+  const int i_first = 4 * blockIdx.x * blockDim.x;
+  const int i_last = min(i_first + 4 * (int)blockDim.x, min(out_len, n_dl)) - 1;
+  int u0 = 0, nu = 0;
+  if (i_first < n_dl) {
+    const int a0 = i_first / feat, a1 = i_last / feat;
+    u0 = a0 / r_max * mts + a0 % r_max / 16;
+    nu = a1 / r_max * mts + a1 % r_max / 16 - u0 + 1;
   }
-  dst[i] = s;
+  for (int k = threadIdx.x; k < nu * blocks; k += blockDim.x) {
+    const int u = k / blocks, b = k % blocks;
+    fl[k] = reinterpret_cast<const int*>(src + (size_t)b * row + out_len)[u0 + u]
+            != 0;
+  }
+  __syncthreads();
+  const int i = i_first + 4 * threadIdx.x;
+  if (i >= out_len) return;
+  const unsigned char* f = nullptr;
+  if (i < n_dl) {
+    const int ar = i / feat;
+    f = fl + (ar / r_max * mts + ar % r_max / 16 - u0) * blocks;
+  }
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b0 = 0; b0 < blocks; b0 += kAhead) {
+    float4 v[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const bool use = b0 + k < blocks && (f == nullptr || f[b0 + k]);
+      v[k] = use ? *reinterpret_cast<const float4*>(src + (size_t)(b0 + k) * row + i)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      s.x += v[k].x;
+      s.y += v[k].y;
+      s.z += v[k].z;
+      s.w += v[k].w;
+    }
+  }
+  *reinterpret_cast<float4*>(dst + i) = s;
 }
 
 template <bool kSigmaOnly>
@@ -578,11 +773,30 @@ const void* bwd_fn() {
   return (const void*)field_bwd_kernel<kSigmaOnly>;
 }
 
+// The dW budget a block has in shared memory (the floats the card's
+// shared memory a block takes holds beside the rest of the layout), the
+// floats dw_smem_off places there and the dynamic shared memory.
+struct BwdSmem {
+  int dw_budget, dw_used;
+  size_t bytes;
+};
+
+BwdSmem bwd_smem(int r_max, int feat, bool sigma_only) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t base = bwd_layout(feat, r_max, sigma_only).base;
+  const int budget = optin > (int)base ? (optin - (int)base) / 4 : 0;
+  int used = 0;
+  dw_smem_off(0, feat, sigma_only, budget, &used);
+  return {budget, used, base + (size_t)used * sizeof(float)};
+}
+
 // The persistent grid for n points: every SM full, no more blocks than
 // tiles, at least one. Depends on n, the SM count and the occupancy only.
-int bwd_grid(int n, int feat, bool sigma_only) {
+int bwd_grid(int n, int r_max, int feat, bool sigma_only) {
   const void* fn = sigma_only ? bwd_fn<true>() : bwd_fn<false>();
-  const size_t smem = bwd_layout(feat, sigma_only).bytes;
+  const size_t smem = bwd_smem(r_max, feat, sigma_only).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
@@ -601,23 +815,26 @@ int launch_bwd(const float* x, const float* sh, const float* g,
                const bf16* lines, const bf16* wpack, float* dx, float* dsh,
                float* scratch, float* out, int n, int r_max, int feat,
                int grid, cudaStream_t stream) {
-  const int row = 3 * r_max * feat + dw_size(feat, kSigmaOnly);
+  const int out_len = 3 * r_max * feat + dw_size(feat, kSigmaOnly);
   if (n == 0)
-    return (int)cudaMemsetAsync(out, 0, (size_t)row * sizeof(float), stream);
+    return (int)cudaMemsetAsync(out, 0, (size_t)out_len * sizeof(float),
+                                stream);
   if (grid < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_layout(feat, kSigmaOnly).bytes;
+  const BwdSmem sm = bwd_smem(r_max, feat, kSigmaOnly);
   cudaError_t err = cudaFuncSetAttribute(
       field_bwd_kernel<kSigmaOnly>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm.bytes);
   if (err != cudaSuccess) return (int)err;
-  field_bwd_kernel<kSigmaOnly><<<grid, kBlock, smem, stream>>>(
-      x, sh, g, lines, wpack, dx, dsh, scratch, n, r_max, feat);
+  field_bwd_kernel<kSigmaOnly><<<grid, kBlock, sm.bytes, stream>>>(
+      x, sh, g, lines, wpack, dx, dsh, scratch, n, r_max, feat, sm.dw_budget);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int row4 = row / 4;
-  field_bwd_reduce<<<(row4 + 255) / 256, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(scratch), reinterpret_cast<float4*>(out),
-      grid, row4);
+  const int out4 = out_len / 4;
+  field_bwd_reduce<<<(out4 + kReduceThreads - 1) / kReduceThreads,
+                     kReduceThreads,
+                     (size_t)reduce_units(feat) * grid, stream>>>(
+      scratch, out, grid, bwd_row(r_max, feat, kSigmaOnly), out_len, r_max,
+      feat);
   return (int)cudaGetLastError();
 }
 
@@ -625,8 +842,15 @@ int launch_bwd(const float* x, const float* sh, const float* g,
 
 // The number of persistent blocks K4 (K5 when sigma_only) runs for n points,
 // the first dimension of its scratch buffer; negative: -cudaError_t.
-extern "C" int gbnerf_field_fused_bwd_grid(int n, int feat, int sigma_only) {
-  return bwd_grid(n, feat, sigma_only != 0);
+extern "C" int gbnerf_field_fused_bwd_grid(int n, int r_max, int feat,
+                                           int sigma_only) {
+  return bwd_grid(n, r_max, feat, sigma_only != 0);
+}
+
+// Floats a block's row of the scratch buffer takes: its second dimension.
+extern "C" int gbnerf_field_fused_bwd_row(int r_max, int feat,
+                                          int sigma_only) {
+  return bwd_row(r_max, feat, sigma_only != 0);
 }
 
 // x [n,3] f32, sh [n,16] f32 (unused when sigma_only), g [n,4] f32 (16-byte
@@ -634,10 +858,11 @@ extern "C" int gbnerf_field_fused_bwd_grid(int n, int feat, int sigma_only) {
 // (ops/field_fused.py::pack_weights). Outputs: dx [n,3] and dsh [n,16] (each
 // may be null: not stored), and out = dlines [3,r_max,feat] f32 followed by
 // dw (the five weight gradients, Dense [in,out], one after the other) f32,
-// written whole. scratch: [grid, 3·r_max·feat + |dw|] f32, uninitialised;
-// grid: gbnerf_field_fused_bwd_grid(n, feat, sigma_only) (any grid ≥ 1
-// gives a right result; the sums' order follows the grid). feat % 4 == 0.
-// Returns the cudaError_t of the launches (0 = success).
+// written whole. scratch: [grid, gbnerf_field_fused_bwd_row(r_max, feat,
+// sigma_only)] f32, uninitialised; grid: gbnerf_field_fused_bwd_grid(n,
+// r_max, feat, sigma_only) (any grid ≥ 1 gives a right result; the sums'
+// order follows the grid). feat % 4 == 0. Returns the cudaError_t of the
+// launches (0 = success).
 extern "C" int gbnerf_field_fused_bwd(const void* x, const void* sh,
                                       const void* g, const void* lines,
                                       const void* wpack, void* dx, void* dsh,
@@ -661,24 +886,30 @@ extern "C" int gbnerf_field_fused_bwd(const void* x, const void* sh,
                                  r_max, feat, grid, st);
 }
 
-// Registers, local (spill) bytes a thread, dynamic shared memory and blocks
-// an SM of K4 (K5 when sigma_only) at this feature width → info[4].
-extern "C" int gbnerf_field_fused_bwd_info(int feat, int sigma_only,
-                                           int* info) {
+// K4's (K5's when sigma_only) build and launch at this shape → info[8]:
+// registers and local (spill) bytes a thread, dynamic shared memory a
+// block, blocks an SM, warps a block, blocks a cluster (1: none), dW floats
+// held in shared memory, points a tile.
+extern "C" int gbnerf_field_fused_bwd_info(int r_max, int feat,
+                                           int sigma_only, int* info) {
   const void* fn = sigma_only ? bwd_fn<true>() : bwd_fn<false>();
-  const size_t smem = bwd_layout(feat, sigma_only != 0).bytes;
+  const BwdSmem sm = bwd_smem(r_max, feat, sigma_only != 0);
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)sm.bytes);
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kBlock,
-                                                        smem);
+                                                        sm.bytes);
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
-  info[2] = (int)smem;
+  info[2] = (int)sm.bytes;
   info[3] = per_sm;
+  info[4] = kWarps;
+  info[5] = 1;
+  info[6] = sm.dw_used;
+  info[7] = kTile;
   return (int)err;
 }

@@ -106,17 +106,38 @@ __host__ __device__ inline int feat_pos(int f) {
   return (f & ~15) + 2 * (r >> 2) + (r & 1) + 8 * ((r >> 1) & 1);
 }
 
-// The three axes' 2-tap lerps fa_a at features f … f + 3 of point half h
-// (f a multiple of 4), and the tap rows' values l0, l1
+// The tap rows of this lane's two points at k-chunk kc: each axis's two
+// rows at the lane's features 16kc + 4tig … + 3 (0 past F; F is a
+// multiple of 4), raw bf16, so that they can be loaded ahead of their use
+struct LaneRows {
+  uint2 r[2][3][2];
+};
+
+__device__ __forceinline__ void load_rows(LaneRows& R, const LaneTaps& t,
+                                          const bf16* lines, int ls, int feat,
+                                          int kc) {
+  const int f = kc * 16 + 4 * (lane_id() & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const bf16* r = lines + t.off[h][a] + f;
+      R.r[h][a][0] = f < feat ? *reinterpret_cast<const uint2*>(r)
+                              : make_uint2(0u, 0u);
+      R.r[h][a][1] = f < feat ? *reinterpret_cast<const uint2*>(r + ls)
+                              : make_uint2(0u, 0u);
+    }
+}
+
+// The three axes' 2-tap lerps fa_a of point half h at the four features
+// of R, and the tap rows' values l0, l1
 __device__ __forceinline__ void lerp3x4(float fa[3][4], float l0[3][4],
-                                        float l1[3][4], const LaneTaps& t,
-                                        int h, const bf16* lines, int ls,
-                                        int f) {
+                                        float l1[3][4], const LaneRows& R,
+                                        const LaneTaps& t, int h) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const bf16* r = lines + t.off[h][a] + f;
-    unpack4(*reinterpret_cast<const uint2*>(r), l0[a]);
-    unpack4(*reinterpret_cast<const uint2*>(r + ls), l1[a]);
+    unpack4(R.r[h][a][0], l0[a]);
+    unpack4(R.r[h][a][1], l1[a]);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       fa[a][q] = fmaf(t.w1[h][a], l1[a][q], t.w0[h][a] * l0[a][q]);
@@ -124,8 +145,31 @@ __device__ __forceinline__ void lerp3x4(float fa[3][4], float l0[3][4],
 }
 
 // The A fragment of bf16(enc) [16 points × 16 features] at k-chunk kc:
-// enc = fa_0 · fa_1 · fa_2 of lane tig's features 16kc + 4tig … + 3
-// (0 past F; F is a multiple of 4)
+// enc = fa_0 · fa_1 · fa_2 of lane tig's features 16kc + 4tig … + 3 from
+// its tap rows R (0 past F)
+__device__ __forceinline__ void enc_from_rows(uint32_t a[4], const LaneRows& R,
+                                              const LaneTaps& t, int feat,
+                                              int kc) {
+  const int f = kc * 16 + 4 * (lane_id() & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (f >= feat) {
+      a[h] = a[2 + h] = 0u;
+      continue;
+    }
+    float fa[3][4], l0[3][4], l1[3][4];
+    lerp3x4(fa, l0, l1, R, t, h);
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e[q] = (fa[0][q] * fa[1][q]) * fa[2][q];
+    a[h] = pack_bf16(e[0], e[1]);
+    a[2 + h] = pack_bf16(e[2], e[3]);
+  }
+}
+
+// enc_from_rows with each point half's rows loaded just before its lerps
+// (K1's order, whose lines are in shared memory: loading both halves'
+// rows first, as enc_from_rows's callers do, is slower there)
 __device__ __forceinline__ void enc_frag(uint32_t a[4], const LaneTaps& t,
                                          const bf16* lines, int ls, int feat,
                                          int kc) {
@@ -137,7 +181,15 @@ __device__ __forceinline__ void enc_frag(uint32_t a[4], const LaneTaps& t,
       continue;
     }
     float fa[3][4], l0[3][4], l1[3][4];
-    lerp3x4(fa, l0, l1, t, h, lines, ls, f);
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const bf16* r = lines + t.off[h][ax] + f;
+      unpack4(*reinterpret_cast<const uint2*>(r), l0[ax]);
+      unpack4(*reinterpret_cast<const uint2*>(r + ls), l1[ax]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        fa[ax][q] = fmaf(t.w1[h][ax], l1[ax][q], t.w0[h][ax] * l0[ax][q]);
+    }
     float e[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) e[q] = (fa[0][q] * fa[1][q]) * fa[2][q];
@@ -296,6 +348,67 @@ __device__ __forceinline__ void mm_w_abs(float c[NT][4],
 // 2^-24·Σ|a·w| of the exact sum), with room to spare.
 constexpr float kSeqTol = 1.0f / (1 << 17);
 
+// Σ_f x[k_f]·w[k_f·sw] over f = 0 … K − 1 in f order with f32 FMAs, k_f =
+// feat_pos(f) when kPerm (else f), leaving out position skip; K % 4 == 0.
+// Four features a step: their x entries by one 8-byte load (two 4-byte
+// loads of positions b, b + 1, b + 8, b + 9 when kPerm) and their w
+// entries all loaded before the step's FMAs, so that the loads of the
+// unrolled steps run ahead of the chain.
+template <bool kPerm>
+__device__ __forceinline__ float seq_dot(const bf16* xr, const bf16* wc,
+                                         int sw, int K, int skip) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int f = 0; f < K; f += 4) {
+    float xv[4];
+    int k[4];
+    if (kPerm) {
+      const int b = (f & ~15) + 2 * ((f & 15) >> 2);
+      const __nv_bfloat162 x0 = *reinterpret_cast<const __nv_bfloat162*>(xr + b);
+      const __nv_bfloat162 x1 =
+          *reinterpret_cast<const __nv_bfloat162*>(xr + b + 8);
+      xv[0] = __low2float(x0);
+      xv[1] = __high2float(x0);
+      xv[2] = __low2float(x1);
+      xv[3] = __high2float(x1);
+      k[0] = b;
+      k[1] = b + 1;
+      k[2] = b + 8;
+      k[3] = b + 9;
+    } else {
+      unpack4(*reinterpret_cast<const uint2*>(xr + f), xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) k[i] = f + i;
+    }
+    float wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = __bfloat162float(wc[k[i] * sw]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (k[i] != skip) acc = fmaf(xv[i], wv[i], acc);
+  }
+  return acc;
+}
+
+// The index of the j-th set bit (from 0) of m, j < popc(m): a popc
+// bisection, with no loop of j steps
+__device__ __forceinline__ int nth_bit(uint32_t m, int j) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const uint32_t lower = m & ((1u << w) - 1u);
+    const int c = __popc(lower);
+    if (j >= c) {
+      j -= c;
+      m >>= w;
+      pos += w;
+    } else {
+      m = lower;
+    }
+  }
+  return pos;
+}
+
 // Where the order of an f32 sum can decide a discrete outcome, take it in
 // sequential order. c: a layer's sums of products x[row] · W[:, col] (16
 // rows of x at stride sx, bf16, in shared memory; W [K][·] at stride sw),
@@ -324,29 +437,49 @@ __device__ __forceinline__ void seq_fixup(float c[NT][4], const float s[NT][4],
       }
       if (bf16_round(lo) != bf16_round(hi)) todo |= 1u << (4 * nt + i);
     }
-  // one entry a lane a pass: the warp makes as many passes as its lane
-  // with the most entries to redo needs
-  const int l = lane_id(), g = l >> 2, c2 = 2 * (l & 3);
-  while (__any_sync(0xffffffffu, todo != 0)) {
-    const bool live = todo != 0;
-    const int e = live ? __ffs(todo) - 1 : 0;
-    todo &= todo - 1u;
+  // The warp's entries to redo, in lane order (lane L's from excl on), are
+  // shared out 32 a pass: lane L of a pass takes entry base + L, whoever
+  // owns it, and the owners collect their sums by shuffles.
+  const unsigned full = 0xffffffffu;
+  const int l = lane_id();
+  const int cnt = __popc(todo);
+  int excl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(full, excl, o);
+    if (l >= o) excl += v;
+  }
+  const int total = __shfl_sync(full, excl, 31);
+  excl -= cnt;
+  uint32_t pending = todo;    // this lane's entries not collected yet
+  for (int base = 0; base < total; base += 32) {
+    const int q = base + l;
+    int own = 0;      // the last lane whose entries start at or before q
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(full, excl, own + step) <= q) own += step;
+    const int e = nth_bit(__shfl_sync(full, todo, own),
+                          q - __shfl_sync(full, excl, own));
     const int nt = e >> 2, i = e & 3;
-    const bf16* xr = x + (g + 8 * (i >> 1)) * sx;
-    const bf16* wc = w + nt * 8 + c2 + (i & 1);
-    float acc = 0.f;
-    for (int f = 0; f < K; ++f) {
-      const int k = kPerm ? feat_pos(f) : f;
-      if (k != skip)
-        acc = fmaf(__bfloat162float(xr[k]), __bfloat162float(wc[k * sw]),
-                   acc);
-    }
-    if (live) {
+    const bf16* xr = x + ((own >> 2) + 8 * (i >> 1)) * sx;
+    const bf16* wc = w + nt * 8 + 2 * (own & 3) + (i & 1);
+    const float acc = q < total ? seq_dot<kPerm>(xr, wc, sw, K, skip) : 0.f;
+    // this lane's entries in the pass: its j = lo … hi − 1
+    const int lo = max(excl, base) - excl;
+    const int hi = min(excl + cnt, base + 32) - excl;
+    const int mine = max(hi - lo, 0);
+    const int rounds = __reduce_max_sync(full, mine);
+    for (int r = 0; r < rounds; ++r) {
+      const float v = __shfl_sync(full, acc, (excl + lo + r - base) & 31);
+      if (r < mine) {       // entries are collected in rank order
+        const int e2 = __ffs(pending) - 1;
+        pending &= pending - 1u;
 #pragma unroll
-      for (int n2 = 0; n2 < NT; ++n2)
+        for (int n2 = 0; n2 < NT; ++n2)
 #pragma unroll
-        for (int i2 = 0; i2 < 4; ++i2)
-          if (e == 4 * n2 + i2) c[n2][i2] = acc;
+          for (int i2 = 0; i2 < 4; ++i2)
+            if (e2 == 4 * n2 + i2) c[n2][i2] = v;
+      }
     }
   }
 }
@@ -365,9 +498,21 @@ __device__ __forceinline__ uint32_t sigma_net(
   zero<8>(c);
   if (kExact) zero<8>(sa);
   const int kcs = feat_pad(feat) / 16;
+  // kExact (the backward): the tap rows two k-chunks ahead of their use
+  LaneRows R, R2;
+  if (kExact) {
+    load_rows(R, t, lines, ls, feat, 0);
+    if (kcs > 1) load_rows(R2, t, lines, ls, feat, 1);
+  }
   for (int kc = 0; kc < kcs; ++kc) {
     uint32_t a[1][4];
-    enc_frag(a[0], t, lines, ls, feat, kc);
+    if (kExact) {
+      enc_from_rows(a[0], R, t, feat, kc);
+      R = R2;
+      if (kc + 2 < kcs) load_rows(R2, t, lines, ls, feat, kc + 2);
+    } else {
+      enc_frag(a[0], t, lines, ls, feat, kc);
+    }
     if (prod != nullptr) st_a<1>(prod + kc * 16, ps, a);
 #pragma unroll
     for (int nt = 0; nt < 8; nt += 2) {
@@ -411,10 +556,10 @@ __device__ __forceinline__ uint32_t sigma_net(
   return m0;
 }
 
-// hc's A fragments: k-chunk 0 bf16(SH) of this lane's two points (zero
-// past n), k-chunk 1 bf16(h1) with the σ column zeroed
-__device__ __forceinline__ void hc_frags(uint32_t hc[2][4], const float h1[2][4],
-                                         const float* sh, int p0, int n) {
+// k-chunk 0 of hc's A fragments: bf16(SH) of this lane's two points of
+// the m-tile at p0 (zero past n)
+__device__ __forceinline__ void sh_frag(uint32_t a[4], const float* sh, int p0,
+                                        int n) {
   const int l = lane_id(), g = l >> 2, c = 2 * (l & 3);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -424,14 +569,26 @@ __device__ __forceinline__ void hc_frags(uint32_t hc[2][4], const float h1[2][4]
       lo = *reinterpret_cast<const float2*>(sh + (size_t)p * kSh + c);
       hi = *reinterpret_cast<const float2*>(sh + (size_t)p * kSh + 8 + c);
     }
-    hc[0][h] = pack_bf16(lo.x, lo.y);
-    hc[0][2 + h] = pack_bf16(hi.x, hi.y);
+    a[h] = pack_bf16(lo.x, lo.y);
+    a[2 + h] = pack_bf16(hi.x, hi.y);
   }
-  const bool col0 = (l & 3) == 0;
-  hc[1][0] = pack_bf16(col0 ? 0.f : h1[0][0], h1[0][1]);
-  hc[1][1] = pack_bf16(col0 ? 0.f : h1[0][2], h1[0][3]);
-  hc[1][2] = pack_bf16(h1[1][0], h1[1][1]);
-  hc[1][3] = pack_bf16(h1[1][2], h1[1][3]);
+}
+
+// k-chunk 1 of hc's A fragments: bf16(h1) with the σ column zeroed
+__device__ __forceinline__ void h1_frag(uint32_t a[4], const float h1[2][4]) {
+  const bool col0 = (lane_id() & 3) == 0;
+  a[0] = pack_bf16(col0 ? 0.f : h1[0][0], h1[0][1]);
+  a[1] = pack_bf16(col0 ? 0.f : h1[0][2], h1[0][3]);
+  a[2] = pack_bf16(h1[1][0], h1[1][1]);
+  a[3] = pack_bf16(h1[1][2], h1[1][3]);
+}
+
+// hc's A fragments: k-chunk 0 bf16(SH) of this lane's two points (zero
+// past n), k-chunk 1 bf16(h1) with the σ column zeroed
+__device__ __forceinline__ void hc_frags(uint32_t hc[2][4], const float h1[2][4],
+                                         const float* sh, int p0, int n) {
+  sh_frag(hc[0], sh, p0, n);
+  h1_frag(hc[1], h1);
 }
 
 // The colour net after hc: A2 = bf16(relu(hc @ wc0)), A3 = bf16(relu(A2 @

@@ -362,20 +362,24 @@ def check_bwd_args(x01, sh, ulines, Ws, g, *, sigma_only: bool) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_grid(n: int, feat: int, sigma_only: bool, device: int) -> int:
+def _bwd_grid(n: int, r_max: int, feat: int, sigma_only: bool,
+              device: int) -> tuple:
     del device                # the key: the card the query ran on
-    fn = kernel_function("gbnerf_field_fused_bwd_grid", [ctypes.c_int] * 3)
-    grid = fn(n, feat, int(sigma_only))
+    fn = kernel_function("gbnerf_field_fused_bwd_grid", [ctypes.c_int] * 4)
+    grid = fn(n, r_max, feat, int(sigma_only))
     if grid <= 0:
         raise RuntimeError(f"field_fused_bwd: occupancy query failed: CUDA "
                            f"error {-grid}")
-    return grid
+    row = kernel_function("gbnerf_field_fused_bwd_row", [ctypes.c_int] * 3)(
+        r_max, feat, int(sigma_only))
+    return grid, row
 
 
-def bwd_grid(n: int, feat: int, sigma_only: bool) -> int:
-    """The persistent blocks K4/K5 run for n points on the current card:
-    the first dimension of their scratch buffer (queried once a shape)."""
-    return _bwd_grid(n, feat, sigma_only, torch.cuda.current_device())
+def bwd_grid(n: int, r_max: int, feat: int, sigma_only: bool) -> tuple:
+    """(grid, row): the persistent blocks K4/K5 run for n points on the
+    current card and the floats of each block's row of their scratch
+    buffer, its two dimensions (queried once a shape)."""
+    return _bwd_grid(n, r_max, feat, sigma_only, torch.cuda.current_device())
 
 
 def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
@@ -390,13 +394,14 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
     wpack = pack_weights(Ws, sigma_only=sigma_only)
     shapes = weight_shapes(feat, sigma_only=sigma_only)
     n_dl = 3 * r_max * feat
-    row = n_dl + sum(a * b for a, b in shapes.values())
-    # the blocks' partials (each block's dlines slice and dW), summed in
-    # block order into out = dlines ⊕ dW by the kernel's second launch
+    # the blocks' partials (each block's dlines slice, dW and the dlines
+    # units it touched), summed in block order into out = dlines ⊕ dW by
+    # the kernel's second launch
     with torch.cuda.device(dev):
-        grid = bwd_grid(n, feat, sigma_only)
+        grid, row = bwd_grid(n, r_max, feat, sigma_only)
         scratch = torch.empty((grid, row), dtype=torch.float32, device=dev)
-        out = torch.empty(row, dtype=torch.float32, device=dev)
+        out = torch.empty(n_dl + sum(a * b for a, b in shapes.values()),
+                          dtype=torch.float32, device=dev)
         dx = (torch.empty((n, 3), dtype=torch.float32, device=dev)
               if need_dx else None)
         dsh = (torch.empty((n, SH_DIM), dtype=torch.float32, device=dev)
@@ -422,25 +427,33 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
     return dx, dsh, dlines, dWs
 
 
+BWD_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
+                 "warps", "cluster", "dw_smem_floats", "tile")
+
+
 def kernel_info(*, backward: bool, sigma_only: bool, r_max: int, feat: int
                 ) -> Dict[str, int]:
     """Registers and local (spill) bytes a thread, dynamic shared memory a
     block and blocks an SM of K1/K2 (K4/K5 when ``backward``) at this
     shape, from the CUDA runtime (cudaFuncGetAttributes and the occupancy
-    query) on the current card."""
-    info = (ctypes.c_int * 4)()
+    query) on the current card; K4/K5 also their warps a block, blocks a
+    cluster, the dW floats a block sums in shared memory and points a
+    tile (``BWD_INFO_KEYS``)."""
     if backward:
+        info = (ctypes.c_int * len(BWD_INFO_KEYS))()
         fn = kernel_function("gbnerf_field_fused_bwd_info",
-                             [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        err = fn(feat, int(sigma_only), ctypes.addressof(info))
+                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
+        keys = BWD_INFO_KEYS
     else:
+        info = (ctypes.c_int * 4)()
         fn = kernel_function("gbnerf_field_fused_info",
                              [ctypes.c_int] * 3 + [ctypes.c_void_p])
         err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
+        keys = BWD_INFO_KEYS[:4]
     if err:
         raise RuntimeError(f"field kernel info: CUDA error {err}")
-    return dict(zip(("registers", "spill_bytes", "smem_bytes",
-                     "blocks_per_sm"), list(info)))
+    return dict(zip(keys, list(info)))
 
 
 # ---------------------------------------------------------------------------
@@ -515,7 +528,10 @@ def field_tiled_plain(x01, sh, ulines, Ws, *, sigma_only: bool = False):
 
 def _block_sums(parts, grid: int):
     """Σ over tiles as K4/K5 take it: tile t's part into block t % grid's
-    running sum (in tile order), then the blocks' sums in block order."""
+    running sum (in tile order), then the blocks' sums in block order.
+    (The kernels keep a block's dW sum in shared memory and write a lines
+    unit only once a tile touches it, skipping the units a block never
+    touched in the block-order sum: adding those zeros changes no value.)"""
     blocks = [None] * grid
     for t, part in enumerate(parts):
         b = t % grid

@@ -334,6 +334,57 @@ def test_bwd_tiled_plain_is_bit_equal_over_two_calls(rng, sigma_only):
                                    atol=1e-6 * np.abs(v).max())
 
 
+def _ray_points(rng, n, samples, r_max):
+    """[n, 3] points along rays of ``samples`` (prof_field_kernels's
+    layout), off the grid nodes as _mats keeps its points."""
+    from gbnerf_tpu_torch.tools.prof_field_kernels import points
+
+    x01 = points("rays", n, samples, rng)
+    u = x01 * (r_max - 1)
+    return x01 + ((np.abs(u - np.round(u)) < 1e-3) * 2e-3).astype(np.float32)
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_bwd_tiled_plain_over_many_blocks_matches_jax(rng, sigma_only):
+    """More tiles than PLAIN_GRID blocks take (1,100 points: each block sums
+    two or three tiles), with points along rays, so that most lines rows
+    (the kernels' 16-row units) are touched by some blocks and not others:
+    against the JAX Pallas backward in interpret mode and jax.vjp of the
+    oracle, and bit-equal over two calls."""
+    n, r_max, feat = 1100, 33, 16
+    x01, sh, ulines, Ws, g = _mats(rng, n, r_max=r_max, feat=feat)
+    x01 = _ray_points(rng, n - n % 50, 50, r_max)
+    x01 = np.concatenate([x01, x01[: n - len(x01)]])
+    assert n > tff.PLAIN_GRID * tff.BWD_TILE
+    if sigma_only:
+        g[:, :3] = 0.0
+    got = _tiled(x01, sh, ulines, Ws, g, sigma_only)
+    for u, v in zip(got, _tiled(x01, sh, ulines, Ws, g, sigma_only)):
+        np.testing.assert_array_equal(u, v)
+    if sigma_only:
+        names = ("dx", "dul", "ws0", "ws1")
+        pallas = jff._pallas_bwd_sigma(_j(x01), _j(ulines), _j(Ws["ws0"]),
+                                       _j(Ws["ws1"]), _j(g), interpret=True,
+                                       tile=TILE)
+    else:
+        names = ("dx", "dsh", "dul") + K
+        dx, dsh, dul, dWs = jff._pallas_bwd(
+            _j(x01), _j(sh), _j(ulines), {k: _j(v) for k, v in Ws.items()},
+            _j(g), sigma_only=False, interpret=True, tile=TILE)
+        pallas = [dx, dsh, dul] + [dWs[k] for k in K]
+    _close_all(got, pallas, names)
+    # the rays leave some 16-row units of every block untouched: the
+    # kernels write those for no block and skip them in the block sums
+    i0 = np.floor(np.clip(x01, 0, 1) * (r_max - 1)).astype(int)
+    touched = [{(a, r // 16) for t in range(b * tff.BWD_TILE, n,
+                                            tff.PLAIN_GRID * tff.BWD_TILE)
+                for p in range(t, min(n, t + tff.BWD_TILE))
+                for a in range(3) for r in (i0[p, a], i0[p, a] + 1)}
+               for b in range(tff.PLAIN_GRID)]
+    units = 3 * ((r_max + 15) // 16)
+    assert all(len(t) < units for t in touched)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sigma_only,n", [(False, 131072), (False, 65536 - 29),
                                           (True, 65536)])
@@ -365,3 +416,68 @@ def test_kernel_bwd_is_deterministic_on_the_card(rng, sigma_only, n):
                           + [ref[3][k] for k in keys]):
         if b is not None:
             _close_all([a.cpu().numpy()], [b.cpu().numpy()], (name,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_only,samples", [(False, 128), (True, 64)])
+def test_kernel_bwd_along_rays_is_deterministic_on_the_card(rng, sigma_only,
+                                                            samples):
+    """K4/K5 at the training step's layout (points along rays, most of a
+    block's lines units untouched): two calls bit-equal, and within the
+    tolerances above of field_bwd_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K4/K5 are CUDA C++; no CPU mode)")
+    dev = torch.device("cuda:0")
+    n = 1024 * samples
+    _, sh, ulines, Ws, g = _mats(rng, n, r_max=257, feat=80)
+    x01 = _ray_points(rng, n, samples, 257)
+    keys = K[:2] if sigma_only else K
+    x, s, ul = (torch.from_numpy(a).to(dev) for a in (x01, sh, ulines))
+    W = {k: torch.from_numpy(Ws[k]).to(dev) for k in keys}
+    gt = torch.from_numpy(g).to(dev)
+    if sigma_only:
+        s = None
+        gt[:, :3] = 0.0
+    runs = [tff.field_fused_bwd(x, s, ul, W, gt, sigma_only=sigma_only)
+            for _ in range(2)]
+    flat = [[r[0], r[1], r[2]] + [r[3][k] for k in keys] for r in runs]
+    for a, b in zip(*flat):
+        assert (a is None and b is None) or torch.equal(a, b)
+    ref = tff.field_bwd_plain(x, s, ul, W, gt, sigma_only=sigma_only)
+    for name, a, b in zip(("dx", "dsh", "dul") + keys, flat[0],
+                          [ref[0], ref[1], ref[2]]
+                          + [ref[3][k] for k in keys]):
+        if b is not None:
+            _close_all([a.cpu().numpy()], [b.cpu().numpy()], (name,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_only,r_max,feat", [
+    (False, 257, 80), (True, 257, 80), (False, 129, tff.MAX_FEAT),
+    (False, 33, 16)])
+def test_kernel_info_matches_the_wrapper(sigma_only, r_max, feat):
+    """kernel_info's account of K4/K5 agrees with the layout the wrapper
+    and the CPU mirror take: 128-point tiles of 8 warps, no cluster, one
+    block an SM, no spills, the dW partial sums it keeps in shared memory
+    no more than the dW it returns (all of it at the shipped F 80), the
+    shared memory within the card's limit; the scratch buffer's row holds
+    dlines, dW and one flag a 16-row unit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K4/K5 are CUDA C++; no CPU mode)")
+    info = tff.kernel_info(backward=True, sigma_only=sigma_only, r_max=r_max,
+                           feat=feat)
+    assert set(info) == set(tff.BWD_INFO_KEYS)
+    assert info["tile"] == tff.BWD_TILE and info["warps"] * 16 == info["tile"]
+    assert info["cluster"] == 1 and info["blocks_per_sm"] == 1
+    assert info["spill_bytes"] == 0
+    n_dw = sum(a * b for a, b in tff.weight_shapes(
+        feat, sigma_only=sigma_only).values())
+    assert 0 < info["dw_smem_floats"]
+    if feat == 80:
+        assert info["dw_smem_floats"] >= n_dw
+    props = torch.cuda.get_device_properties(0)
+    assert info["smem_bytes"] <= props.shared_memory_per_block_optin
+    grid, row = tff.bwd_grid(131072, r_max, feat, sigma_only)
+    assert 1 <= grid <= props.multi_processor_count
+    units = 3 * ((r_max + 15) // 16)
+    assert row == 3 * r_max * feat + n_dw + (units + 3) // 4 * 4

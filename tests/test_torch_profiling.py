@@ -226,6 +226,30 @@ def test_prof_field_kernels_refuses_the_cpu(monkeypatch):
         prof_field_kernels.main(["--reps", "2"])
 
 
+def test_prof_field_bwd_parts_refuses_the_cpu(monkeypatch):
+    """The K4/K5 parts timer needs a card and says so, before it builds."""
+    from gbnerf_tpu_torch.tools import prof_field_bwd_parts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="card"):
+        prof_field_bwd_parts.main(["--reps", "2"])
+
+
+def test_prof_field_bwd_parts_copies_take_their_parts_out():
+    """Every copy of the parts timer finds its anchors in the committed
+    csrc/field_fused_bwd.cu and field_tile.cuh (a source change that moves
+    them raises here, not on the card) and differs from the kernel."""
+    from gbnerf_tpu_torch.ops._build import CSRC_DIR
+    from gbnerf_tpu_torch.tools import prof_field_bwd_parts as parts
+
+    src = {f: (CSRC_DIR / f).read_text() for f in (parts.BWD, parts.TILE)}
+    copies = parts.variants(src)
+    assert copies["kernel"] == src
+    assert set(copies) == {"kernel", *parts.PARTS}
+    for name in parts.PARTS:
+        assert copies[name] != src, name
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     from gbnerf_tpu_torch.config import Config
     from gbnerf_tpu_torch.train import loop
