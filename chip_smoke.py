@@ -10,10 +10,14 @@
    power limit.
 2. Builds the CUDA kernels from gbnerf_tpu_torch/csrc (ops/_build.py) and
    prints the field kernels' registers, spill bytes, shared memory a block
-   and blocks an SM ("kernel info" lines, from the CUDA runtime).
+   and blocks an SM ("kernel info" lines, from the CUDA runtime), and the
+   warpgroup products (HGMMA) in the SASS of each of K1/K2's four builds
+   (cuobjdump; fails where a build has none, or cuobjdump is missing).
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (and once at a ragged size), and times
-   both with CUDA events: K1/K2 (field forward), K3 (z-merge, and its
+   both with CUDA events: K1/K2 (field forward; also by CUDA graph along
+   rays, and checked and timed by graph at a stage-1 step's shapes,
+   beside PREV_MS, the mma.sync design's graph time), K3 (z-merge, and its
    gradient against the CPU's, ties included), K4/K5 (field backward,
    every cotangent; two calls on the same inputs must be bit-equal); and
    K1/K2/K4/K5 at other widths (F 16, 24 and the widest they take, 160).
@@ -209,6 +213,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -295,8 +300,9 @@ ATTN_INFO_D = tuple(range(8, 129, 8)) + (256, 384, 512)
 # replay (device time), the mma.sync design of D ≤ 128 that the TMA/wgmma
 # one replaced (D 512 is the same code), from PERF.md's K7 row; K4/K5 by
 # graph too, the design whose block partials went through the scratch
-# buffer every tile (PERF.md's K4/K5 rows, uniform points); K1/K2 before
-# their heads moved onto the tensor cores (by CUDA events).
+# buffer every tile (PERF.md's K4/K5 rows, uniform points); K1/K2 by graph
+# too, their mma.sync design that the warpgroup one replaced (PERF.md's
+# K1/K2 rows, through the wrapper, uniform points).
 PREV_MS = {("attention", "unet 64x64"): 0.1971,
            ("attention", "unet 32x32"): 0.0270,
            ("attention", "vae mid"): 0.217,
@@ -307,8 +313,8 @@ PREV_MS = {("attention", "unet 64x64"): 0.1971,
            ("attention", "prior vae"): 0.0175,
            ("attention", "colla unet 64x64"): 0.7719,
            ("attention", "colla unet 32x32"): 0.1063,
-           ("field_fused", "fine"): 2.404,
-           ("field_fused_sigma", "coarse"): 0.590,
+           ("field_fused", "fine"): 0.3694,
+           ("field_fused_sigma", "coarse"): 0.1478,
            ("field_fused_bwd", "fine"): 0.561,
            ("field_fused_bwd_sigma", "coarse"): 0.223}
 # stage 2 through train(): the steps after the stage-1 checkpoint; then
@@ -742,7 +748,9 @@ def check_field_bwd(dev, fine, coarse, np_rng):
 
 
 def check_fields(dev, fine, coarse, proposal, np_rng):
-    """K1 at fine shapes, K2 at coarse and at proposal-coarse shapes."""
+    """K1 at fine shapes, K2 at coarse and at proposal-coarse shapes; each
+    also timed along rays and, as a stage-1 step calls them (131,072 and
+    65,536 points, uniform and along rays), checked and timed there."""
     from gbnerf_tpu_torch.ops import field_fused as ff
 
     results = {}
@@ -773,15 +781,51 @@ def check_fields(dev, fine, coarse, proposal, np_rng):
                 r["plain_ms"] = cuda_ms(lambda: ff.field_plain(
                     x, sh, ul, Ws, sigma_only=sigma_only), reps=3)
                 r.update(kernel_bound(name, r))
-                r["prev_ms"] = PREV_MS.get((name, label))
+                r["prev_graph_ms"] = PREV_MS.get((name, label))
+                samples = 128 if label == "fine" else 64
+                r["rays_graph_ms"] = field_graph_ms(
+                    dev, field, n, np_rng, samples, sigma_only)
+                r["train"] = check_field_train(dev, field, N_RAND * samples,
+                                               np_rng, samples, sigma_only)
             print(f"check {name} [{label}{' ragged' if ragged else ''}] "
                   f"{json.dumps(r)}")
-            if r["n_out_of_tol"]:
+            bad = r["n_out_of_tol"] + sum(
+                t["n_out_of_tol"] for t in r.get("train", {}).values())
+            if bad:
                 raise AssertionError(
-                    f"{name} [{label}]: {r['n_out_of_tol']} values outside "
-                    f"rtol {FIELD_RTOL}, atol {FIELD_ATOL_FRAC}·max|plain|")
+                    f"{name} [{label}]: {bad} values outside rtol "
+                    f"{FIELD_RTOL}, atol {FIELD_ATOL_FRAC}·max|plain|")
             results.setdefault(name, []).append(r)
     return results
+
+
+def field_graph_ms(dev, field, n, np_rng, samples, sigma_only) -> float:
+    """K1 (K2 when sigma_only) by CUDA-graph replay at n points along rays
+    of that many samples."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+
+    x, sh, ul, Ws = field_operands(dev, field, n, np_rng, samples=samples)
+    sh = None if sigma_only else sh
+    return graph_ms(lambda: ff.cp_field_fused(x, sh, ul, Ws,
+                                              sigma_only=sigma_only), reps=10)
+
+
+def check_field_train(dev, field, n, np_rng, samples, sigma_only) -> dict:
+    """K1/K2 at a stage-1 step's shape (n points), uniform and along rays:
+    against the plain version and by CUDA-graph replay."""
+    from gbnerf_tpu_torch.ops import field_fused as ff
+
+    out = {}
+    for layout, s in (("uniform", 0), ("rays", samples)):
+        x, sh, ul, Ws = field_operands(dev, field, n, np_rng, samples=s)
+        sh = None if sigma_only else sh
+        call = lambda: ff.cp_field_fused(                  # noqa: E731
+            x, sh, ul, Ws, sigma_only=sigma_only)
+        r = compare_field(call(), ff.field_plain(x, sh, ul, Ws,
+                                                 sigma_only=sigma_only))
+        r.update(points=n, graph_ms=graph_ms(call, reps=20))
+        out[layout] = r
+    return out
 
 
 def check_field_widths(dev, np_rng) -> None:
@@ -857,6 +901,53 @@ def field_kernel_info(fine, coarse, proposal) -> None:
               f"{json.dumps(info)}")
         if info["blocks_per_sm"] < 1:
             raise AssertionError(f"{name}: a block does not fit an SM: {info}")
+    # K1/K2's heads are warpgroup products: HGMMA in the SASS of each of the
+    # four builds of field_fused_kernel<kSigmaOnly, kStaged> (mangled with
+    # its two bool arguments in that order: ILb<σ-only>ELb<staged>EE)
+    sass = sass_counts("field_fused_kernel", ("HGMMA", "HMMA", "LDSM"))
+    builds = {}
+    for fn, counts in sass.items():
+        m = re.search(r"field_fused_kernelILb([01])ELb([01])EE", fn)
+        if m:
+            builds[(m[1] == "1", m[2] == "1")] = counts
+    for sigma_only in (False, True):
+        for staged in (True, False):
+            kind = ("field_fused_sigma" if sigma_only else "field_fused") + (
+                " [lines staged]" if staged else " [lines in L1/L2]")
+            counts = builds.get((sigma_only, staged))
+            if counts is None:
+                raise AssertionError(f"{kind}: not in the kernel library's "
+                                     f"SASS (found {sorted(sass)})")
+            print(f"kernel info {kind} SASS {json.dumps(counts)}")
+            if counts["HGMMA"] == 0:
+                raise AssertionError(f"{kind}: no HGMMA in its SASS: {counts}")
+
+
+def sass_counts(name: str, ops: tuple) -> dict:
+    """{function: {op: instructions}} of the built kernel library's SASS
+    (cuobjdump -sass, beside nvcc) for the functions whose mangled name
+    holds ``name``. Raises where the toolkit has no cuobjdump or it
+    fails."""
+    from gbnerf_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool})")
+    text = subprocess.run([str(tool), "-sass", str(_build.build_library())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fn = fn if name in fn else None
+            if fn:
+                out[fn] = dict.fromkeys(ops, 0)
+        elif fn:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    out[fn][op] += 1
+    return out
 
 
 def check_merge(dev, np_rng):
@@ -3862,7 +3953,7 @@ def main() -> None:
           f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s, "
           f"one process per source) -> {lib.relative_to(ROOT)}")
     for line in _build.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Performance" in line:
             print(f"ptxas: {line.strip()}")
 
     # ---- 2. fields of the shipped config, seeded

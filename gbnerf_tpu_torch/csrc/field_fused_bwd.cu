@@ -398,7 +398,7 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
       uint32_t shf[4];
       if (!kSigmaOnly) sh_frag(shf, sh, p0, n);
       float h1[2][4];
-      const uint32_t m0 = sigma_net<!kSigmaOnly, true>(
+      const uint32_t m0 = sigma_net<!kSigmaOnly>(
           h1, t, lines, feat, feat, S, W, S + B.prod + r0 * B.ps, B.ps,
           S + B.a0 + r0 * kS64);
       uint32_t d1[1][4];
@@ -412,10 +412,9 @@ field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ sh,
         for (int i = 0; i < 4; ++i) hc[0][i] = shf[i];
         h1_frag(hc[1], h1);
         st_a<2>(S + B.hc + r0 * kS32, kS32, hc);
-        float rgb[4];
         uint32_t m2, m3;
-        color_net<false, true>(rgb, m2, m3, hc, S, W, S + B.hc + r0 * kS32,
-                               S + B.a2 + r0 * kS64, S + B.a3 + r0 * kS64);
+        color_net(m2, m3, hc, S, W, S + B.hc + r0 * kS32,
+                  S + B.a2 + r0 * kS64, S + B.a3 + r0 * kS64);
         // bf16(g_rgb) as the A fragment of an 8-deep step (columns 3–7 0)
         uint32_t ga[2];
 #pragma unroll

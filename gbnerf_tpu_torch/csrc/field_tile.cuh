@@ -1,6 +1,8 @@
 // The CP field's heads on the tensor cores, one 16-point m-tile a warp:
-// shared by field_fused.cu (K1/K2, the forward) and field_fused_bwd.cu
-// (K4/K5, which recompute the forward), so that the two cannot drift.
+// field_fused_bwd.cu's (K4/K5) recompute of the forward and its backward.
+// field_fused.cu (K1/K2, the forward, on warpgroup products) shares the
+// encode and fragment code (lane_taps' taps, enc_frag, sh_frag, h1_frag,
+// c_to_a, the weights' packed layout), so that the two cannot drift.
 //
 // Every product is mma.sync.m16n8k16 (an m16n8k8 for the 8-deep g_rgb):
 // bf16 operands, f32 sums, as the TPU kernels' dots with
@@ -27,7 +29,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;                 // warps a block (K1/K2 and K4/K5)
+constexpr int kWarps = 8;                 // warps a block (K4/K5)
 constexpr int kBlock = 32 * kWarps;
 constexpr int kS64 = row_stride(64);      // 72: rows of 64 columns
 constexpr int kS32 = row_stride(32);      // 40
@@ -168,8 +170,8 @@ __device__ __forceinline__ void enc_from_rows(uint32_t a[4], const LaneRows& R,
 }
 
 // enc_from_rows with each point half's rows loaded just before its lerps
-// (K1's order, whose lines are in shared memory: loading both halves'
-// rows first, as enc_from_rows's callers do, is slower there)
+// (K1/K2's encode when their lines are read through L1/L2; from staged
+// lines they take field_fused.cu::enc_frag_s, the same values)
 __device__ __forceinline__ void enc_frag(uint32_t a[4], const LaneTaps& t,
                                          const bf16* lines, int ls, int feat,
                                          int kc) {
@@ -484,36 +486,29 @@ __device__ __forceinline__ void seq_fixup(float c[NT][4], const float s[NT][4],
   }
 }
 
-// The forward of a warp's 16 points, up to h1 (the σ-net).
+// The backward's recompute of a warp's 16 points, up to h1 (the σ-net).
 // h0 = relu(bf16(enc) @ ws0); A0 = bf16(h0); h1 = A0 @ ws1 (h1 only when
-// kH1). prod/a0 rows: where to keep bf16(enc) and A0 (the backward), or
-// null. kExact (the backward's recompute; prod and a0 given): h0 and h1
-// take seq_fixup, so the masks and bf16 activations are the plain
-// version's. Returns the mask of h0 > 0.
-template <bool kH1, bool kExact>
+// kH1). bf16(enc) goes to the prod rows and A0 to a0buf. h0 and h1 take
+// seq_fixup, so the masks and bf16 activations are the plain version's.
+// Returns the mask of h0 > 0.
+template <bool kH1>
 __device__ __forceinline__ uint32_t sigma_net(
     float h1[2][4], const LaneTaps& t, const bf16* lines, int ls, int feat,
     const bf16* sw, const WLayout& W, bf16* prod, int ps, bf16* a0buf) {
   float c[8][4], sa[8][4];
   zero<8>(c);
-  if (kExact) zero<8>(sa);
+  zero<8>(sa);
   const int kcs = feat_pad(feat) / 16;
-  // kExact (the backward): the tap rows two k-chunks ahead of their use
+  // the tap rows two k-chunks ahead of their use
   LaneRows R, R2;
-  if (kExact) {
-    load_rows(R, t, lines, ls, feat, 0);
-    if (kcs > 1) load_rows(R2, t, lines, ls, feat, 1);
-  }
+  load_rows(R, t, lines, ls, feat, 0);
+  if (kcs > 1) load_rows(R2, t, lines, ls, feat, 1);
   for (int kc = 0; kc < kcs; ++kc) {
     uint32_t a[1][4];
-    if (kExact) {
-      enc_from_rows(a[0], R, t, feat, kc);
-      R = R2;
-      if (kc + 2 < kcs) load_rows(R2, t, lines, ls, feat, kc + 2);
-    } else {
-      enc_frag(a[0], t, lines, ls, feat, kc);
-    }
-    if (prod != nullptr) st_a<1>(prod + kc * 16, ps, a);
+    enc_from_rows(a[0], R, t, feat, kc);
+    R = R2;
+    if (kc + 2 < kcs) load_rows(R2, t, lines, ls, feat, kc + 2);
+    st_a<1>(prod + kc * 16, ps, a);
 #pragma unroll
     for (int nt = 0; nt < 8; nt += 2) {
       uint32_t b[4];
@@ -521,37 +516,31 @@ __device__ __forceinline__ uint32_t sigma_net(
       mma_bf16(c[nt], a[0], b[0], b[1]);
       mma_bf16(c[nt + 1], a[0], b[2], b[3]);
     }
-    if (kExact) {
-      uint32_t aa[1][4];
+    uint32_t aa[1][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) aa[0][i] = a[0][i];
-      float sk[8][4];
-      zero<8>(sk);
-      mm_w_abs<1, 8>(sk, aa, sw + W.ws0 + kc * 16 * kS64, kS64);
+    for (int i = 0; i < 4; ++i) aa[0][i] = a[0][i];
+    float sk[8][4];
+    zero<8>(sk);
+    mm_w_abs<1, 8>(sk, aa, sw + W.ws0 + kc * 16 * kS64, kS64);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sa[nt][i] += sk[nt][i];
-    }
+      for (int i = 0; i < 4; ++i) sa[nt][i] += sk[nt][i];
   }
-  if (kExact) {
-    __syncwarp();
-    seq_fixup<8, true, true>(c, sa, prod, ps, feat, sw + W.ws0, kS64, -1);
-  }
+  __syncwarp();
+  seq_fixup<8, true, true>(c, sa, prod, ps, feat, sw + W.ws0, kS64, -1);
   const uint32_t m0 = relu_mask<8>(c);
   uint32_t a0[4][4];
   c_to_a<8>(a0, c);
-  if (a0buf != nullptr) st_a<4>(a0buf, kS64, a0);
+  st_a<4>(a0buf, kS64, a0);
   if (kH1) {
     zero<2>(h1);
     mm_w<4, 2>(h1, a0, sw + W.ws1, kS16);
-    if (kExact) {
-      float s1[2][4];
-      zero<2>(s1);
-      mm_w_abs<4, 2>(s1, a0, sw + W.ws1, kS16);
-      __syncwarp();
-      seq_fixup<2, false>(h1, s1, a0buf, kS64, 64, sw + W.ws1, kS16, -1);
-    }
+    float s1[2][4];
+    zero<2>(s1);
+    mm_w_abs<4, 2>(s1, a0, sw + W.ws1, kS16);
+    __syncwarp();
+    seq_fixup<2, false>(h1, s1, a0buf, kS64, 64, sw + W.ws1, kS16, -1);
   }
   return m0;
 }
@@ -583,59 +572,34 @@ __device__ __forceinline__ void h1_frag(uint32_t a[4], const float h1[2][4]) {
   a[3] = pack_bf16(h1[1][2], h1[1][3]);
 }
 
-// hc's A fragments: k-chunk 0 bf16(SH) of this lane's two points (zero
-// past n), k-chunk 1 bf16(h1) with the σ column zeroed
-__device__ __forceinline__ void hc_frags(uint32_t hc[2][4], const float h1[2][4],
-                                         const float* sh, int p0, int n) {
-  sh_frag(hc[0], sh, p0, n);
-  h1_frag(hc[1], h1);
-}
-
-// The colour net after hc: A2 = bf16(relu(hc @ wc0)), A3 = bf16(relu(A2 @
-// wc1)); rgb = A3 @ wc2 when kRgb. The A fragments go to a2buf/a3buf when
-// given. kExact (hcbuf holding hc, a2buf given): h2 and h3 take
-// seq_fixup. Returns the masks of h2 > 0 and h3 > 0.
-template <bool kRgb, bool kExact>
-__device__ __forceinline__ void color_net(float rgb[4], uint32_t& m2,
-                                          uint32_t& m3, const uint32_t hc[2][4],
+// The backward's recompute of the colour net after hc (hcbuf holding hc):
+// A2 = bf16(relu(hc @ wc0)) to a2buf, A3 = bf16(relu(A2 @ wc1)) to a3buf;
+// h2 and h3 take seq_fixup. Returns the masks of h2 > 0 and h3 > 0.
+__device__ __forceinline__ void color_net(uint32_t& m2, uint32_t& m3,
+                                          const uint32_t hc[2][4],
                                           const bf16* sw, const WLayout& W,
                                           const bf16* hcbuf, bf16* a2buf,
                                           bf16* a3buf) {
   float c[8][4], sa[8][4];
   zero<8>(c);
   mm_w<2, 8>(c, hc, sw + W.wc0, kS64);
-  if (kExact) {
-    zero<8>(sa);
-    mm_w_abs<2, 8>(sa, hc, sw + W.wc0, kS64);
-    __syncwarp();
-    seq_fixup<8, true>(c, sa, hcbuf, kS32, 32, sw + W.wc0, kS64, kSh);
-  }
+  zero<8>(sa);
+  mm_w_abs<2, 8>(sa, hc, sw + W.wc0, kS64);
+  __syncwarp();
+  seq_fixup<8, true>(c, sa, hcbuf, kS32, 32, sw + W.wc0, kS64, kSh);
   m2 = relu_mask<8>(c);
   uint32_t a[4][4];
   c_to_a<8>(a, c);
-  if (a2buf != nullptr) st_a<4>(a2buf, kS64, a);
+  st_a<4>(a2buf, kS64, a);
   zero<8>(c);
   mm_w<4, 8>(c, a, sw + W.wc1, kS64);
-  if (kExact) {
-    zero<8>(sa);
-    mm_w_abs<4, 8>(sa, a, sw + W.wc1, kS64);
-    __syncwarp();
-    seq_fixup<8, true>(c, sa, a2buf, kS64, 64, sw + W.wc1, kS64, -1);
-  }
+  zero<8>(sa);
+  mm_w_abs<4, 8>(sa, a, sw + W.wc1, kS64);
+  __syncwarp();
+  seq_fixup<8, true>(c, sa, a2buf, kS64, 64, sw + W.wc1, kS64, -1);
   m3 = relu_mask<8>(c);
   c_to_a<8>(a, c);
-  if (a3buf != nullptr) st_a<4>(a3buf, kS64, a);
-  if (kRgb) {
-    rgb[0] = rgb[1] = rgb[2] = rgb[3] = 0.f;
-    const int l = lane_id();
-#pragma unroll
-    for (int kc = 0; kc < 4; kc += 2) {   // wc2 [64][8]: 2 k-chunks a load
-      uint32_t b[4];
-      ldm_x4_t(b, sw + W.wc2 + (kc * 16 + (l & 7) + (l >> 3) * 8) * kS8);
-      mma_bf16(rgb, a[kc], b[0], b[1]);
-      mma_bf16(rgb, a[kc + 1], b[2], b[3]);
-    }
-  }
+  st_a<4>(a3buf, kS64, a);
 }
 
 }  // namespace

@@ -14,7 +14,9 @@ bf16 and accumulated in f32. It is differentiable in every operand.
   when ``sigma_only``) and the backward launches csrc/field_fused_bwd.cu
   (K4, or K5 when ``sigma_only``), which recomputes the forward and emits
   all the cotangents in one pass, as the TPU kernel does. Both run the
-  heads on the tensor cores (csrc/field_tile.cuh); the backward's sums run
+  heads on the tensor cores: K1/K2 as warpgroup products (wgmma, 64
+  points a warpgroup), K4/K5 as mma.sync chains (csrc/field_tile.cuh,
+  whose encode and fragment code K1/K2 share); the backward's sums run
   in an order fixed by the inputs (per-block partials in a scratch buffer,
   summed in block order by a second kernel), so the same inputs give
   bit-equal cotangents on every call. Anything the kernels do not take
@@ -286,30 +288,59 @@ def weight_layout(feat: int, *, sigma_only: bool) -> Dict[str, tuple]:
     return out
 
 
+# (feat, sigma_only, device) → (index [total] int64, a zero [1]): the
+# packed buffer as positions in the flat weights (W_KEYS order, each
+# row-major) with one zero appended, which every padding entry takes
+_PACK_INDEX: Dict[tuple, tuple] = {}
+
+
+def _pack_index(feat: int, sigma_only: bool, device: torch.device) -> tuple:
+    """``pack_weights``' gather map, made with device operations alone (no
+    copy from the host) and cached per shape and device; inside a CUDA
+    graph's capture it is made anew (a capture runs no kernel)."""
+    key = (feat, sigma_only, device)
+    hit = _PACK_INDEX.get(key)
+    if hit is not None:
+        return hit
+    lay = weight_layout(feat, sigma_only=sigma_only)
+    shapes = weight_shapes(feat, sigma_only=sigma_only)
+    n_flat = sum(a * b for a, b in shapes.values())
+    index = torch.full((lay["total"],), n_flat, dtype=torch.int64,
+                       device=device)
+    start = 0
+    for k, (a, b) in shapes.items():
+        off, rows, stride = lay[k]
+        view = index[off:off + rows * stride].view(rows, stride)
+        src = torch.arange(start, start + a * b, device=device).view(a, b)
+        if k == "wc0":
+            view[:SH_DIM, :COLOR_WIDTH] = src[:SH_DIM]
+            view[SH_DIM + 1:, :COLOR_WIDTH] = src[SH_DIM:]
+        elif k == "ws0":
+            view[:, :SIGMA_WIDTH] = _chunk_order(torch.nn.functional.pad(
+                src, (0, 0, 0, rows - feat), value=n_flat))
+        else:
+            view[:a, :b] = src
+        start += a * b
+    hit = (index, torch.zeros(1, dtype=torch.float32, device=device))
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        _PACK_INDEX[key] = hit
+    return hit
+
+
 def pack_weights(Ws: Dict[str, torch.Tensor], *, sigma_only: bool
                  ) -> torch.Tensor:
     """The kernels' weight buffer (csrc/field_tile.cuh): bf16, each weight
     row-major [in][out] with padded rows (``weight_layout``), every padding
     entry zero. ws0's rows follow ``_chunk_order``; wc0's go SH (0–15), a
     zero row, geo (17–31): the kernels multiply it with h1 as it stands,
-    σ column zeroed."""
-    feat = Ws["ws0"].shape[0]
-    lay = weight_layout(feat, sigma_only=sigma_only)
-    buf = torch.zeros(lay["total"], dtype=torch.bfloat16,
-                      device=Ws["ws0"].device)
-    for k in W_KEYS[:2 if sigma_only else 5]:
-        off, rows, stride = lay[k]
-        view = buf[off:off + rows * stride].view(rows, stride)
-        w = Ws[k].detach().to(torch.bfloat16)
-        if k == "wc0":
-            view[:SH_DIM, :COLOR_WIDTH] = w[:SH_DIM]
-            view[SH_DIM + 1:, :COLOR_WIDTH] = w[SH_DIM:]
-        elif k == "ws0":
-            view[:, :SIGMA_WIDTH] = _chunk_order(
-                torch.nn.functional.pad(w, (0, 0, 0, rows - feat)))
-        else:
-            view[:w.shape[0], :w.shape[1]] = w
-    return buf
+    σ column zeroed. Three launches: the flat weights and a zero
+    concatenated, cast to bf16 and gathered by ``_pack_index``."""
+    w0 = Ws["ws0"]
+    index, zero = _pack_index(w0.shape[0], sigma_only, w0.device)
+    flat = torch.cat([Ws[k].detach().reshape(-1)
+                      for k in W_KEYS[:2 if sigma_only else 5]] + [zero])
+    return flat.to(torch.bfloat16)[index]
 
 
 def unpack_weights(buf: torch.Tensor, feat: int, *, sigma_only: bool
@@ -429,6 +460,7 @@ def _launch_bwd(x01, sh, ulines, Ws, g, *, sigma_only: bool, need_dx: bool,
 
 BWD_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
                  "warps", "cluster", "dw_smem_floats", "tile")
+FWD_INFO_KEYS = BWD_INFO_KEYS[:4] + ("warpgroups", "tile")
 
 
 def kernel_info(*, backward: bool, sigma_only: bool, r_max: int, feat: int
@@ -436,21 +468,16 @@ def kernel_info(*, backward: bool, sigma_only: bool, r_max: int, feat: int
     """Registers and local (spill) bytes a thread, dynamic shared memory a
     block and blocks an SM of K1/K2 (K4/K5 when ``backward``) at this
     shape, from the CUDA runtime (cudaFuncGetAttributes and the occupancy
-    query) on the current card; K4/K5 also their warps a block, blocks a
-    cluster, the dW floats a block sums in shared memory and points a
-    tile (``BWD_INFO_KEYS``)."""
-    if backward:
-        info = (ctypes.c_int * len(BWD_INFO_KEYS))()
-        fn = kernel_function("gbnerf_field_fused_bwd_info",
-                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
-        keys = BWD_INFO_KEYS
-    else:
-        info = (ctypes.c_int * 4)()
-        fn = kernel_function("gbnerf_field_fused_info",
-                             [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
-        keys = BWD_INFO_KEYS[:4]
+    query) on the current card; K1/K2 also their warpgroups a block and
+    points a warpgroup step (``FWD_INFO_KEYS``), K4/K5 their warps a
+    block, blocks a cluster, the dW floats a block sums in shared memory
+    and points a tile (``BWD_INFO_KEYS``)."""
+    keys = BWD_INFO_KEYS if backward else FWD_INFO_KEYS
+    info = (ctypes.c_int * len(keys))()
+    fn = kernel_function("gbnerf_field_fused_bwd_info" if backward
+                         else "gbnerf_field_fused_info",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(r_max, feat, int(sigma_only), ctypes.addressof(info))
     if err:
         raise RuntimeError(f"field kernel info: CUDA error {err}")
     return dict(zip(keys, list(info)))

@@ -56,12 +56,8 @@ PARTS = {
     "no_heads": [(BWD, "    // ---- 1. forward recompute and head backward "
                   "(registers → buffers)\n    {",
                   "    if (false) {", 1)],
-    "no_fixup": [(TILE, f"if (kExact) {{\n{t}", f"if (false) {{\n{t}", k)
-                 for t, k in (("      uint32_t aa[1][4];", 1),
-                              ("    __syncwarp();\n    seq_fixup<8, true, "
-                               "true>", 1),
-                              ("      float s1[2][4];", 1),
-                              ("    zero<8>(sa);", 2))],
+    "no_fixup": [(TILE, f"{f}<", f"if (false) {f}<", 4)
+                 for f in ("mm_w_abs", "seq_fixup")],
     "no_dw_products": [(BWD, "for (int ks = 0; ks < kTile / 16; ++ks) {",
                         "for (int ks = 0; ks < 0; ++ks) {", 1)],
     "no_dw_sums": [(BWD, "      const float4 o = f4[j];\n      f4[j] =",
@@ -98,45 +94,50 @@ PARTS["no_sums"] = (PARTS["no_dw_sums"] + PARTS["no_dlines_sums"]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def variants(sources: dict) -> dict:
-    """{copy: {file: text}} of the two sources, by copy name."""
+def variants(sources: dict, parts: dict = PARTS,
+             tool: str = "prof_field_bwd_parts") -> dict:
+    """{copy: {file: text}} of the sources, by copy name: "kernel" as they
+    are, and each of ``parts`` with its anchors replaced."""
     out = {"kernel": dict(sources)}
-    for name, subs in PARTS.items():
+    for name, subs in parts.items():
         texts = dict(sources)
         for fname, old, new, count in subs:
             if texts[fname].count(old) != count:
                 raise ValueError(
-                    f"prof_field_bwd_parts: csrc/{fname} no longer has "
-                    f"{count} of {old!r}; update the {name} copy")
+                    f"{tool}: csrc/{fname} no longer has {count} of "
+                    f"{old!r}; update the {name} copy")
             texts[fname] = texts[fname].replace(old, new)
         out[name] = texts
     return out
 
 
-def build(copies: dict) -> dict:
-    """Each copy into OUT_DIR/<name>/lib.so, all nvcc processes together
-    → {name: ctypes.CDLL}."""
+def build(copies: dict, main: str = BWD, out_dir: Path = OUT_DIR,
+          csrc: Path = CSRC_DIR) -> tuple:
+    """Each copy into out_dir/<name>/lib.so (its files beside ``main``,
+    the other headers from ``csrc``), all nvcc processes together →
+    ({name: ctypes.CDLL}, {name: nvcc's -Xptxas -v report})."""
     nvcc = find_nvcc()
     procs = {}
     for name, texts in copies.items():
-        d = OUT_DIR / name
+        d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
         for fname, text in texts.items():
             (d / fname).write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(d / "lib.so"),
-             str(d / BWD)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(d / "lib.so"),
+             str(d / main)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
-    libs = {}
+    libs, logs = {}, {}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name} copy:\n{err}")
-        libs[name] = ctypes.CDLL(str(OUT_DIR / name / "lib.so"))
-    return libs
+        libs[name] = ctypes.CDLL(str(out_dir / name / "lib.so"))
+        logs[name] = err
+    return libs, logs
 
 
-def _entry(lib, name, argtypes):
+def entry(lib, name, argtypes):
     fn = getattr(lib, name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -163,8 +164,8 @@ def main(argv=None) -> list:
         raise SystemExit("prof_field_bwd_parts: K4/K5 run only on a card "
                          "and torch.cuda.is_available() is False")
     t0 = time.perf_counter()
-    libs = build(variants({f: (CSRC_DIR / f).read_text()
-                           for f in (BWD, TILE)}))
+    libs, _ = build(variants({f: (CSRC_DIR / f).read_text()
+                              for f in (BWD, TILE)}))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda:0")
     name = device_name(dev)
@@ -204,17 +205,17 @@ def main(argv=None) -> list:
             line = {"kernel": kernel, "layout": layout, "points": n, "F": feat,
                     "R_max": r_max}
             for copy, lib in libs.items():
-                grid = _entry(lib, "gbnerf_field_fused_bwd_grid",
+                grid = entry(lib, "gbnerf_field_fused_bwd_grid",
                               [ctypes.c_int] * 4)(n, r_max, feat,
                                                   int(sigma_only))
                 if grid <= 0:
                     raise RuntimeError(f"{copy}: grid query: CUDA error "
                                        f"{-grid}")
-                row = _entry(lib, "gbnerf_field_fused_bwd_row",
+                row = entry(lib, "gbnerf_field_fused_bwd_row",
                              [ctypes.c_int] * 3)(r_max, feat, int(sigma_only))
                 scratch = torch.empty((grid, row), dtype=torch.float32,
                                       device=dev)
-                fn = _entry(lib, "gbnerf_field_fused_bwd", _BWD_ARGTYPES)
+                fn = entry(lib, "gbnerf_field_fused_bwd", _BWD_ARGTYPES)
 
                 def call(fn=fn, scratch=scratch, grid=grid, copy=copy):
                     err = fn(x.data_ptr(), None if sh is None else

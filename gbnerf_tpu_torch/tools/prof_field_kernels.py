@@ -3,8 +3,10 @@
 
 At the main paths' shapes with the shipped config's fields (seeded
 random weights, F 80, R_max 257): K1 at a render's fine pass (2,097,152
-points), K2 at its coarse pass (1,048,576), K4 at a stage-1 step's fine
-pass (131,072), K5 at its coarse pass (65,536). Each under two point
+points) and at a stage-1 step's (131,072, the shape of most of its
+launches), K2 at a render's coarse pass (1,048,576) and at a step's
+(65,536), K4 at a stage-1 step's fine pass (131,072), K5 at its coarse
+pass (65,536). Each under two point
 layouts: ``uniform`` (independent points in [0.03, 0.97]³, as
 chip_smoke.py's checks) and ``rays`` (consecutive samples along rays, as
 the render and training paths lay them out: 128 a ray at the fine pass,
@@ -12,17 +14,19 @@ the render and training paths lay them out: 128 a ray at the fine pass,
 events over ``--reps`` back-to-back calls after one warm-up; ``graph_ms``:
 the same calls replayed from one CUDA graph), its largest error against
 the plain version and the count outside chip_smoke.py's tolerances,
-whether two backward calls are bit-equal, and the kernel's registers,
-spill bytes, shared memory a block and blocks an SM. The points are not
-kept off the grid nodes (chip_smoke.py's checks are), so a few dx entries
-next to a node, where the kernel's and autograd's subgradient conventions
-differ, may count outside the tolerance.
+whether two backward calls are bit-equal, a digest of the outputs'
+bytes (run in two trees, equal digests mean bit-equal outputs), and the
+kernel's registers, spill bytes, shared memory a block and blocks an SM.
+The points are not kept off the grid nodes (chip_smoke.py's checks are),
+so a few dx entries next to a node, where the kernel's and autograd's
+subgradient conventions differ, may count outside the tolerance.
 
     python -m gbnerf_tpu_torch.tools.prof_field_kernels [--reps 20]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 from pathlib import Path
 
@@ -33,7 +37,9 @@ FIELD_RTOL, FIELD_ATOL_FRAC = 3e-2, 5e-3     # chip_smoke.py's tolerances
 DX_RTOL, DX_ATOL_FRAC = 5e-2, 8e-3
 # (kernel, field, points, samples a ray, backward, sigma_only)
 CASES = (("field_fused", "fine", 16384 * 128, 128, False, False),
+         ("field_fused", "fine", 1024 * 128, 128, False, False),
          ("field_fused_sigma", "coarse", 16384 * 64, 64, False, True),
+         ("field_fused_sigma", "coarse", 1024 * 64, 64, False, True),
          ("field_fused_bwd", "fine", 1024 * 128, 128, True, False),
          ("field_fused_bwd_sigma", "coarse", 1024 * 64, 64, True, True))
 
@@ -54,6 +60,15 @@ def compare(got, ref, rtol, atol_frac) -> dict:
     atol = atol_frac * max(float(ref.abs().max()), 1e-3)
     return {"max_abs_err": float(diff.max()),
             "n_out_of_tol": int((diff > atol + rtol * ref.abs()).sum())}
+
+
+def digest(tensors) -> str:
+    """A hash of the tensors' bytes: equal digests across two trees on the
+    same inputs (this tool's seeded draws) mean bit-equal outputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main(argv=None) -> list:
@@ -110,6 +125,7 @@ def main(argv=None) -> list:
                     t[3][k] for k in Ws]                   # noqa: E731
                 r["deterministic"] = all(torch.equal(a, b) for a, b in
                                          zip(flat(got), flat(again)))
+                r["digest"] = digest(flat(got))
                 names = ["dx"] + ([] if sigma_only else ["dsh"]) + [
                     "dulines"] + ["d" + k for k in Ws]
                 for nm, a, b in zip(names, flat(got), flat(ref)):
@@ -121,9 +137,11 @@ def main(argv=None) -> list:
                 call = lambda: ff.cp_field_fused(          # noqa: E731
                     x, sh, ul, Ws, sigma_only=sigma_only)
                 with torch.no_grad():
-                    r["raw"] = compare(call(), ff.field_plain(
+                    raw = call()
+                    r["raw"] = compare(raw, ff.field_plain(
                         x, sh, ul, Ws, sigma_only=sigma_only), FIELD_RTOL,
                         FIELD_ATOL_FRAC)
+                    r["digest"] = digest([raw])
             with torch.no_grad():
                 r["ms"] = time_ms(call, dev, args.reps)
                 r["graph_ms"] = graph_ms(call, dev, args.reps)

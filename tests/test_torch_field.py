@@ -177,6 +177,50 @@ def test_pack_weights_layout(rng, feat):
     assert torch.equal(tff._chunk_order(at, inverse=True), torch.arange(32))
 
 
+def _pack_elementwise(Ws, *, sigma_only):
+    """The element-wise pack that ``pack_weights`` replaced (a zeroed
+    buffer, each weight cast and written into its slices): the reference
+    the gathered buffer must equal bit for bit."""
+    feat = Ws["ws0"].shape[0]
+    lay = tff.weight_layout(feat, sigma_only=sigma_only)
+    buf = torch.zeros(lay["total"], dtype=torch.bfloat16)
+    for k in tff.W_KEYS[:2 if sigma_only else 5]:
+        off, rows, stride = lay[k]
+        view = buf[off:off + rows * stride].view(rows, stride)
+        w = Ws[k].detach().to(torch.bfloat16)
+        if k == "wc0":
+            view[:16, :64] = w[:16]
+            view[17:, :64] = w[16:]
+        elif k == "ws0":
+            view[:, :64] = tff._chunk_order(
+                torch.nn.functional.pad(w, (0, 0, 0, rows - feat)))
+        else:
+            view[:w.shape[0], :w.shape[1]] = w
+    return buf
+
+
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("feat", [16, 24, 80, 160])
+def test_pack_weights_gather_equals_the_elementwise_pack(rng, feat,
+                                                         sigma_only):
+    """pack_weights' one gather from the cached index map gives the
+    element-wise pack's buffer bit for bit (every padding entry a +0), on
+    a second call from the cache too, and a weight's update shows in it."""
+    _, _, _, Ws = _mats(rng, 4, 33, feat)
+    W = {k: torch.from_numpy(v) for k, v in Ws.items()}
+    if sigma_only:
+        W = {k: W[k] for k in ("ws0", "ws1")}
+    bits = lambda t: t.view(torch.int16)          # noqa: E731
+    for _ in range(2):
+        got = tff.pack_weights(W, sigma_only=sigma_only)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(bits(got),
+                           bits(_pack_elementwise(W, sigma_only=sigma_only)))
+    W["ws1"] = W["ws1"] + 1.0
+    assert torch.equal(bits(tff.pack_weights(W, sigma_only=sigma_only)),
+                       bits(_pack_elementwise(W, sigma_only=sigma_only)))
+
+
 @pytest.mark.parametrize("sigma_only", [False, True])
 @pytest.mark.parametrize("r_max,feat,n", [(17, 16, 300), (33, 80, 300),
                                           (257, 80, 300)])
@@ -409,3 +453,47 @@ def test_cp_positions_on_the_card_equal_the_cpus():
     for bound in (8.0, 3.0, 1.5):
         assert torch.equal(tcp.positions(pts.cuda(), bound).cpu(),
                            tcp.positions(pts, bound)), bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("r_max,feat,n", [(257, 80, 131072 - 29),
+                                          (65, 24, 4099), (33, 16, 1000),
+                                          (129, tff.MAX_FEAT, 3001)])
+def test_kernel_fwd_matches_plain_on_the_card(rng, r_max, feat, n,
+                                              sigma_only):
+    """K1/K2 (warpgroup products, 64 points a warpgroup, a ragged last
+    tile) against field_plain at the tolerances above, at the shipped
+    width, the proposal field's (F 24: one k-chunk half past F), the
+    narrowest and the widest; rgb exactly zero for K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K1/K2 are CUDA C++; no CPU mode)")
+    dev = torch.device("cuda:0")
+    x01, sh, ulines, Ws = _mats(rng, n, r_max, feat)
+    x, s, ul = (torch.from_numpy(a).to(dev) for a in (x01, sh, ulines))
+    W = {k: torch.from_numpy(v).to(dev) for k, v in Ws.items()}
+    s = None if sigma_only else s
+    with torch.no_grad():
+        got = tff.cp_field_fused(x, s, ul, W, sigma_only=sigma_only)
+        ref = tff.field_plain(x, s, ul, W, sigma_only=sigma_only)
+    _close(got.cpu().numpy(), ref.cpu().numpy(), "raw")
+    if sigma_only:
+        assert bool((got[:, :3] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma_only", [False, True])
+def test_kernel_fwd_info_on_the_card(sigma_only):
+    """kernel_info's account of K1/K2: 4 warpgroups of 64 points a block,
+    one block an SM, no spills, the lines staged at the shipped shape
+    (their 136 KB and the weights within the card's limit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K1/K2 are CUDA C++; no CPU mode)")
+    info = tff.kernel_info(backward=False, sigma_only=sigma_only, r_max=257,
+                           feat=80)
+    assert list(info) == list(tff.FWD_INFO_KEYS)
+    assert info["warpgroups"] == 4 and info["tile"] == 64
+    assert info["blocks_per_sm"] == 1 and info["spill_bytes"] == 0
+    assert info["smem_bytes"] > 3 * 257 * 88 * 2
+    props = torch.cuda.get_device_properties(0)
+    assert info["smem_bytes"] <= props.shared_memory_per_block_optin

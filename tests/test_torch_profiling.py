@@ -250,6 +250,34 @@ def test_prof_field_bwd_parts_copies_take_their_parts_out():
         assert copies[name] != src, name
 
 
+def test_prof_field_fwd_parts_refuses_the_cpu(monkeypatch):
+    """The K1/K2 parts timer needs a card and says so, before it builds."""
+    from gbnerf_tpu_torch.tools import prof_field_fwd_parts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="card"):
+        prof_field_fwd_parts.main(["--reps", "2"])
+
+
+def test_prof_field_fwd_parts_copies_take_their_parts_out():
+    """Every copy of the K1/K2 parts timer finds its anchors in the
+    committed csrc/field_fused.cu and differs from the kernel; an anchor
+    the source no longer holds as often as the copy says raises. A source
+    change that moves an anchor raises here, not on the card."""
+    from gbnerf_tpu_torch.ops._build import CSRC_DIR
+    from gbnerf_tpu_torch.tools import prof_field_fwd_parts as parts
+
+    src = {parts.FWD: (CSRC_DIR / parts.FWD).read_text()}
+    copies = parts.variants(src, parts.PARTS)
+    assert copies["kernel"] == src
+    assert set(copies) == {"kernel", *parts.PARTS}
+    for name in parts.PARTS:
+        assert copies[name] != src, name
+    with pytest.raises(ValueError, match="no_color"):
+        parts.variants(src, {"no_color": parts.PARTS["no_color"]
+                             + parts.PARTS["no_color"]})
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     from gbnerf_tpu_torch.config import Config
     from gbnerf_tpu_torch.train import loop
