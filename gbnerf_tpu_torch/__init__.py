@@ -13,7 +13,10 @@ Layer map (mirrors gbnerf_tpu):
   data/   LLFF/COLMAP loaders (numpy), ray banks
   train/  train state, losses, the stage-1 and stage-2 steps and loop,
           checkpoints, render functions, eval renders
-  utils/  metrics, profiling (trace, annotate, StepTimer, nan_guard)
+  utils/  metrics, profiling (trace, StepTimer, nan_guard, annotate: a
+          span only while a profiler records; the hot path's six spans
+          gbnerf.data.batch, .text.encode, .lora.apply, .attn.bwd,
+          .field.hash_encode, .render.resample)
   tools/  profilers: prof_field, prof_train, prof_guidance, trace_summary
   config.py  the config schema, a copy of the JAX package's
   run.py  the CLI (``python -m gbnerf_tpu_torch.run --config …``)

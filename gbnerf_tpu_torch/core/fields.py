@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import SPAN_HASH_ENCODE, annotate
 from .cp_field import lecun_normal
 from .encoding import freq_encode, freq_encode_dim, sh_encode
 
@@ -137,42 +138,43 @@ def hash_encode(x01: torch.Tensor, table: torch.Tensor, base_res: int = 16,
     order, so it is deterministic on the card too. The points' gradient
     flows through the interpolation weights.
     """
-    L, T, F_ = table.shape
-    res = level_resolutions(L, base_res, per_level_scale)
-    n_dense = sum((r + 1) ** 3 <= T for r in res)
-    if any((r + 1) ** 3 <= T for r in res[n_dense:]):
-        raise ValueError("dense levels must precede hashed ones")
-    dev = x01.device
-    pos = x01[..., None, :] * torch.tensor(res, dtype=x01.dtype,
-                                           device=dev)[:, None]
-    pos0 = torch.floor(pos)
-    frac = pos - pos0                                    # [..., L, 3]
-    i0 = pos0.to(torch.int64)
-    # per axis, the index term of the corner at 0 and at 1: [..., L, 2, 3]
-    mult = torch.tensor([[1, r + 1, (r + 1) ** 2] for r in res[:n_dense]]
-                        + [list(_HASH_PRIMES)] * (L - n_dense),
-                        dtype=torch.int64, device=dev)
-    terms = torch.stack([i0, i0 + 1], dim=-2) * mult[:, None, :]
-    lead = x01.shape[:-1]
+    with annotate(SPAN_HASH_ENCODE):
+        L, T, F_ = table.shape
+        res = level_resolutions(L, base_res, per_level_scale)
+        n_dense = sum((r + 1) ** 3 <= T for r in res)
+        if any((r + 1) ** 3 <= T for r in res[n_dense:]):
+            raise ValueError("dense levels must precede hashed ones")
+        dev = x01.device
+        pos = x01[..., None, :] * torch.tensor(res, dtype=x01.dtype,
+                                               device=dev)[:, None]
+        pos0 = torch.floor(pos)
+        frac = pos - pos0                                    # [..., L, 3]
+        i0 = pos0.to(torch.int64)
+        # per axis, the index term of the corner at 0 and at 1: [..., L, 2, 3]
+        mult = torch.tensor([[1, r + 1, (r + 1) ** 2] for r in res[:n_dense]]
+                            + [list(_HASH_PRIMES)] * (L - n_dense),
+                            dtype=torch.int64, device=dev)
+        terms = torch.stack([i0, i0 + 1], dim=-2) * mult[:, None, :]
+        lead = x01.shape[:-1]
 
-    def corners(t, op):
-        # corner (i, j, k) of the cell is 4i + 2j + k, the JAX package's
-        # order: [..., l, 2, 3] → [..., l, 8]
-        c = op(op(t[..., :, None, None, 0], t[..., None, :, None, 1]),
-               t[..., None, None, :, 2])
-        return c.reshape(*c.shape[:-3], 8)
+        def corners(t, op):
+            # corner (i, j, k) of the cell is 4i + 2j + k, the JAX package's
+            # order: [..., l, 2, 3] → [..., l, 8]
+            c = op(op(t[..., :, None, None, 0], t[..., None, :, None, 1]),
+                   t[..., None, None, :, 2])
+            return c.reshape(*c.shape[:-3], 8)
 
-    idx = torch.cat([corners(terms[..., :n_dense, :, :], torch.add),
-                     corners(terms[..., n_dense:, :, :],
-                             torch.bitwise_xor)], dim=-2)
-    idx = (idx & (T - 1)) + torch.arange(L, device=dev)[:, None] * T
-    feats = F.embedding(idx, table.reshape(L * T, F_))   # [..., L, 8, F]
-    if not interpolate:
-        return feats[..., 0, :].reshape(*lead, L * F_)
-    w1 = torch.stack([1.0 - frac, frac], dim=-2)         # [..., L, 2, 3]
-    w = (w1[..., :, None, None, 0] * w1[..., None, :, None, 1]
-         * w1[..., None, None, :, 2]).reshape(*lead, L, 8)
-    return torch.sum(feats * w[..., None], dim=-2).reshape(*lead, L * F_)
+        idx = torch.cat([corners(terms[..., :n_dense, :, :], torch.add),
+                         corners(terms[..., n_dense:, :, :],
+                                 torch.bitwise_xor)], dim=-2)
+        idx = (idx & (T - 1)) + torch.arange(L, device=dev)[:, None] * T
+        feats = F.embedding(idx, table.reshape(L * T, F_))   # [..., L, 8, F]
+        if not interpolate:
+            return feats[..., 0, :].reshape(*lead, L * F_)
+        w1 = torch.stack([1.0 - frac, frac], dim=-2)         # [..., L, 2, 3]
+        w = (w1[..., :, None, None, 0] * w1[..., None, :, None, 1]
+             * w1[..., None, None, :, 2]).reshape(*lead, L, 8)
+        return torch.sum(feats * w[..., None], dim=-2).reshape(*lead, L * F_)
 
 
 class HashGridField(nn.Module):

@@ -20,6 +20,7 @@ from ..ops.resample import merge_sorted_fast, sample_pdf_fast
 from ..ops.scan import cumprod_last_exclusive
 from ..parallel.mesh import draw
 from ..utils import jax_random as jr
+from ..utils.profiling import SPAN_RESAMPLE, annotate
 from .sampling import merge_z_vals, sample_pdf, stratified_z_vals
 
 
@@ -122,16 +123,17 @@ def render_rays(coarse_fn: FieldFn, fine_fn: Optional[FieldFn],
 
     rgb0, disp0, acc0, depth0 = rgb, disp, acc, depth
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    if fast_resample:
-        z_samples = sample_pdf_fast(
-            z_mid, weights[..., 1:-1].detach(), N_importance,
-            det=not perturb, generator=k_pdf, sorted_u=True).detach()
-        z_all = merge_sorted_fast(z_vals, z_samples)
-    else:
-        z_samples = sample_pdf(
-            z_mid, weights[..., 1:-1].detach(), N_importance,
-            det=not perturb, generator=k_pdf).detach()
-        z_all = merge_z_vals(z_vals, z_samples)
+    with annotate(SPAN_RESAMPLE):
+        if fast_resample:
+            z_samples = sample_pdf_fast(
+                z_mid, weights[..., 1:-1].detach(), N_importance,
+                det=not perturb, generator=k_pdf, sorted_u=True).detach()
+            z_all = merge_sorted_fast(z_vals, z_samples)
+        else:
+            z_samples = sample_pdf(
+                z_mid, weights[..., 1:-1].detach(), N_importance,
+                det=not perturb, generator=k_pdf).detach()
+            z_all = merge_z_vals(z_vals, z_samples)
 
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
     raw = (fine_fn or coarse_fn)(pts, viewdirs)

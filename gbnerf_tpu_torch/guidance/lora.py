@@ -36,6 +36,7 @@ from torch import nn
 
 from .. import convert
 from ..utils import jax_random as jr
+from ..utils.profiling import SPAN_LORA_APPLY, annotate
 
 DEFAULT_TARGETS = (
     r".*/attn[12]/to_q/kernel$",
@@ -155,12 +156,13 @@ def apply_lora(module: nn.Module, adapters: Adapters, *, rank: Optional[int]
     skips it (merge_lora_strict refuses it)."""
     scale = _scale(adapters, rank, alpha) if adapters else 1.0
     out = {}
-    for name, path, p in _kernel_params(module):
-        a = adapters.get(path + ".lora_A")
-        if a is None:
-            continue
-        b = adapters[path + ".lora_B"]
-        out[name] = (p.float() + scale * _delta(p, a, b)).to(p.dtype)
+    with annotate(SPAN_LORA_APPLY):
+        for name, path, p in _kernel_params(module):
+            a = adapters.get(path + ".lora_A")
+            if a is None:
+                continue
+            b = adapters[path + ".lora_B"]
+            out[name] = (p.float() + scale * _delta(p, a, b)).to(p.dtype)
     return out
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import SPAN_TEXT_ENCODE, annotate
 from .blocks import LAYER_NORM_EPS
 
 
@@ -120,17 +121,19 @@ class CLIPTextEncoder(nn.Module):
 
     def forward(self, input_ids):
         """[B, L] token ids → last_hidden_state [B, L, width]."""
-        tm = self.text_model
-        ids = torch.as_tensor(input_ids, dtype=torch.long,
-                              device=tm.final_layer_norm.weight.device)
-        L = ids.shape[1]
-        x = (tm.embeddings.token_embedding(ids)
-             + tm.embeddings.position_embedding.weight[None, :L])
-        causal = torch.triu(torch.full((L, L), -1e9, dtype=torch.float32,
-                                       device=ids.device), diagonal=1)
-        for layer in tm.encoder.layers:
-            x = layer(x, causal[None, None])
-        return tm.final_layer_norm(x)
+        with annotate(SPAN_TEXT_ENCODE):
+            tm = self.text_model
+            ids = torch.as_tensor(input_ids, dtype=torch.long,
+                                  device=tm.final_layer_norm.weight.device)
+            L = ids.shape[1]
+            x = (tm.embeddings.token_embedding(ids)
+                 + tm.embeddings.position_embedding.weight[None, :L])
+            causal = torch.triu(torch.full((L, L), -1e9,
+                                           dtype=torch.float32,
+                                           device=ids.device), diagonal=1)
+            for layer in tm.encoder.layers:
+                x = layer(x, causal[None, None])
+            return tm.final_layer_norm(x)
 
 
 class Tokenizer:

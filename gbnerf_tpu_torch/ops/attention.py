@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import SPAN_ATTN_BWD, annotate
 from ._build import kernel_function
 
 # Calls of K7 since the last reset (chip_smoke.py zeroes and reads it), the
@@ -307,7 +308,7 @@ class _Attend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
+        with annotate(SPAN_ATTN_BWD), torch.enable_grad():
             qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
             out = _oracle(qq, kk, vv, ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv),

@@ -49,6 +49,7 @@ from ..parallel.mesh import (average_grads, data_sharding, gather,
 from ..parallel.mesh import rank as process_rank
 from ..utils import jax_random as jr
 from ..utils import msgpack
+from ..utils.profiling import SPAN_DATA_BATCH, annotate
 from ..utils.png import write_png
 
 
@@ -136,19 +137,21 @@ class DreamBoothInpaintDataset:
     def batch(self, rng: np.random.Generator, batch_size: int):
         """A host batch: images u8, random masks u8, captions, instance
         masks u8 or None."""
-        idx = rng.integers(0, len(self.files), batch_size)
-        imgs = np.stack([self.image(i) for i in idx])
-        masks = np.stack([random_mask(rng, self.resolution, self.resolution)
-                          for _ in range(batch_size)]).astype(np.uint8)
-        captions = [self.caption(i) for i in idx]
-        imasks = [self.instance_mask(i) for i in idx]
-        if any(m is not None for m in imasks):
-            imasks = np.stack([
-                m if m is not None else np.ones((self.resolution,) * 2,
-                                                np.float32)
-                for m in imasks]).astype(np.uint8)
-        else:
-            imasks = None
+        with annotate(SPAN_DATA_BATCH):
+            idx = rng.integers(0, len(self.files), batch_size)
+            imgs = np.stack([self.image(i) for i in idx])
+            masks = np.stack([random_mask(rng, self.resolution,
+                                          self.resolution)
+                              for _ in range(batch_size)]).astype(np.uint8)
+            captions = [self.caption(i) for i in idx]
+            imasks = [self.instance_mask(i) for i in idx]
+            if any(m is not None for m in imasks):
+                imasks = np.stack([
+                    m if m is not None else np.ones((self.resolution,) * 2,
+                                                    np.float32)
+                    for m in imasks]).astype(np.uint8)
+            else:
+                imasks = None
         return imgs, masks, captions, imasks
 
 

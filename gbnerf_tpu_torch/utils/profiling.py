@@ -7,7 +7,16 @@ Port of gbnerf_tpu/utils/profiling.py:
     chrome trace, ``logdir/trace.json`` (chrome://tracing, Perfetto;
     tools/trace_summary.py sums it by kernel).
   - ``annotate(name)``: a named span in that trace
-    (``torch.profiler.record_function``).
+    (``torch.profiler.record_function``) while a profiler is recording,
+    else one shared ``contextlib.nullcontext()``: a span costs a flag
+    test when nothing profiles. The spans go through the profiler alone,
+    on its clock, and show on the device lane as ``gpu_user_annotation``.
+    The port's own spans on its hot path (the ``SPAN_*`` names here):
+    ``gbnerf.data.batch`` (the LoRA dataset's batch), ``gbnerf.text.encode``
+    (the CLIP text tower), ``gbnerf.lora.apply`` (the adapters' merges),
+    ``gbnerf.attn.bwd`` (K7's backward), ``gbnerf.field.hash_encode`` (the
+    hash grid's encode) and ``gbnerf.render.resample`` (the fine samples'
+    draw and merge).
   - ``StepTimer``: steps/sec with the first (warm-up) interval excluded.
   - ``time_ms``: a call's mean time after a warm-up call, with CUDA events
     on a card (the host clock on the CPU).
@@ -28,9 +37,19 @@ import time
 from typing import Dict, Iterable, Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
+
+SPAN_DATA_BATCH = "gbnerf.data.batch"
+SPAN_TEXT_ENCODE = "gbnerf.text.encode"
+SPAN_LORA_APPLY = "gbnerf.lora.apply"
+SPAN_ATTN_BWD = "gbnerf.attn.bwd"
+SPAN_HASH_ENCODE = "gbnerf.field.hash_encode"
+SPAN_RESAMPLE = "gbnerf.render.resample"
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -47,7 +66,11 @@ def trace(logdir: str) -> Iterator[profile]:
 
 
 def annotate(name: str):
-    return record_function(name)
+    """A span named ``name`` while a profiler records, else the shared
+    no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 class StepTimer:

@@ -101,6 +101,174 @@ def test_trace_writes_a_trace_that_the_summary_reads(tmp_path):
     assert sum(ms.values()) == pytest.approx(s["busy_ms"])
 
 
+def test_annotate_is_a_shared_no_op_unless_a_profiler_records(tmp_path):
+    """Without a profiler annotate hands back one shared nullcontext, so no
+    record_function is made; under ``trace`` it records the name given."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    off = tprof.annotate(tprof.SPAN_HASH_ENCODE)
+    assert off is tprof.annotate("another") is tprof._NO_SPAN
+    assert isinstance(off, contextlib.nullcontext)
+    assert not isinstance(off, record_function)
+    with off, off:                       # reusable and reentrant
+        pass
+    with tprof.trace(str(tmp_path)):
+        on = tprof.annotate("gbnerf.test.span")
+        assert isinstance(on, record_function)
+        with on:
+            torch.ones(3).sum()
+    assert tprof.annotate("after") is tprof._NO_SPAN
+    doc = json.loads((tmp_path / tprof.TRACE_FILE).read_text())
+    assert any(e.get("name") == "gbnerf.test.span"
+               for e in doc["traceEvents"])
+
+
+def _span_case_batch(tmp_path):
+    from gbnerf_tpu_torch.train.lora_trainer import DreamBoothInpaintDataset
+    from gbnerf_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "img").mkdir()
+    (tmp_path / "mask").mkdir()
+    for i in range(2):
+        write_png(str(tmp_path / "img" / f"{i}.png"),
+                  rng.integers(0, 256, (20, 28, 3), dtype=np.uint8))
+        write_png(str(tmp_path / "mask" / f"{i}.png"),
+                  (rng.random((20, 28)) > 0.5).astype(np.uint8) * 255)
+    ds = DreamBoothInpaintDataset(str(tmp_path / "img"),
+                                  mask_dir=str(tmp_path / "mask"),
+                                  resolution=16, default_caption="a cat")
+
+    def call():
+        imgs, masks, caps, imasks = ds.batch(np.random.default_rng(3), 3)
+        assert caps == ["a cat"] * 3
+        return [imgs, masks, imasks]
+    return call
+
+
+def _tiny_text():
+    from gbnerf_tpu_torch.guidance.text import (CLIPTextConfig,
+                                                CLIPTextEncoder)
+
+    torch.manual_seed(0)
+    return CLIPTextEncoder(CLIPTextConfig(vocab_size=64, max_length=8,
+                                          width=16, layers=1, heads=2))
+
+
+def _span_case_text(tmp_path):
+    text = _tiny_text()
+    ids = torch.randint(0, 64, (2, 8), generator=torch.Generator()
+                        .manual_seed(1))
+
+    def call():
+        with torch.no_grad():
+            return [text(ids)]
+    return call
+
+
+def _span_case_lora(tmp_path):
+    from gbnerf_tpu_torch.guidance import lora
+
+    text = _tiny_text()
+    g = torch.Generator().manual_seed(2)
+    ad = {k: (v if k.endswith("lora_A") else torch.randn(v.shape,
+                                                         generator=g))
+          for k, v in lora.init_lora(text, rank=2, targets=lora.TEXT_TARGETS,
+                                     generator=g).items()}
+    assert ad
+
+    def call():
+        eff = lora.apply_lora(text, ad, alpha=4.0)
+        return [eff[k] for k in sorted(eff)]
+    return call
+
+
+def _span_case_attention(tmp_path):
+    from gbnerf_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(4)
+    q, k, v, dout = (torch.randn(2, 32, 8, generator=g) for _ in range(4))
+
+    def call():
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = attention._Attend.apply(qq, kk, vv, 0.35)
+        grads = torch.autograd.grad(out, (qq, kk, vv), dout)
+        return [out.detach(), *grads]
+    return call
+
+
+def _span_case_hash(tmp_path):
+    from gbnerf_tpu_torch.core.fields import hash_encode
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(40, 3, generator=g)
+    table = torch.randn(3, 64, 2, generator=g)
+
+    def call():
+        xx, tt = x.clone().requires_grad_(True), \
+            table.clone().requires_grad_(True)
+        out = hash_encode(xx, tt, base_res=2, per_level_scale=2.0)
+        grads = torch.autograd.grad((out * out).sum(), (xx, tt))
+        return [out.detach(), *grads]
+    return call
+
+
+def _span_case_resample(tmp_path):
+    from gbnerf_tpu_torch.core.render import render_rays
+
+    g = torch.Generator().manual_seed(6)
+    w = torch.randn(3, 4, generator=g)
+    rays_o = torch.randn(6, 3, generator=g)
+    rays_d = torch.nn.functional.normalize(torch.randn(6, 3, generator=g),
+                                           dim=-1)
+
+    def field(pts, viewdirs, sigma_only=False):
+        return torch.sin(pts @ w)
+
+    def call():
+        out = render_rays(field, field, rays_o, rays_d, rays_d,
+                          torch.full((6, 1), 0.5), torch.full((6, 1), 3.0),
+                          N_samples=16, N_importance=8, perturb=True,
+                          generator=torch.Generator().manual_seed(7))
+        return [t for t in out if isinstance(t, torch.Tensor)]
+    return call
+
+
+SPAN_CASES = {
+    tprof.SPAN_DATA_BATCH: _span_case_batch,
+    tprof.SPAN_TEXT_ENCODE: _span_case_text,
+    tprof.SPAN_LORA_APPLY: _span_case_lora,
+    tprof.SPAN_ATTN_BWD: _span_case_attention,
+    tprof.SPAN_HASH_ENCODE: _span_case_hash,
+    tprof.SPAN_RESAMPLE: _span_case_resample,
+}
+
+
+@pytest.mark.parametrize("span", sorted(SPAN_CASES))
+def test_hot_path_span_is_traced_and_leaves_outputs_bit_equal(span,
+                                                              tmp_path):
+    """Each of the port's six spans shows in a trace of a tiny CPU call of
+    its function, and the call's outputs (and gradients) with the profiler
+    on are bit-equal to those without it."""
+    call = SPAN_CASES[span](tmp_path)
+    off = call()
+    with tprof.trace(str(tmp_path / "trace")):
+        on = call()
+    doc = json.loads((tmp_path / "trace" / tprof.TRACE_FILE).read_text())
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert span in names
+    assert span.startswith("gbnerf.")
+    assert len(on) == len(off) > 0
+    for a, b in zip(on, off):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
 def test_trace_summary_reads_device_kernels(tmp_path):
     """A trace with device events sums those, not the host's ops: the
     format the profiler exports on a machine with a card."""
