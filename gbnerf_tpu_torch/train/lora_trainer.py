@@ -14,7 +14,10 @@ weights of guidance/lora.py::apply_lora, so gradients reach only the
 adapters. Images are read with the port's PNG codec (other formats through
 imageio where it imports) and resized in numpy (data/llff.py: INTER_AREA's
 overlap weights, which are also its weights when it enlarges, and
-INTER_NEAREST for instance masks).
+INTER_NEAREST for instance masks), once each when the dataset is built:
+the dataset holds them by index, read again only where a file changes on
+disk, so a step's batch is its random draws and the stacking of held
+arrays.
 
 Randomness: the host streams (batch indices, ``random_mask``, the prompt
 draw of train_lora's prior flow) are numpy, as in the JAX package, so one
@@ -34,7 +37,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +52,7 @@ from ..parallel.mesh import (average_grads, data_sharding, gather,
 from ..parallel.mesh import rank as process_rank
 from ..utils import jax_random as jr
 from ..utils import msgpack
-from ..utils.profiling import SPAN_DATA_BATCH, annotate
+from ..utils.profiling import SPAN_DATA_BATCH, SPAN_DATA_DECODE, annotate
 from ..utils.png import write_png
 
 
@@ -73,12 +76,38 @@ def random_mask(rng: np.random.Generator, h: int, w: int,
     return mask
 
 
+class _Held(NamedTuple):
+    """One instance as batch() serves it, and the files it was read from."""
+    key: tuple                   # _file_key of each of _sources' paths
+    image: np.ndarray            # [res, res, 3] uint8, read-only
+    mask: Optional[np.ndarray]   # [res, res] uint8 in {0, 1}, read-only
+    caption: str
+
+
+def _file_key(path: str):
+    """(st_mtime_ns, st_size) of the file at path; None where there is
+    none."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return st.st_mtime_ns, st.st_size
+
+
 @dataclass
 class DreamBoothInpaintDataset:
     """Instance images with same-stem .txt captions (beside them or in
     caption_dir) and optional instance masks (mask_dir) for the masked
     loss; default_caption for an image without a caption file (the class
-    images of prior preservation)."""
+    images of prior preservation).
+
+    Every instance is decoded once, when the dataset is built: its image
+    area-resized to [res, res, 3] uint8, its mask to {0, 1}, its caption
+    read, all held by index, read-only. Each later use stats the item's
+    files (image, caption, mask candidates) and decodes the item again
+    where one of them changed, appeared or went, so a file replaced on
+    disk is never served stale. ``decodes`` counts the decodes, each in
+    a ``gbnerf.data.decode`` span."""
 
     instance_dir: str
     caption_dir: Optional[str] = None
@@ -93,6 +122,8 @@ class DreamBoothInpaintDataset:
                       if f.endswith(exts)]
         if not self.files:
             raise FileNotFoundError(f"no images in {self.instance_dir}")
+        self.decodes = 0
+        self._held = [self._decode(i) for i in range(len(self.files))]
 
     def __len__(self):
         return len(self.files)
@@ -100,56 +131,95 @@ class DreamBoothInpaintDataset:
     def _stem(self, idx: int) -> str:
         return os.path.splitext(os.path.basename(self.files[idx]))[0]
 
+    def _sources(self, idx: int) -> Tuple[str, ...]:
+        """The item's image, its caption file and its mask candidates in
+        the order they are looked for."""
+        stem = self._stem(idx)
+        masks = (tuple(os.path.join(self.mask_dir, stem + ext)
+                       for ext in (".png", ".jpg"))
+                 if self.mask_dir else ())
+        return (self.files[idx],
+                os.path.join(self.caption_dir or self.instance_dir,
+                             stem + ".txt")) + masks
+
+    def _decode(self, idx: int) -> _Held:
+        # the key is taken before the reads: a file replaced during them
+        # leaves a key that the next use finds stale
+        paths = self._sources(idx)
+        key = tuple(_file_key(p) for p in paths)
+        with annotate(SPAN_DATA_DECODE):
+            self.decodes += 1
+            img = np.asarray(_imread(paths[0]))[..., :3]
+            # >8-bit input would wrap modulo 256 under a bare astype(uint8)
+            if img.dtype == np.uint16:
+                img = (img // 257).astype(np.uint8)
+            elif img.dtype != np.uint8:
+                img = np.clip(np.round(
+                    img.astype(np.float32)
+                    * (255.0 if img.max() <= 1.0 else 1.0)), 0, 255
+                ).astype(np.uint8)
+            img = resize_area(img, self.resolution, self.resolution)
+            # held in the layout resize_area made: [W, H, 3] in memory, and
+            # so is the stacked batch. Its permute to NCHW is then no
+            # channels-last tensor and the VAE encodes in NCHW; a C-ordered
+            # image would send the encoder channels-last, which costs an
+            # H100 ≈ 12 ms of strided elementwise kernels a LoRA step
+            # (batch 4 at 512²)
+            img.flags.writeable = False
+            caption = self.default_caption
+            if key[1] is not None:
+                with open(paths[1]) as fh:
+                    caption = fh.read().strip()
+            mask = next((self._read_mask(p)
+                         for p, k in zip(paths[2:], key[2:])
+                         if k is not None), None)
+        return _Held(key, img, mask, caption)
+
+    def _read_mask(self, path: str) -> np.ndarray:
+        m = np.asarray(_imread(path)).astype(np.float32)
+        if m.ndim > 2:
+            m = m[..., 0]
+        m = resize_nearest(m, self.resolution, self.resolution)
+        m = (m > 127).astype(np.uint8)
+        m.flags.writeable = False
+        return m
+
+    def _item(self, idx: int) -> _Held:
+        """The held item, decoded again where a file of it changed."""
+        held = self._held[idx]
+        if held.key != tuple(_file_key(p) for p in self._sources(idx)):
+            held = self._held[idx] = self._decode(idx)
+        return held
+
     def caption(self, idx: int) -> str:
-        p = os.path.join(self.caption_dir or self.instance_dir,
-                         self._stem(idx) + ".txt")
-        if os.path.exists(p):
-            with open(p) as fh:
-                return fh.read().strip()
-        return self.default_caption
+        return self._item(idx).caption
 
     def image(self, idx: int) -> np.ndarray:
         """[res, res, 3] uint8 (normalised to [-1, 1] on the device)."""
-        img = np.asarray(_imread(self.files[idx]))[..., :3]
-        # >8-bit input would wrap modulo 256 under a bare astype(uint8)
-        if img.dtype == np.uint16:
-            img = (img // 257).astype(np.uint8)
-        elif img.dtype != np.uint8:
-            img = np.clip(np.round(
-                img.astype(np.float32)
-                * (255.0 if img.max() <= 1.0 else 1.0)), 0, 255
-            ).astype(np.uint8)
-        return resize_area(img, self.resolution, self.resolution)
+        return np.copy(self._item(idx).image)
 
     def instance_mask(self, idx: int) -> Optional[np.ndarray]:
-        if not self.mask_dir:
-            return None
-        for ext in (".png", ".jpg"):
-            p = os.path.join(self.mask_dir, self._stem(idx) + ext)
-            if os.path.exists(p):
-                m = np.asarray(_imread(p)).astype(np.float32)
-                if m.ndim > 2:
-                    m = m[..., 0]
-                m = resize_nearest(m, self.resolution, self.resolution)
-                return (m > 127).astype(np.float32)
-        return None
+        """[res, res] float32 in {0, 1}, or None without a mask file."""
+        m = self._item(idx).mask
+        return None if m is None else m.astype(np.float32)
 
     def batch(self, rng: np.random.Generator, batch_size: int):
         """A host batch: images u8, random masks u8, captions, instance
-        masks u8 or None."""
+        masks u8 (ones for an image without one) or None. Draws from rng
+        the indices, then one random mask a sample; the images, captions
+        and instance masks come from the held items."""
         with annotate(SPAN_DATA_BATCH):
             idx = rng.integers(0, len(self.files), batch_size)
-            imgs = np.stack([self.image(i) for i in idx])
             masks = np.stack([random_mask(rng, self.resolution,
                                           self.resolution)
                               for _ in range(batch_size)]).astype(np.uint8)
-            captions = [self.caption(i) for i in idx]
-            imasks = [self.instance_mask(i) for i in idx]
-            if any(m is not None for m in imasks):
-                imasks = np.stack([
-                    m if m is not None else np.ones((self.resolution,) * 2,
-                                                    np.float32)
-                    for m in imasks]).astype(np.uint8)
+            held = [self._item(i) for i in idx]
+            imgs = np.stack([h.image for h in held])
+            captions = [h.caption for h in held]
+            if any(h.mask is not None for h in held):
+                ones = np.ones((self.resolution,) * 2, np.uint8)
+                imasks = np.stack([ones if h.mask is None else h.mask
+                                   for h in held])
             else:
                 imasks = None
         return imgs, masks, captions, imasks

@@ -12,7 +12,10 @@ Port of gbnerf_tpu/utils/profiling.py:
     test when nothing profiles. The spans go through the profiler alone,
     on its clock, and show on the device lane as ``gpu_user_annotation``.
     The port's own spans on its hot path (the ``SPAN_*`` names here):
-    ``gbnerf.data.batch`` (the LoRA dataset's batch), ``gbnerf.text.encode``
+    ``gbnerf.data.batch`` (the LoRA dataset's batch), ``gbnerf.data.decode``
+    (one instance's image, mask and caption read and resized, once when
+    the dataset is built and again where its files change: inside a batch
+    a miss), ``gbnerf.text.encode``
     (the CLIP text tower), ``gbnerf.lora.apply`` (the adapters' merges),
     ``gbnerf.attn.bwd`` (K7's backward), ``gbnerf.field.hash_encode`` (the
     hash grid's encode) and ``gbnerf.render.resample`` (the fine samples'
@@ -43,6 +46,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 TRACE_FILE = "trace.json"
 
 SPAN_DATA_BATCH = "gbnerf.data.batch"
+SPAN_DATA_DECODE = "gbnerf.data.decode"
 SPAN_TEXT_ENCODE = "gbnerf.text.encode"
 SPAN_LORA_APPLY = "gbnerf.lora.apply"
 SPAN_ATTN_BWD = "gbnerf.attn.bwd"

@@ -470,6 +470,130 @@ def test_dataset_batches_match_jax(tmp_path):
     assert ja.bit_generator.state == ta.bit_generator.state
 
 
+def _direct_batch(img, lab, res, default, rng, B):
+    """The batch as read before the dataset held its items: each sample's
+    PNG decoded and area-resized, its mask decoded, nearest-resized and
+    thresholded, its caption read, all at the draw."""
+    from gbnerf_tpu_torch.data.llff import (_imread, resize_area,
+                                            resize_nearest)
+
+    files = sorted(str(p) for p in img.iterdir() if p.suffix == ".png")
+    idx = rng.integers(0, len(files), B)
+    masks = np.stack([ttrainer.random_mask(rng, res, res)
+                      for _ in range(B)]).astype(np.uint8)
+    imgs, caps, imasks = [], [], []
+    for i in idx:
+        stem = os.path.splitext(os.path.basename(files[i]))[0]
+        imgs.append(resize_area(_imread(files[i])[..., :3], res, res))
+        txt = img / (stem + ".txt")
+        caps.append(txt.read_text().strip() if txt.exists() else default)
+        m = lab / (stem + ".png")
+        imasks.append(
+            (resize_nearest(_imread(str(m)).astype(np.float32), res, res)
+             > 127).astype(np.uint8) if m.exists()
+            else np.ones((res, res), np.uint8))
+    return np.stack(imgs), masks, caps, np.stack(imasks)
+
+
+@pytest.mark.parametrize("H,W,res", [(24, 32, 40), (32, 32, 32)])
+def test_dataset_batches_equal_a_direct_decode(tmp_path, H, W, res):
+    """The held items against a decode at every draw: over 3 seeds and 6
+    batches the images, random masks, instance masks and captions are
+    bit-equal and laid out alike in memory, with one image lacking its
+    mask and another its caption, at an enlarging and at an identity
+    size; the rng ends in the same state."""
+    img, lab = _instance_dir(tmp_path, n=4, H=H, W=W)
+    (lab / "img_001.png").unlink()
+    (img / "img_002.txt").unlink()
+    ds = ttrainer.DreamBoothInpaintDataset(str(img), mask_dir=str(lab),
+                                           resolution=res,
+                                           default_caption="a default")
+    for seed in (0, 7, 2**31 + 5):
+        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        for _ in range(6):
+            got = ds.batch(a, 5)
+            ref = _direct_batch(img, lab, res, "a default", b, 5)
+            assert got[2] == ref[2]
+            for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+                assert g.dtype == r.dtype == np.uint8
+                assert g.strides == r.strides    # the VAE's memory format
+                np.testing.assert_array_equal(g, r)
+        assert a.bit_generator.state == b.bit_generator.state
+
+
+def test_dataset_decodes_once_and_again_for_a_changed_file(tmp_path):
+    """Building decodes each item once; batches add no decode. An image
+    rewritten with other pixels, a mask file removed, a caption rewritten
+    and an mtime moved alone each cost exactly one decode, and the next
+    batch serves what is on disk."""
+    import copy as _copy
+
+    from gbnerf_tpu_torch.utils.png import write_png
+
+    img, lab = _instance_dir(tmp_path, n=3)
+    ds = ttrainer.DreamBoothInpaintDataset(str(img), mask_dir=str(lab),
+                                           resolution=40)
+    assert ds.decodes == 3
+    rng = np.random.default_rng(11)
+    for _ in range(5):
+        ds.batch(rng, 4)
+    assert ds.decodes == 3
+
+    def batch_with_item_1():
+        probe = _copy.deepcopy(rng)
+        assert 1 in probe.integers(0, 3, 12)
+        ref = _direct_batch(img, lab, 40, "", _copy.deepcopy(rng), 12)
+        got = ds.batch(rng, 12)
+        assert got[2] == ref[2]
+        for g, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+            np.testing.assert_array_equal(g, r)
+        return got
+
+    write_png(str(img / "img_001.png"), np.random.default_rng(5).integers(
+        0, 256, (30, 20, 3), dtype=np.uint8))
+    batch_with_item_1()
+    assert ds.decodes == 4
+    (lab / "img_001.png").unlink()
+    (img / "img_001.txt").write_text("a longer new caption")
+    got = batch_with_item_1()
+    assert ds.decodes == 5 and "a longer new caption" in got[2]
+    st = os.stat(img / "img_001.png")
+    os.utime(img / "img_001.png", ns=(st.st_atime_ns,
+                                      st.st_mtime_ns + 10**9))
+    batch_with_item_1()
+    assert ds.decodes == 6
+    for _ in range(3):
+        ds.batch(rng, 4)
+    assert ds.decodes == 6
+
+
+def test_dataset_batches_are_copies_of_a_read_only_store(tmp_path):
+    """A batch written in place leaves the next batch as it was; the held
+    arrays refuse writes; image() and instance_mask() hand out writable
+    copies (float32 masks, as before the store)."""
+    img, lab = _instance_dir(tmp_path)
+    ds = ttrainer.DreamBoothInpaintDataset(str(img), mask_dir=str(lab),
+                                           resolution=40)
+    first = ds.batch(np.random.default_rng(3), 4)
+    kept = [a.copy() for a in (first[0], first[1], first[3])]
+    for a in (first[0], first[1], first[3]):
+        a[...] = 9
+    again = ds.batch(np.random.default_rng(3), 4)
+    for k, a in zip(kept, (again[0], again[1], again[3])):
+        np.testing.assert_array_equal(k, a)
+    held = ds._item(0)
+    for a in (held.image, held.mask):
+        assert not a.flags.writeable
+        with pytest.raises(ValueError):
+            a[0, 0] = 1
+    im, m = ds.image(0), ds.instance_mask(0)
+    assert im.flags.writeable and m.dtype == np.float32
+    im[...] = 0
+    m[...] = 5
+    np.testing.assert_array_equal(ds.image(0), held.image)
+    np.testing.assert_array_equal(ds.instance_mask(0), held.mask)
+
+
 def _tiny_mods():
     from gbnerf_tpu_torch.config import GuidanceConfig
     from gbnerf_tpu_torch.guidance import stable as tst

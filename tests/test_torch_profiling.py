@@ -148,6 +148,31 @@ def _span_case_batch(tmp_path):
     return call
 
 
+def _write_decode_dir(tmp_path, n=3):
+    from gbnerf_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(1)
+    d = tmp_path / "decode"
+    d.mkdir(exist_ok=True)
+    for i in range(n):
+        write_png(str(d / f"{i}.png"),
+                  rng.integers(0, 256, (18, 22, 3), dtype=np.uint8))
+    return d
+
+
+def _span_case_decode(tmp_path):
+    from gbnerf_tpu_torch.train.lora_trainer import DreamBoothInpaintDataset
+
+    d = _write_decode_dir(tmp_path)
+
+    def call():
+        ds = DreamBoothInpaintDataset(str(d), resolution=12)
+        imgs, masks, caps, imasks = ds.batch(np.random.default_rng(4), 3)
+        assert imasks is None and ds.decodes == 3
+        return [imgs, masks]
+    return call
+
+
 def _tiny_text():
     from gbnerf_tpu_torch.guidance.text import (CLIPTextConfig,
                                                 CLIPTextEncoder)
@@ -238,6 +263,7 @@ def _span_case_resample(tmp_path):
 
 SPAN_CASES = {
     tprof.SPAN_DATA_BATCH: _span_case_batch,
+    tprof.SPAN_DATA_DECODE: _span_case_decode,
     tprof.SPAN_TEXT_ENCODE: _span_case_text,
     tprof.SPAN_LORA_APPLY: _span_case_lora,
     tprof.SPAN_ATTN_BWD: _span_case_attention,
@@ -249,7 +275,7 @@ SPAN_CASES = {
 @pytest.mark.parametrize("span", sorted(SPAN_CASES))
 def test_hot_path_span_is_traced_and_leaves_outputs_bit_equal(span,
                                                               tmp_path):
-    """Each of the port's six spans shows in a trace of a tiny CPU call of
+    """Each of the port's seven spans shows in a trace of a tiny CPU call of
     its function, and the call's outputs (and gradients) with the profiler
     on are bit-equal to those without it."""
     call = SPAN_CASES[span](tmp_path)
@@ -267,6 +293,37 @@ def test_hot_path_span_is_traced_and_leaves_outputs_bit_equal(span,
         else:
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+def test_decode_span_is_at_build_and_in_a_batch_only_on_a_miss(tmp_path):
+    """Traced: building the dataset opens one ``gbnerf.data.decode`` a
+    file; the batches that follow open none inside ``gbnerf.data.batch``
+    until a file is rewritten, whose next batch holds exactly one."""
+    from gbnerf_tpu_torch.train.lora_trainer import DreamBoothInpaintDataset
+    from gbnerf_tpu_torch.utils.png import write_png
+
+    d = _write_decode_dir(tmp_path)
+    rng = np.random.default_rng(2)
+    with tprof.trace(str(tmp_path / "trace")):
+        ds = DreamBoothInpaintDataset(str(d), resolution=12)
+        for _ in range(3):
+            ds.batch(rng, 8)
+        write_png(str(d / "0.png"), np.zeros((30, 10, 3), np.uint8))
+        ds.batch(rng, 16)
+    doc = json.loads((tmp_path / "trace" / tprof.TRACE_FILE).read_text())
+
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in
+                      doc["traceEvents"]
+                      if e.get("name") == name and e.get("ph") == "X")
+
+    decodes, batches = spans(tprof.SPAN_DATA_DECODE), \
+        spans(tprof.SPAN_DATA_BATCH)
+    assert len(decodes) == 4 and len(batches) == 4 and ds.decodes == 4
+    inside = [[s for s in decodes if b0 <= s[0] and s[1] <= b1]
+              for b0, b1 in batches]
+    assert [len(x) for x in inside] == [0, 0, 0, 1]
+    assert all(s[1] <= batches[0][0] for s in decodes[:3])
 
 
 def test_trace_summary_reads_device_kernels(tmp_path):
