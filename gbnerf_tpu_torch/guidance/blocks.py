@@ -15,7 +15,11 @@ diffusers' defaults (ROADMAP C lists the departures from diffusers):
 GroupNorm ε is passed explicitly (1e-5, or 1e-6 in the transformer and the
 VAE attention) with the group count clamped for tiny test widths; the
 transformer's LayerNorm ε is flax's 1e-6 (torch's default is 1e-5); GEGLU's
-GELU is the tanh approximation (flax ``nn.gelu``).
+GELU is the tanh approximation (flax ``nn.gelu``). Both are arguments: the
+SDXL UNet, which has no JAX twin, takes diffusers' 1e-5 and exact GELU
+(unet.py). ``Transformer2D`` takes diffusers' ``use_linear_projection``
+(Linear ``proj_in``/``proj_out`` on [B, HW, C], SDXL's) and a depth of
+blocks.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import self_attention
+from ..utils.profiling import SPAN_UNET_TRANSFORMER, annotate
 
 LAYER_NORM_EPS = 1e-6      # flax nn.LayerNorm's default
 
@@ -132,23 +137,27 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int):
+    """proj → (h, gate) → h · GELU(gate); ``approximate`` as F.gelu's
+    ("tanh", flax's, or "none", diffusers' exact GELU)."""
+
+    def __init__(self, dim_in: int, dim_out: int, approximate: str = "tanh"):
         super().__init__()
+        self.approximate = approximate
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate, approximate="tanh")
+        return h * F.gelu(gate, approximate=self.approximate)
 
 
 class FeedForward(nn.Module):
     """GEGLU 4× expansion (diffusers' ff.net.0 / ff.net.2; net.1 is a
     dropout there, an identity here)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, approximate: str = "tanh"):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(),
-                                  nn.Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4, approximate),
+                                  nn.Identity(), nn.Linear(dim * 4, dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -158,14 +167,15 @@ class BasicTransformerBlock(nn.Module):
     """LN → self-attn → LN → cross-attn → LN → GEGLU-FF, all residual."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
-                 context_dim: int):
+                 context_dim: int, *, eps: float = LAYER_NORM_EPS,
+                 approximate: str = "tanh"):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.norm1 = nn.LayerNorm(dim, eps=eps)
         self.attn1 = Attention(dim, heads, dim_head)
-        self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.attn2 = Attention(dim, heads, dim_head, context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.ff = FeedForward(dim)
+        self.norm3 = nn.LayerNorm(dim, eps=eps)
+        self.ff = FeedForward(dim, approximate)
 
     def forward(self, x, context):
         x = x + self.attn1(self.norm1(x))
@@ -174,28 +184,44 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GN → 1×1 conv in → blocks → 1×1 conv out, plus
-    the residual."""
+    """Spatial transformer: GN → proj_in → ``depth`` blocks → proj_out,
+    plus the residual. The projections are 1×1 convs on NCHW (SD1.x) or,
+    with ``linear``, Linear layers on the [B, HW, C] tokens (SDXL). The
+    forward runs in the span ``gbnerf.unet.transformer``."""
 
     def __init__(self, channels: int, heads: int, dim_head: int,
-                 context_dim: int, depth: int = 1):
+                 context_dim: int, depth: int = 1, *, linear: bool = False,
+                 eps: float = LAYER_NORM_EPS, approximate: str = "tanh"):
         super().__init__()
+        self.linear = linear
         self.norm = group_norm(channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = (nn.Linear(channels, channels) if linear
+                        else nn.Conv2d(channels, channels, 1))
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, dim_head, context_dim)
+            BasicTransformerBlock(channels, heads, dim_head, context_dim,
+                                  eps=eps, approximate=approximate)
             for _ in range(depth)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = (nn.Linear(channels, channels) if linear
+                         else nn.Conv2d(channels, channels, 1))
 
     def forward(self, x, context):
-        b, c, h, w = x.shape
-        residual = x
-        x = self.proj_in(self.norm(x))
-        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        for block in self.transformer_blocks:
-            x = block(x, context)
-        x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(x) + residual
+        with annotate(SPAN_UNET_TRANSFORMER):
+            b, c, h, w = x.shape
+            residual = x
+            x = self.norm(x)
+            if not self.linear:
+                x = self.proj_in(x)
+            x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+            if self.linear:
+                x = self.proj_in(x)
+            for block in self.transformer_blocks:
+                x = block(x, context)
+            if self.linear:
+                x = self.proj_out(x)
+            x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+            if not self.linear:
+                x = self.proj_out(x)
+            return x + residual
 
 
 class Downsample2D(nn.Module):

@@ -23,7 +23,7 @@ import torch
 
 from ..utils import jax_random as jr
 from .sds import cfg_combine_bsd, cfg_combine_sds
-from .stable import SDModules, _randn, _resize
+from .stable import Prompts, SDModules, _randn, _resize
 
 
 def get_timesteps(num_inference_steps: int, strength: float,
@@ -37,7 +37,7 @@ def get_timesteps(num_inference_steps: int, strength: float,
 
 
 @torch.no_grad()
-def inpaint(mods: SDModules, embeds: torch.Tensor, image: torch.Tensor,
+def inpaint(mods: SDModules, embeds, image: torch.Tensor,
             mask: torch.Tensor, generator: Optional[torch.Generator] = None,
             *, num_inference_steps: int = 50, guidance_scale: float = 7.5,
             strength: float = 1.0, use_csd: bool = False, w1: float = 8.5,
@@ -47,8 +47,9 @@ def inpaint(mods: SDModules, embeds: torch.Tensor, image: torch.Tensor,
             enc_init_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full inpainting generation → [S, S, 3] image in [0, 1], f32.
 
-    embeds: [3, L, D] (null, uncond, text); image [H, W, 3] in [0, 1];
-    mask [H, W] (1 = repaint). The draws: see the module note.
+    embeds: the rows (null, uncond, text), Prompts (SDXL's carry their
+    pooled rows) or a context [3, L, D]; image [H, W, 3] in [0, 1]; mask
+    [H, W] (1 = repaint). The draws: see the module note.
     """
     S, LR = mods.latent_size, mods.latent_res
     sched = mods.schedule
@@ -81,12 +82,15 @@ def inpaint(mods: SDModules, embeds: torch.Tensor, image: torch.Tensor,
         latents = sched.add_noise(init_latents, noise.float(), int(ts[0]))
 
     k = 3 if use_csd else 2
-    emb = embeds if use_csd else embeds[1:]
+    prompts = Prompts.of(embeds)
+    if not use_csd:
+        prompts = prompts.rows(slice(1, None))
+    added = mods.added_cond(prompts.pooled)
     cond = torch.cat([mask_lat, masked_latents.to(latents.dtype)], dim=-1)
     for i, t in enumerate(ts):
         t_prev = int(ts[i + 1]) if i + 1 < len(ts) else -1
         unet_in = torch.cat([latents, cond], dim=-1).expand(k, -1, -1, -1)
-        eps = mods.unet(unet_in, int(t), emb)
+        eps = mods.unet(unet_in, int(t), prompts.context, added)
         if use_csd:
             pred = cfg_combine_bsd(eps[0], eps[1], eps[2], w1, w2, w3)[None]
         else:
@@ -96,7 +100,7 @@ def inpaint(mods: SDModules, embeds: torch.Tensor, image: torch.Tensor,
     return torch.clamp(img[0] * 0.5 + 0.5, 0.0, 1.0)
 
 
-def prompt_to_img(mods: SDModules, embeds: torch.Tensor,
+def prompt_to_img(mods: SDModules, embeds,
                   generator: Optional[torch.Generator] = None, *,
                   steps: int = 50, guidance_scale: float = 7.5,
                   noise: Optional[torch.Tensor] = None,
@@ -105,7 +109,7 @@ def prompt_to_img(mods: SDModules, embeds: torch.Tensor,
     """txt2img sanity path: generation from pure noise through the
     inpainting UNet under a full repaint mask."""
     S = mods.latent_size
-    dev = embeds.device
+    dev = Prompts.of(embeds).context.device
     return inpaint(mods, embeds, torch.zeros((S, S, 3), device=dev),
                    torch.ones((S, S), device=dev), generator,
                    num_inference_steps=steps, guidance_scale=guidance_scale,

@@ -9,6 +9,12 @@ Port of gbnerf_tpu/guidance/text.py:
   ``text_model.encoder.layers.0.mlp.fc1``, ``text_model.final_layer_norm``),
   so a CLIPTextModel state dict loads with ``load_state_dict``. LayerNorm ε
   is flax's 1e-6, as in the JAX package (transformers' CLIP uses 1e-5).
+  The configuration gives the activation, the ε, the layer whose output
+  is the context and a ``text_projection``: SDXL's two towers
+  (``CLIPTextConfig.sdxl_l``, ``.sdxl_bigg``, transformers' numerics)
+  give the penultimate layer's state without the final LayerNorm, and the
+  second (a CLIPTextModelWithProjection) its pooled embedding, the final
+  LayerNorm's state at the first EOS token through ``text_projection``.
 - ``Tokenizer``: transformers' CLIPTokenizer when a vocab dir is given
   (imported only then: the machine with the card has no transformers), else
   the JAX package's deterministic hash fallback, bit for bit.
@@ -34,14 +40,38 @@ class CLIPTextConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
+    hidden_act: str = "quick_gelu"       # or "gelu" (exact)
+    layer_norm_eps: float = LAYER_NORM_EPS
+    # the context: the final LayerNorm's state ("last") or the
+    # penultimate layer's output without it ("penultimate", SDXL's)
+    output: str = "last"
+    projection_dim: int = 0              # > 0: a text_projection (pooled)
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(vocab_size=1000, width=32, layers=2, heads=2)
 
+    @staticmethod
+    def sdxl_l() -> "CLIPTextConfig":
+        """SDXL's text_encoder: CLIP ViT-L/14's tower, its penultimate
+        layer."""
+        return CLIPTextConfig(layer_norm_eps=1e-5, output="penultimate")
+
+    @staticmethod
+    def sdxl_bigg() -> "CLIPTextConfig":
+        """SDXL's text_encoder_2: OpenCLIP ViT-bigG/14's tower (1280 wide,
+        32 layers, 20 heads, exact GELU), its penultimate layer and a 1280
+        pooled projection."""
+        return CLIPTextConfig(width=1280, layers=32, heads=20,
+                              hidden_act="gelu", layer_norm_eps=1e-5,
+                              output="penultimate", projection_dim=1280)
+
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+_ACTS = {"quick_gelu": quick_gelu, "gelu": torch.nn.functional.gelu}
 
 
 class _Attention(nn.Module):
@@ -64,9 +94,10 @@ class CLIPLayer(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.heads = cfg.heads
-        self.layer_norm1 = nn.LayerNorm(cfg.width, eps=LAYER_NORM_EPS)
+        self.act = _ACTS[cfg.hidden_act]
+        self.layer_norm1 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
         self.self_attn = _Attention(cfg.width)
-        self.layer_norm2 = nn.LayerNorm(cfg.width, eps=LAYER_NORM_EPS)
+        self.layer_norm2 = nn.LayerNorm(cfg.width, eps=cfg.layer_norm_eps)
         self.mlp = _MLP(cfg.width)
 
     def forward(self, x, mask):
@@ -81,7 +112,7 @@ class CLIPLayer(nn.Module):
         attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
         o = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, w)
         x = x + a.out_proj(o)
-        h = self.mlp.fc2(quick_gelu(self.mlp.fc1(self.layer_norm2(x))))
+        h = self.mlp.fc2(self.act(self.mlp.fc1(self.layer_norm2(x))))
         return x + h
 
 
@@ -103,7 +134,8 @@ class _TextModel(nn.Module):
         super().__init__()
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.width, eps=LAYER_NORM_EPS)
+        self.final_layer_norm = nn.LayerNorm(cfg.width,
+                                             eps=cfg.layer_norm_eps)
 
 
 class CLIPTextEncoder(nn.Module):
@@ -111,6 +143,9 @@ class CLIPTextEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.text_model = _TextModel(cfg)
+        if cfg.projection_dim:
+            self.text_projection = nn.Linear(cfg.width, cfg.projection_dim,
+                                             bias=False)
 
     def init_own_(self, generator: torch.Generator) -> None:
         """The JAX tower's own ``position_embedding`` parameter,
@@ -119,8 +154,12 @@ class CLIPTextEncoder(nn.Module):
             self.text_model.embeddings.position_embedding.weight.normal_(
                 0.0, 0.01, generator=generator)
 
-    def forward(self, input_ids):
-        """[B, L] token ids → last_hidden_state [B, L, width]."""
+    def forward(self, input_ids, pooled: bool = False):
+        """[B, L] token ids → the context [B, L, width]: last_hidden_state,
+        or the penultimate layer's output (``cfg.output``). With
+        ``pooled`` → (context, the pooled embedding [B, projection_dim]):
+        the final LayerNorm's state at each row's first EOS token through
+        ``text_projection``."""
         with annotate(SPAN_TEXT_ENCODE):
             tm = self.text_model
             ids = torch.as_tensor(input_ids, dtype=torch.long,
@@ -131,9 +170,21 @@ class CLIPTextEncoder(nn.Module):
             causal = torch.triu(torch.full((L, L), -1e9,
                                            dtype=torch.float32,
                                            device=ids.device), diagonal=1)
-            for layer in tm.encoder.layers:
+            *layers, top = tm.encoder.layers
+            for layer in layers:
                 x = layer(x, causal[None, None])
-            return tm.final_layer_norm(x)
+            penultimate = self.cfg.output == "penultimate"
+            if penultimate and not pooled:
+                return x
+            last = tm.final_layer_norm(top(x, causal[None, None]))
+            context = x if penultimate else last
+            if not pooled:
+                return context
+            # transformers' EOS position: the row's largest id, the first
+            # where it repeats (the EOS id is the vocabulary's last)
+            eos = ids.argmax(dim=-1)
+            pool = last[torch.arange(ids.shape[0], device=ids.device), eos]
+            return context, self.text_projection(pool)
 
 
 class Tokenizer:

@@ -5,7 +5,8 @@ Port of gbnerf_tpu/guidance/vae.py, with diffusers' submodule names
 .to_q``, ``quant_conv``, …). The public calls take and return the JAX
 package's NHWC layout. The guidance path differentiates the encoder (the
 SDS gradient flows render → VAE latents); the decoder serves the offline
-inpainting pipeline. Scaling factor 0.18215.
+inpainting pipeline. The latents' scaling factor is the configuration's:
+0.18215 (SD1.x), 0.13025 (SDXL's VAE, the same widths).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from ..ops.attention import self_attention
 from .blocks import Downsample2D, ResnetBlock2D, Upsample2D, group_norm
 
 SD_VAE_SCALING = 0.18215
+SDXL_VAE_SCALING = 0.13025
 
 
 @dataclass(frozen=True)
@@ -27,6 +29,11 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
     latent_channels: int = 4
+    scaling_factor: float = SD_VAE_SCALING
+
+    @staticmethod
+    def sdxl() -> "VAEConfig":
+        return VAEConfig(scaling_factor=SDXL_VAE_SCALING)
 
     @staticmethod
     def tiny() -> "VAEConfig":
@@ -35,7 +42,8 @@ class VAEConfig:
 
 class VAEAttention(nn.Module):
     """Single-head spatial self-attention of the VAE mid block (N = H·W,
-    D = channels: 4096 × 512 at a 512² image — K7 on the card)."""
+    D = channels: 4096 × 512 at a 512² image, 16,384 × 512 at 1024²: K7
+    on the card)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -152,18 +160,18 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x, eps: Optional[torch.Tensor] = None):
         """Posterior sample mean + σ·eps (the mode when eps is None),
-        scaled by 0.18215. eps: standard normal, the latents' shape (the
-        callers draw it in the modules' dtype, the latents' dtype, as the
-        JAX package's encode draws ``normal(key, mean.shape,
-        mean.dtype)``: bf16 in the bf16 stack)."""
+        scaled by the configuration's scaling factor. eps: standard
+        normal, the latents' shape (the callers draw it in the modules'
+        dtype, the latents' dtype, as the JAX package's encode draws
+        ``normal(key, mean.shape, mean.dtype)``: bf16 in the bf16 stack)."""
         mean, logvar = self.encode_moments(x)
         if eps is not None:
             mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
-        return mean * SD_VAE_SCALING
+        return mean * self.config.scaling_factor
 
     def decode(self, z):
         """Scaled latents [B, h, w, 4] → image [B, 8h, 8w, 3] in [-1, 1]."""
-        z = (z / SD_VAE_SCALING).permute(0, 3, 1, 2).to(
+        z = (z / self.config.scaling_factor).permute(0, 3, 1, 2).to(
             self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1)
 

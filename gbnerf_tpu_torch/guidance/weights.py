@@ -6,11 +6,14 @@ Port of gbnerf_tpu/guidance/weights.py::load_sd_weights. The layout:
     <dir>/unet/diffusion_pytorch_model.{safetensors,bin}
     <dir>/vae/diffusion_pytorch_model.{safetensors,bin}
     <dir>/text_encoder/model.{safetensors,bin}
-    <dir>/tokenizer/...
+    <dir>/text_encoder_2/model.{safetensors,bin}   (SDXL)
+    <dir>/tokenizer/...  (SDXL also tokenizer_2/)
 
 The port's modules carry diffusers' and transformers' names, so a state
 dict loads with ``load_state_dict``; the JAX package's key rules and
-layout transposes are not needed. Two renames remain: the original SD1.x
+layout transposes are not needed (SDXL's ``add_embedding.*``, its Linear
+``proj_in``/``proj_out`` and its second tower's ``text_projection`` load
+by name too). Two renames remain: the original SD1.x
 VAE dumps name the mid-block attention ``query``/``key``/``value``/
 ``proj_attn`` (re-exports use ``to_q``/``to_k``/``to_v``/``to_out.0``), and
 transformers' ``position_ids`` buffer is not a parameter. ``.safetensors``
@@ -137,12 +140,13 @@ def _load(module: nn.Module, sd: Dict[str, torch.Tensor], name: str,
 
 def load_sd_weights(weights_dir: str, unet: nn.Module, vae: nn.Module,
                     text: nn.Module, *, lora_dir: Optional[str] = None,
-                    lora_rank: int = 32, strict: bool = False) -> None:
-    """Load a local diffusers checkpoint dir into the three modules in
-    place (values cast to each module's dtype); a missing subdir leaves its
-    module as it is. lora_dir: a PEFT-LoRA checkpoint dir merged into the
-    UNet's weights first. strict: raise on any unmatched key or missing
-    parameter."""
+                    lora_rank: int = 32, strict: bool = False,
+                    text_2: Optional[nn.Module] = None) -> None:
+    """Load a local diffusers checkpoint dir into the modules in place
+    (values cast to each module's dtype); a missing subdir leaves its
+    module as it is. text_2: SDXL's second tower, from text_encoder_2/.
+    lora_dir: a PEFT-LoRA checkpoint dir merged into the UNet's weights
+    first. strict: raise on any unmatched key or missing parameter."""
     sd = load_state_dict(os.path.join(weights_dir, "unet",
                                       "diffusion_pytorch_model"))
     if sd is not None:
@@ -153,10 +157,15 @@ def load_sd_weights(weights_dir: str, unet: nn.Module, vae: nn.Module,
                                       "diffusion_pytorch_model"))
     if sd is not None:
         _load(vae, _vae_keys(sd), "vae", strict)
-    sd = load_state_dict(os.path.join(weights_dir, "text_encoder", "model"))
-    if sd is not None:
-        sd = {k: v for k, v in sd.items() if not k.endswith("position_ids")}
-        _load(text, sd, "text", strict)
+    towers = [("text_encoder", text, "text")]
+    if text_2 is not None:
+        towers.append(("text_encoder_2", text_2, "text_2"))
+    for sub, module, name in towers:
+        sd = load_state_dict(os.path.join(weights_dir, sub, "model"))
+        if sd is not None:
+            sd = {k: v for k, v in sd.items()
+                  if not k.endswith("position_ids")}
+            _load(module, sd, name, strict)
 
 
 def merge_lora_state_dict(base_sd: Dict[str, torch.Tensor], lora_dir: str,

@@ -54,6 +54,12 @@ from ._build import kernel_function
 # (D 512).
 LAUNCHES = {"attention": 0, "attention_kernels": 0}
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
+# self_attention's self-attention calls (k as long as q) since the last
+# reset, by (route, head dim): "k7", the autograd Function whose forward is
+# K7 on a card, or "plain", the fallback of a short sequence or one that
+# is no multiple of the query tile. Host integers, counted at dispatch on
+# every device; cross attention, always plain, is not counted.
+ROUTES: collections.Counter = collections.Counter()
 
 MAX_HEAD_DIM = 512
 SMALL_HEAD_DIM = 128       # the wgmma design up to here (csrc/attention.cu)
@@ -330,7 +336,10 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tq = 128 if d > 160 else 256
     qf, kf, vf = (x.reshape(b * h, x.shape[2], x.shape[3]) for x in (q, k, v))
     if n < min_seq or n % tq != 0 or k.shape[2] != n:
+        if k.shape[2] == n:
+            ROUTES["plain", d] += 1
         out = _oracle(_scaled(qf, scale), kf, vf, 1.0)
     else:
+        ROUTES["k7", d] += 1
         out = _Attend.apply(qf, kf, vf, scale)
     return out.reshape(shape)

@@ -223,10 +223,8 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int,
     device sync.
     """
     from ..guidance import build_sd_modules, make_guidance_fn
-    from ..guidance.stable import precompute_masked_latents
-    from ..guidance.text import CLIPTextConfig
-    from ..guidance.unet import UNetConfig
-    from ..guidance.vae import VAEConfig
+    from ..guidance.stable import (precompute_masked_latents, sd_version,
+                                   tiny_configs)
 
     g, t = cfg.guidance, cfg.train
     if (t.first_stage or "SD" not in g.guidance
@@ -240,9 +238,7 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int,
         return None, None, {}
     kw = {}
     if g.sd_tiny:
-        kw = dict(unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
-                  text_config=CLIPTextConfig(vocab_size=49408, width=32,
-                                             layers=2, heads=2),
+        kw = dict(tiny_configs(sd_version(g)),
                   latent_size=g.sd_latent_size or 64, dtype=torch.float32)
     elif g.sd_latent_size:
         kw = dict(latent_size=g.sd_latent_size)
@@ -270,8 +266,9 @@ def build_guidance(cfg: Config, scene_dev, device, seed: int,
               f"{times['masked_latents_s']:.3f} s")
     weights = ("loaded" if g.sd_weights_dir else
                "prior" if g.sd_prior_ckpt else "random")
+    stack = "SDXL-inpaint" if sd_version(g) == "xl" else "SD1.5-inpaint"
     print(f"[guidance] SD stack ready "
-          f"({'tiny' if g.sd_tiny else 'SD1.5-inpaint'}, weights={weights}) in "
+          f"({'tiny ' if g.sd_tiny else ''}{stack}, weights={weights}) in "
           f"{times['sd_build_s']:.3f} s")
     return guidance_fn, mods, times
 

@@ -46,7 +46,7 @@ from torch.func import functional_call
 from ..data.llff import _imread, resize_area, resize_nearest
 from ..guidance.lora import (TEXT_TARGETS, apply_lora, init_lora,
                              lora_param_count, save_lora)
-from ..guidance.stable import SDModules, _resize
+from ..guidance.stable import Prompts, SDModules, _resize
 from ..parallel.mesh import (average_grads, data_sharding, gather,
                              make_mesh, replicate, shard_batch, world_size)
 from ..parallel.mesh import rank as process_rank
@@ -269,15 +269,17 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
     step(adapters, optimizer, batch, generator=None, draws=None) →
     {"loss"}: one update in place. batch = {image [B,S,S,3] u8 or [-1,1]
     f32, mask [B,S,S], embeds [B,L,D] (or input_ids with text_tower),
-    instance_mask [B,S,S] | None}; draws: draw_step's dict, else drawn
-    from generator. ``step.loss_fn(adapters, batch, draws)`` is the loss
+    instance_mask [B,S,S] | None; on the SDXL stack the pooled embedding
+    pooled [B,P], conditioned with the stack's size ids mods.time_ids};
+    draws: draw_step's dict, else drawn from generator. ``step.loss_fn(adapters, batch, draws)`` is the loss
     alone.
 
     prior_preservation: the batch is [instance ‖ class] halves and the
     loss the instance term (instance-masked when masked_loss) plus
     prior_loss_weight · the class term. text_tower: the CLIP text module;
     rank-4 (α 4) adapters on its q/k/v/out_proj, run inside the loss on
-    batch["input_ids"].
+    batch["input_ids"] (one tower: refused on the SDXL stack, which has
+    two).
 
     mesh: a DeviceMesh (parallel/mesh.py), the reference's HF-Accelerate
     DDP: the step takes the global batch (and draws it whole), each rank
@@ -287,6 +289,9 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
     """
     sched = mods.schedule
     unet, vae = mods.unet, mods.vae
+    if text_tower is not None and mods.text_model_2 is not None:
+        raise ValueError("text-encoder adapters train one tower; the SDXL "
+                         "stack has two: train the UNet's adapters alone")
 
     def init_fn(generator=None,
                 a_init: Optional[Dict[str, torch.Tensor]] = None):
@@ -344,7 +349,8 @@ def make_lora_train_step(mods: SDModules, *, rank: int = 32,
         noisy = sched.add_noise(latents, noise, t)
         unet_in = torch.cat([noisy, mask_lat,
                              masked_latents.to(noisy.dtype)], dim=-1)
-        pred = functional_call(unet, eff, (unet_in, t, embeds))
+        pred = functional_call(unet, eff, (
+            unet_in, t, embeds, mods.added_cond(batch.get("pooled"))))
         err = (pred - noise) ** 2
 
         def instance_weight(imask):
@@ -493,14 +499,15 @@ def restore_lora_checkpoint(path: str, adapters, optimizer, generator
     return host_rng, int(meta["step"]), generator
 
 
-def generate_class_images(mods: SDModules, embeds3: torch.Tensor,
+def generate_class_images(mods: SDModules, embeds3,
                           class_data_dir: str, num_class_images: int,
                           generator=None, *,
                           num_inference_steps: int = 50,
                           resolution: Optional[int] = None) -> int:
     """Top up ``class_data_dir`` to num_class_images prior-preservation
     class images: each a full inpaint (guidance/pipeline.py) of a uniform
-    random image under a full mask, written as PNG. Returns how many were
+    random image under a full mask, written as PNG (embeds3: the rows
+    (null, uncond, text) as inpaint takes them). Returns how many were
     written. A JaxKey splits in three an image, as the JAX package's:
     the key carried on, the image's uniforms, the inpaint's key."""
     from ..guidance.pipeline import inpaint
@@ -541,7 +548,8 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
     """The LoRA fine-tune loop on ``device`` (default: the UNet's): writes
     ``lora_{step:06d}.safetensors`` and a resumable checkpoint every
     checkpointing_steps and at the end. encode_prompt(captions[, rng]) →
-    [B, L, D] (it gets the checkpointed host rng when it takes ``rng``).
+    their Prompts, or a context [B, L, D] (it gets the checkpointed host
+    rng when it takes ``rng``).
     class_dataset: prior preservation. text_tower / tokenize: the text
     module and captions → ids, for rank-4 text adapters. resume_from:
     'latest' or a checkpoint dir. mesh: a DeviceMesh; under torchrun
@@ -616,8 +624,11 @@ def train_lora(mods: SDModules, dataset: DreamBoothInpaintDataset,
         if text_tower is not None:
             batch["input_ids"] = dev(tokenize(captions))
         else:
-            batch["embeds"] = dev(encode_prompt(captions, rng=host_rng)
-                                  if accepts_rng else encode_prompt(captions))
+            rows = Prompts.of(encode_prompt(captions, rng=host_rng)
+                              if accepts_rng else encode_prompt(captions))
+            batch["embeds"] = dev(rows.context)
+            if rows.pooled is not None:
+                batch["pooled"] = dev(rows.pooled)
         gen, key = jr.split(gen)
         m = step(adapters, opt, batch, key)
         if i % log_every == 0 and lead:

@@ -13,7 +13,10 @@ runs); ``--draws jax`` replays the root train_lora.py's keys for
 ``gbnerf_tpu_torch.tools.train_tiny_prior`` (conditioned on the prior's
 own embedding triple unless ``--caption_dir``); the adapters go to
 stage 2 through ``guidance.sd_lora_ckpt``. Without ``--sd_weights_dir``
-the full-size stack has random weights.
+the full-size stack has random weights. ``--sd_version xl`` trains the
+SDXL-inpainting UNet's adapters (by default at 1024²): the captions go
+through both text towers, and the step takes the pooled embedding and the
+size ids of the resolution; its text towers take no adapters.
 
 Under ``torchrun`` the batch is split over the ranks (data parallel, one
 rank a device; ``--dist_backend`` as for gbnerf_tpu_torch.run):
@@ -32,7 +35,8 @@ def parse_args(argv=None):
     ap.add_argument("--caption_dir", default=None)
     ap.add_argument("--instance_mask_dir", default=None)
     ap.add_argument("--output_dir", default="./lora_out")
-    ap.add_argument("--resolution", type=int, default=512)
+    ap.add_argument("--resolution", type=int, default=None,
+                    help="default 512, or 1024 under --sd_version xl")
     ap.add_argument("--train_batch_size", type=int, default=4)
     ap.add_argument("--max_train_steps", type=int, default=2000)
     ap.add_argument("--learning_rate", type=float, default=1e-4)
@@ -40,6 +44,8 @@ def parse_args(argv=None):
     ap.add_argument("--checkpointing_steps", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sd_weights_dir", default=None)
+    ap.add_argument("--sd_version", default="1.5",
+                    help="1.5 (SD1.x-inpaint) or xl (SDXL-inpaint)")
     ap.add_argument("--tiny", action="store_true",
                     help="tiny random SD stack (smoke testing)")
     ap.add_argument("--resume_from_checkpoint", default=None,
@@ -81,6 +87,16 @@ def parse_args(argv=None):
         ap.error("--train_text_encoder is incompatible with "
                  "--sd_prior_ckpt (the prior checkpoint bakes the prompt "
                  "embeds; there is no text tower at guidance time)")
+    if args.sd_version == "xl":
+        for flag, given in (("--train_text_encoder", args.train_text_encoder),
+                            ("--sd_prior_ckpt", args.sd_prior_ckpt),
+                            ("--draws jax", args.draws == "jax")):
+            if given:
+                ap.error(f"{flag} is not available under --sd_version xl "
+                         "(the SDXL stack has two text towers and no JAX "
+                         "twin)")
+    if args.resolution is None:
+        args.resolution = 1024 if args.sd_version == "xl" else 512
     return args
 
 
@@ -91,10 +107,8 @@ def main(argv=None):
     import torch
 
     from .config import GuidanceConfig
-    from .guidance.stable import build_sd_modules
-    from .guidance.text import CLIPTextConfig
-    from .guidance.unet import UNetConfig
-    from .guidance.vae import VAEConfig
+    from .guidance.stable import (Prompts, build_sd_modules, size_time_ids,
+                                  tiny_configs)
     from .train.loop import device_from_flag
     from .utils import jax_random as jr
     from .train.lora_trainer import (DreamBoothInpaintDataset,
@@ -105,12 +119,11 @@ def main(argv=None):
 
     device = init_distributed(device_from_flag(args.device),
                               args.dist_backend)
-    gcfg = GuidanceConfig(sd_weights_dir=args.sd_weights_dir)
+    gcfg = GuidanceConfig(sd_weights_dir=args.sd_weights_dir,
+                          sd_version=args.sd_version)
     kw = {}
     if args.tiny:
-        kw = dict(unet_config=UNetConfig.tiny(), vae_config=VAEConfig.tiny(),
-                  text_config=CLIPTextConfig(vocab_size=49408, width=32,
-                                             layers=2, heads=2),
+        kw = dict(tiny_configs(args.sd_version),
                   latent_size=args.latent_size or 64, dtype=torch.float32)
     elif args.latent_size:
         kw = dict(latent_size=args.latent_size)
@@ -129,7 +142,7 @@ def main(argv=None):
         load_prior_ckpt(args.sd_prior_ckpt, mods)
         print(f"[lora] fine-tuning on prior {args.sd_prior_ckpt}")
 
-    # captions → embeddings through the stack's own text tower (with
+    # captions → embeddings through the stack's own text towers (with
     # sd_weights_dir, the real CLIP weights): text adapters train against
     # the base that guidance's merge applies them to
     text, tok = mods.text_model, mods.tokenizer
@@ -146,14 +159,16 @@ def main(argv=None):
 
         def encode_prompt(captions, rng=None):
             idx = (rng or fallback).integers(0, emb3.shape[0], len(captions))
-            return emb3[torch.as_tensor(idx, device=emb3.device)]
+            return Prompts(emb3[torch.as_tensor(idx, device=emb3.device)])
     else:
         def encode_prompt(captions, rng=None):
             with torch.no_grad():
-                return text(tokenize(captions))
+                return mods.encode_prompts(captions)
 
     resolution = (args.resolution if not args.tiny
                   else (args.latent_size or 64))
+    if mods.time_ids is not None:       # SDXL: the size ids it trains at
+        mods.time_ids = size_time_ids(resolution, device)
     dataset = DreamBoothInpaintDataset(
         args.instance_data_dir, caption_dir=args.caption_dir,
         mask_dir=args.instance_mask_dir, resolution=resolution)
@@ -163,7 +178,7 @@ def main(argv=None):
         # under --sd_prior_ckpt the baked triple is (null, uncond, text) in
         # order; encode_prompt's index draw would scramble the CFG slots
         if args.sd_prior_ckpt and not args.caption_dir:
-            embeds3 = mods.embeds_rgb
+            embeds3 = mods.prompts_rgb
         else:
             embeds3 = encode_prompt(["", "", args.class_prompt])
         if process_rank() == 0:

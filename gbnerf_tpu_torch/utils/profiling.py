@@ -16,7 +16,9 @@ Port of gbnerf_tpu/utils/profiling.py:
     (one instance's image, mask and caption read and resized, once when
     the dataset is built and again where its files change: inside a batch
     a miss), ``gbnerf.text.encode``
-    (the CLIP text tower), ``gbnerf.lora.apply`` (the adapters' merges),
+    (every CLIP text tower), ``gbnerf.unet.transformer`` (a UNet's
+    spatial transformer, guidance/blocks.py::Transformer2D, all its
+    blocks), ``gbnerf.lora.apply`` (the adapters' merges),
     ``gbnerf.attn.bwd`` (K7's backward), ``gbnerf.field.hash_encode`` (the
     hash grid's encode) and ``gbnerf.render.resample`` (the fine samples'
     draw and merge).
@@ -48,6 +50,7 @@ TRACE_FILE = "trace.json"
 SPAN_DATA_BATCH = "gbnerf.data.batch"
 SPAN_DATA_DECODE = "gbnerf.data.decode"
 SPAN_TEXT_ENCODE = "gbnerf.text.encode"
+SPAN_UNET_TRANSFORMER = "gbnerf.unet.transformer"
 SPAN_LORA_APPLY = "gbnerf.lora.apply"
 SPAN_ATTN_BWD = "gbnerf.attn.bwd"
 SPAN_HASH_ENCODE = "gbnerf.field.hash_encode"

@@ -582,18 +582,57 @@ def test_run_py_under_torchrun_two_ranks_and_resume_across_world_sizes(
     assert iters == [1, 2, 3, 4, 5, 6], iters
 
 
-def test_train_lora_under_torchrun_splits_the_batch(tmp_path):
+def _halves_step(make_step):
+    """make_lora_train_step whose step takes its batch as two ranks do: the
+    whole batch's draws, then each half's loss and gradient, averaged. A
+    UNet forward at 2 rows rounds otherwise than at 4 (CPU GEMMs block by
+    row count), so one process at 4 rows differs from the ranks by
+    round-off, which the tiny random UNet's cancellations amplify."""
+    from gbnerf_tpu_torch.train import lora_trainer as lt
+
+    def make(mods, **kw):
+        init_fn, step = make_step(mods, **kw)
+
+        def split_step(adapters, optimizer, batch, generator=None,
+                       draws=None):
+            img = batch["image"]
+            B = img.shape[0]
+            draws = lt.draw_step(generator, B, img.shape[1] // 8, img.device,
+                                 mods.schedule.num_train_timesteps,
+                                 mods.vae.quant_conv.weight.dtype)
+            optimizer.zero_grad(set_to_none=True)
+            total = 0.0
+            for rows in (slice(0, B // 2), slice(B // 2, B)):
+                half = {k: None if v is None else v[rows]
+                        for k, v in batch.items()}
+                loss = step.loss_fn(adapters, half, {k: v[rows] for k, v
+                                                     in draws.items()}) / 2
+                loss.backward()
+                total = total + loss.detach()
+            optimizer.step()
+            return {"loss": total}
+
+        return init_fn, split_step
+
+    return make
+
+
+def test_train_lora_under_torchrun_splits_the_batch(tmp_path, monkeypatch):
     """The LoRA CLI on two CPU ranks against one process: the [lora] mesh
     line once, the adapter file and the checkpoint written once, by rank 0.
-    Step 1 from the same init: the adapters entry by entry. Step 2 resumed
-    from one process's checkpoint-1 (across world sizes, so both ranks and
-    the one process step from the same adapters, with B ≠ 0 and so a
-    nonzero gradient of A): the all-reduced adapter gradients, read from
-    AdamW's first moment, leaf by leaf, and the adapters entry by entry."""
+    The one process takes its batch of 4 as the ranks do, in halves of 2
+    whose gradients it averages (_halves_step), so both sides round alike
+    and the check is of the sharding and the averaging. Step 1 from the
+    same init: the adapters entry by entry. Step 2 resumed from one
+    process's checkpoint-1 (across world sizes, so both ranks and the one
+    process step from the same adapters, with B ≠ 0 and so a nonzero
+    gradient of A): the all-reduced adapter gradients, read from AdamW's
+    first moment, leaf by leaf, and the adapters entry by entry."""
     import shutil
 
     from gbnerf_tpu_torch import train_lora
     from gbnerf_tpu_torch.guidance.weights import read_safetensors
+    from gbnerf_tpu_torch.train import lora_trainer as lt
     from gbnerf_tpu_torch.train.lora_trainer import _flat
     from gbnerf_tpu_torch.utils import msgpack
     from gbnerf_tpu_torch.utils.png import write_png
@@ -626,7 +665,10 @@ def test_train_lora_under_torchrun_splits_the_batch(tmp_path):
         return r.stdout
 
     one, dp1, dp2 = tmp_path / "one", tmp_path / "dp1", tmp_path / "dp2"
+    monkeypatch.setattr(lt, "make_lora_train_step",
+                        _halves_step(lt.make_lora_train_step))
     train_lora.main(args(one, 2))
+    monkeypatch.undo()
     two_ranks(dp1, 1)
     assert sorted(os.listdir(dp1)) == ["checkpoint-1",
                                        "lora_000001.safetensors"]

@@ -261,8 +261,29 @@ def _span_case_resample(tmp_path):
     return call
 
 
+def _tiny_unet(sd_version="1.5"):
+    from gbnerf_tpu_torch.guidance.unet import UNet2DCondition, UNetConfig
+
+    torch.manual_seed(0)
+    cfg = UNetConfig.sdxl_tiny() if sd_version == "xl" else UNetConfig.tiny()
+    return UNet2DCondition(cfg)
+
+
+def _span_case_transformer(tmp_path):
+    unet = _tiny_unet()
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(1, 8, 8, 9, generator=g)
+    ctx = torch.randn(1, 5, 32, generator=g)
+
+    def call():
+        with torch.no_grad():
+            return [unet(x, 10.0, ctx)]
+    return call
+
+
 SPAN_CASES = {
     tprof.SPAN_DATA_BATCH: _span_case_batch,
+    tprof.SPAN_UNET_TRANSFORMER: _span_case_transformer,
     tprof.SPAN_DATA_DECODE: _span_case_decode,
     tprof.SPAN_TEXT_ENCODE: _span_case_text,
     tprof.SPAN_LORA_APPLY: _span_case_lora,
@@ -275,7 +296,7 @@ SPAN_CASES = {
 @pytest.mark.parametrize("span", sorted(SPAN_CASES))
 def test_hot_path_span_is_traced_and_leaves_outputs_bit_equal(span,
                                                               tmp_path):
-    """Each of the port's seven spans shows in a trace of a tiny CPU call of
+    """Each of the port's eight spans shows in a trace of a tiny CPU call of
     its function, and the call's outputs (and gradients) with the profiler
     on are bit-equal to those without it."""
     call = SPAN_CASES[span](tmp_path)
@@ -293,6 +314,63 @@ def test_hot_path_span_is_traced_and_leaves_outputs_bit_equal(span,
         else:
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("sd_version", ["1.5", "xl"])
+def test_transformer_span_is_one_a_transformer_call(sd_version, tmp_path):
+    """Traced, a UNet forward opens ``gbnerf.unet.transformer`` once a
+    Transformer2D it runs (SD1.x: one block each; SDXL: its depth of
+    blocks inside one span)."""
+    from gbnerf_tpu_torch.guidance.blocks import (BasicTransformerBlock,
+                                                  Transformer2D)
+
+    unet = _tiny_unet(sd_version)
+    cfg = unet.config
+    n_tf = sum(isinstance(m, Transformer2D) for m in unet.modules())
+    n_blocks = sum(isinstance(m, BasicTransformerBlock)
+                   for m in unet.modules())
+    # SD1.x tiny: 6 down, 1 mid, 9 up, one block each; SDXL tiny: 4 + 6
+    # down, 3 mid, 9 + 6 up blocks in 2 + 2, 1, 3 + 3 transformers
+    assert (n_tf, n_blocks) == ((16, 16) if sd_version == "1.5"
+                                else (11, 28))
+    added = None
+    if cfg.addition_embed_type:
+        added = {"text_embeds": torch.zeros(1, 16),
+                 "time_ids": torch.full((1, 6), 64.0)}
+    with tprof.trace(str(tmp_path / "trace")), torch.no_grad():
+        unet(torch.zeros(1, 8, 8, 9), 10.0,
+             torch.zeros(1, 5, cfg.cross_attention_dim), added)
+    doc = json.loads((tmp_path / "trace" / tprof.TRACE_FILE).read_text())
+    spans = [e for e in doc["traceEvents"]
+             if e.get("name") == tprof.SPAN_UNET_TRANSFORMER
+             and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation"]
+    assert len(spans) == n_tf
+
+
+def test_attention_routing_counter_counts_self_attention_by_route():
+    """ops/attention.py's ROUTES: the tiny UNet's self-attention calls (one
+    a transformer block, all short: plain) by head width; a long call
+    whose length is a multiple of the query tile on the k7 route, another
+    on the plain fallback; cross attention is not counted."""
+    from gbnerf_tpu_torch.guidance.blocks import BasicTransformerBlock
+    from gbnerf_tpu_torch.ops import attention
+
+    unet = _tiny_unet("xl")
+    n_blocks = sum(isinstance(m, BasicTransformerBlock)
+                   for m in unet.modules())
+    attention.ROUTES.clear()
+    with torch.no_grad():
+        unet(torch.zeros(1, 8, 8, 9), 10.0, torch.zeros(1, 5, 40),
+             {"text_embeds": torch.zeros(1, 16),
+              "time_ids": torch.full((1, 6), 64.0)})
+    assert dict(attention.ROUTES) == {("plain", 8): n_blocks}
+    attention.ROUTES.clear()
+    q, odd = torch.zeros(1, 2, 1024, 16), torch.zeros(1, 2, 1100, 16)
+    attention.self_attention(q, q, q, scale=0.25)           # 1024 % 256 = 0
+    attention.self_attention(odd, odd, odd, scale=0.25)     # 1100 % 256 ≠ 0
+    attention.self_attention(q, q[:, :, :77], q[:, :, :77], scale=0.25)
+    assert dict(attention.ROUTES) == {("k7", 16): 1, ("plain", 16): 1}
+    attention.ROUTES.clear()
 
 
 def test_decode_span_is_at_build_and_in_a_batch_only_on_a_miss(tmp_path):
